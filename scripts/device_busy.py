@@ -8,7 +8,9 @@ by torch.profiler (SWARM_TPU_PROFILE_DIR=TRACEDIR, which writes
 TRACEDIR/trace.json). Output files land in the working directory, as
 with bin/swarm-torch. Prints one JSON line: the trace span, the union of
 the device's kernel, memcpy and memset intervals, their share of the
-span, and the kernels that took the most device time.
+span, and the kernels that took the most device time. Needs a CUDA
+device, like the launcher; SWARM_TORCH_DEVICE=cpu runs on the CPU (the
+trace then holds no device interval).
 """
 
 import json
@@ -61,11 +63,12 @@ def main(argv):
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     from swarm_tpu_torch.main import run
 
+    device = os.environ.get("SWARM_TORCH_DEVICE") or None
     os.environ.pop("SWARM_TPU_PROFILE_DIR", None)
-    if run(argv[1:], "swarm"):
+    if run(argv[1:], "swarm", device=device):
         return 1
     os.environ["SWARM_TPU_PROFILE_DIR"] = str(trace_dir)
-    if run(argv[1:], "swarm"):
+    if run(argv[1:], "swarm", device=device):
         return 1
     with open(trace_dir / "trace.json") as fh:
         print(json.dumps(busy_share(json.load(fh))))

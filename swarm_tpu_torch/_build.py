@@ -1,10 +1,12 @@
 """Builds the port's CUDA kernels with nvcc and loads them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds). The
-library lands in ``_cuda_build/`` next to this file, named by a hash of
-the sources and flags, and is built at the first ``load()`` of a
-process that finds no library for the current sources.
+Every ``csrc/*.cu`` file is compiled to an object file, all sources at
+once (one nvcc process each), and the objects are linked into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds). The library lands in ``_cuda_build/`` next to this
+file, named by a hash of the sources and flags, and is built at the
+first ``load()`` of a process that finds no library for the current
+sources.
 """
 
 import ctypes
@@ -21,7 +23,7 @@ BUILD_DIR = _PKG / "_cuda_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -60,16 +62,42 @@ def build(verbose: bool = False) -> str:
     if so.exists() and not verbose:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *(str(s) for s in CSRC.glob("*.cu"))]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{r.stderr}")
-    os.replace(tmp, so)
-    return r.stdout + r.stderr
+    tag = f"{so.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    extra = ["-Xptxas", "-v"] if verbose else []
+    procs = [
+        (src, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src, obj in zip(sources, objects)]
+    try:
+        log = []
+        failed = []
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) on "
+                              f"{src.name}:\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        r = subprocess.run(
+            [nvcc(), "-shared", "-o", str(tmp), *(str(o) for o in objects)],
+            capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to link ({r.returncode}):\n{r.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in (*objects, tmp):
+            path.unlink(missing_ok=True)
+    return "".join(log) + r.stdout + r.stderr
 
 
 def load() -> ctypes.CDLL:
@@ -86,5 +114,10 @@ def load() -> ctypes.CDLL:
             lib.swarm_d2_diffs.restype = i32
             lib.swarm_d2_max_w.argtypes = []
             lib.swarm_d2_max_w.restype = i32
+            scores = [vp, i64, i64, vp, i64, vp, i32, i64, i32, i32, i32]
+            lib.swarm_nw_banded_scores.argtypes = [*scores, i32, vp, vp]
+            lib.swarm_nw_banded_scores.restype = i32
+            lib.swarm_nw_full_scores.argtypes = [*scores, vp, vp]
+            lib.swarm_nw_full_scores.restype = i32
             _lib = lib
         return _lib

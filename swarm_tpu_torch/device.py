@@ -13,8 +13,13 @@ def device_available() -> bool:
 
 
 def default_device() -> torch.device:
-    """The first CUDA device when present, else the CPU."""
-    return torch.device("cuda", 0) if device_available() else torch.device("cpu")
+    """The first CUDA device; raises when there is none (the CPU is
+    never chosen silently: a caller that wants it asks for it)."""
+    if not device_available():
+        raise RuntimeError(
+            "swarm_tpu_torch found no CUDA device; to run on the CPU ask "
+            "for it: run(..., device='cpu') or SWARM_TORCH_DEVICE=cpu")
+    return torch.device("cuda", 0)
 
 
 def device_name() -> str:

@@ -3,12 +3,15 @@
 Counterpart of swarm_tpu/main.py (the reference main(),
 src/swarm.cc:633-675), with the same CLI and output streams:
 
-- d = 0: swarm_tpu's dereplication, unchanged;
-- d = 1: swarm_tpu's d=1 clustering on its host backend (the native C
-  network construction and BFS); the torch sort-join engine is not
-  ported yet;
-- d >= 2: models/general.py, whose network engine runs on the torch
-  device.
+- d = 0: models/derep.py (host);
+- d = 1: models/d1.py with the native C network construction and BFS;
+  the torch sort-join engine is not ported yet;
+- d >= 2: models/general.py, whose network and device engines run on
+  the torch device.
+
+The run uses the first CUDA device and raises when there is none; the
+CPU is used only when the caller passes ``device`` (in process) or sets
+SWARM_TORCH_DEVICE=cpu (the launcher).
 
 SWARM_TPU_PROFILE_DIR records a torch.profiler trace of the run
 (trace.json in that directory); SWARM_TPU_TIMING=1 prints per-phase
@@ -19,38 +22,19 @@ import contextlib
 import os
 import sys
 
-from swarm_tpu.cli import (
+from .cli import (
     args_check,
     args_init,
     args_show,
     close_files,
     open_files,
 )
-from swarm_tpu.db import db_read
-from swarm_tpu.fatal import FatalError
-from swarm_tpu.messages import HEADER_MESSAGE
-from swarm_tpu.params import Parameters, set_alignment_scoring_system
-from swarm_tpu.progress import Progress, trace_dump
-
+from .db import db_read
 from .device import default_device
-
-
-@contextlib.contextmanager
-def _host_d1_backend():
-    """swarm_tpu's d=1 clustering picks its network engine from
-    SWARM_TPU_BACKEND; "numpy" selects the native host code, which
-    imports no JAX. Temporary: the variable is process-wide, so another
-    thread sees it during the call; the port's own d=1 clustering will take
-    its engine as an argument instead."""
-    old = os.environ.get("SWARM_TPU_BACKEND")
-    os.environ["SWARM_TPU_BACKEND"] = "numpy"
-    try:
-        yield
-    finally:
-        if old is None:
-            del os.environ["SWARM_TPU_BACKEND"]
-        else:
-            os.environ["SWARM_TPU_BACKEND"] = old
+from .fatal import FatalError
+from .messages import HEADER_MESSAGE
+from .params import Parameters, set_alignment_scoring_system
+from .progress import Progress, trace_dump
 
 
 @contextlib.contextmanager
@@ -69,12 +53,19 @@ def _profiled(profile_dir):
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
-def run(argv, progname: str) -> int:
+def run(argv, progname: str, device=None) -> int:
+    """One CLI run. `device`: a torch device (or its name) for the
+    device engines; None takes cuda:0 and raises without one."""
+    import torch
+
     p = Parameters()
     p.logfile = sys.stderr
     used_options = args_init(argv, progname, p)
     set_alignment_scoring_system(p)
     args_check(used_options, p)
+    # after the options (help, version and option errors need no card),
+    # before any output file is opened
+    device = default_device() if device is None else torch.device(device)
     open_files(p)
     p.logfile.write(HEADER_MESSAGE)
     args_show(p, p.logfile)
@@ -85,18 +76,17 @@ def run(argv, progname: str) -> int:
         db = db_read(p, progress)
 
         if p.opt_differences == 0:
-            from swarm_tpu.models.derep import dereplicate
+            from .models.derep import dereplicate
 
             dereplicate(p, db, progress)
         elif p.opt_differences == 1:
-            from swarm_tpu.models.d1 import algo_d1_run
+            from .models.d1 import algo_d1_run
 
-            with _host_d1_backend():
-                algo_d1_run(p, db, progress)
+            algo_d1_run(p, db, progress)
         else:
             from .models.general import algo_run
 
-            algo_run(p, db, progress, default_device())
+            algo_run(p, db, progress, device)
 
     close_files(p)
     trace_dump()
@@ -106,7 +96,8 @@ def run(argv, progname: str) -> int:
 def main() -> int:
     progname = sys.argv[0]
     try:
-        return run(sys.argv[1:], progname)
+        return run(sys.argv[1:], progname,
+                   device=os.environ.get("SWARM_TORCH_DEVICE") or None)
     except FatalError:
         return 1
     except BrokenPipeError:

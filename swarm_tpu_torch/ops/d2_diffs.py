@@ -170,7 +170,7 @@ class DeviceDiffEngine:
     """
 
     def __init__(self, db, d: int, device: torch.device):
-        from swarm_tpu.ops.neighbors import pad_codes
+        from .neighbors import pad_codes
 
         self.d = int(d)
         self.n = len(db)

@@ -38,7 +38,7 @@ class D2NetworkEngine:
     TILE = 4096
 
     def __init__(self, db, d: int, device: torch.device, threads: int = 1):
-        from swarm_tpu import _native
+        from .. import _native
 
         self.db = db
         self.d = int(d)
@@ -114,7 +114,7 @@ class D2NetworkEngine:
         """Directed CSR adjacency (adj_start, adj_count, adj_to,
         adj_diff) of exact accepted edges, targets ascending, plus the
         screened-candidate count and the survivor count."""
-        from swarm_tpu import _native
+        from .. import _native
 
         db = self.db
         pa, pb, n_screened = self.candidate_pairs()

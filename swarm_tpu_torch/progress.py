@@ -1,0 +1,141 @@
+"""Progress reporting (reference: src/utils/progress.cc).
+
+Two modes, chosen by whether -l redirects logging to a file:
+ - stderr mode: "<prompt> 0%" at init, "  \\r<prompt> NN%" at milestones
+   (200 steps), "  \\r<prompt> 100%\\n" when done;
+ - logfile mode: "<prompt>" at init, " 100%\\n" when done (no updates).
+"""
+
+import os
+import sys
+import time
+
+GRANULARITY = 200
+
+_TIMING = bool(os.environ.get("SWARM_TPU_TIMING"))
+
+# SWARM_TPU_TRACE=FILE collects per-phase spans and dumps a
+# chrome://tracing-compatible JSON artifact at the end of the run
+# (main.py writes it) — the reference's PROFILE build-mode analog with
+# a structured artifact instead of stderr text
+_TRACE = os.environ.get("SWARM_TPU_TRACE")
+_trace_events = []
+
+
+def trace_dump() -> None:
+    """Write the collected phase spans to $SWARM_TPU_TRACE (chrome
+    trace-event format: load in chrome://tracing or Perfetto)."""
+    if not _TRACE or not _trace_events:
+        return
+    import json
+
+    events = list(_trace_events)
+    _trace_events.clear()  # one artifact per run (resident server)
+    with open(_TRACE, "w") as fh:
+        json.dump(
+            {
+                "traceEvents": [
+                    {
+                        "name": name,
+                        "ph": "X",
+                        "ts": int(t0 * 1e6),
+                        "dur": int((t1 - t0) * 1e6),
+                        "pid": os.getpid(),
+                        "tid": 0,
+                        "cat": "phase",
+                    }
+                    for name, t0, t1 in events
+                ],
+                "displayTimeUnit": "ms",
+            },
+            fh,
+        )
+
+
+class Progress:
+    def __init__(self, logfile, log_to_file: bool):
+        self.logfile = logfile
+        self.log_to_file = log_to_file
+        self.prompt = ""
+        self.size = 0
+        self.chunk = 1
+        self.next = 1
+        self._t0 = 0.0
+
+    _last_done = 0.0
+
+    def init(self, prompt: str, size: int) -> None:
+        self.prompt = prompt
+        self.size = size
+        self.chunk = 1 if size < GRANULARITY else size // GRANULARITY
+        self.next = 1
+        if _TRACE:
+            self._t0 = time.perf_counter()
+        if _TIMING:
+            self._t0 = time.perf_counter()
+            if Progress._last_done:
+                gap = self._t0 - Progress._last_done
+                if gap > 0.05:
+                    sys.__stderr__.write(
+                        f"[timing]   (gap before {prompt.strip()}) "
+                        f"{gap:8.3f}s\n"
+                    )
+        if self.log_to_file:
+            self.logfile.write(prompt)
+        else:
+            self.logfile.write(f"{prompt} 0%")
+
+    def update(self, progress: int) -> None:
+        if self.log_to_file:
+            return
+        if progress < self.next:
+            return
+        pct = 100.0 * progress / self.size if self.size else 100.0
+        self.logfile.write(f"  \r{self.prompt} {pct:.0f}%")
+        self.next = progress + self.chunk
+        self.logfile.flush()
+
+    def done(self) -> None:
+        if self.log_to_file:
+            self.logfile.write(" 100%\n")
+        else:
+            self.logfile.write(f"  \r{self.prompt} 100%\n")
+        self.logfile.flush()
+        if _TRACE:
+            _trace_events.append(
+                (self.prompt.strip(), self._t0, time.perf_counter())
+            )
+        if _TIMING:
+            Progress._last_done = time.perf_counter()
+            sys.__stderr__.write(
+                f"[timing] {self.prompt.strip():<40} "
+                f"{Progress._last_done - self._t0:8.3f}s\n"
+            )
+
+
+def replay_range(progress: Progress, total: int) -> None:
+    """Emit exactly the writes of `for k in range(total): update(k)`
+    without the O(total) Python loop (used by the native fast paths)."""
+    if progress.log_to_file or total <= 0:
+        return
+    k = progress.next
+    while k < total:
+        progress.update(k)
+        k = progress.next
+
+
+def replay_values(progress: Progress, values) -> None:
+    """Emit exactly the writes of `for v in values: update(v)` for a
+    non-decreasing value sequence (e.g. file positions)."""
+    import numpy as np
+
+    if progress.log_to_file or len(values) == 0:
+        return
+    values = np.asarray(values)
+    n = len(values)
+    j = 0
+    while True:
+        j = int(np.searchsorted(values, progress.next, side="left"))
+        if j >= n:
+            break
+        progress.update(int(values[j]))

@@ -1,7 +1,9 @@
 """bin/swarm-torch against bin/swarm, run as subprocesses on the same
 corpora and flags: exit code, stdout, stderr and every output file must
 be byte-identical. Both sides run the d>=2 network engine with device
-diffs (on the CPU here, through each engine's plain path)."""
+diffs (on the CPU here, through each engine's plain path), and the
+seed/subseed loop under SWARM_TPU_D2_ENGINE=device and python. The port
+runs on the CPU because the tests ask for it (SWARM_TORCH_DEVICE=cpu)."""
 
 import os
 import shutil
@@ -37,24 +39,47 @@ ENV = {
     "SWARM_TPU_D2_ENGINE": "network",
     "SWARM_TPU_D2_DIFFS": "device",
     "SWARM_TPU_D2_TILE": "128",
+    "SWARM_TORCH_DEVICE": "cpu",
 }
 
+#: a launcher for either side that lowers DeviceAligner's batch
+#: threshold, so the aligner really runs on a small corpus
+ALIGNER_LAUNCHER = """import sys
+if {side!r} == "jax":
+    from swarm_tpu.main import main
+    from swarm_tpu.ops.search_jax import DeviceAligner
+else:
+    from swarm_tpu_torch.main import main
+    from swarm_tpu_torch.ops.search_torch import DeviceAligner
+DeviceAligner.MIN_DEVICE_BATCH = 4
+sys.exit(main())
+"""
 
-def _run(launcher, workdir, args, fasta):
+
+def _run(launcher, workdir, args, fasta, engine=None):
+    """One run of bin/<launcher> (under SWARM_TPU_D2_ENGINE=engine when
+    given); for the seed/subseed-loop engines, of the aligner launcher for
+    that side instead."""
     workdir.mkdir(parents=True)
     (workdir / "input.fasta").write_text(fasta)
     # argv[0] is "swarm" on both sides: diagnostics print it
-    shutil.copy2(REPO_ROOT / "bin" / launcher, workdir / "swarm")
+    env = {**os.environ, **ENV, "PYTHONPATH": str(REPO_ROOT)}
+    if engine is not None:
+        env["SWARM_TPU_D2_ENGINE"] = engine
+    if engine in ("device", "python"):
+        side = "jax" if launcher == "swarm" else "torch"
+        (workdir / "swarm").write_text(ALIGNER_LAUNCHER.format(side=side))
+    else:
+        shutil.copy2(REPO_ROOT / "bin" / launcher, workdir / "swarm")
     return subprocess.run(
         [sys.executable, "swarm", *args, "input.fasta"],
-        cwd=workdir, capture_output=True, timeout=600,
-        env={**os.environ, **ENV, "PYTHONPATH": str(REPO_ROOT)},
+        cwd=workdir, capture_output=True, timeout=600, env=env,
     )
 
 
-def compare(tmp_path, args, fasta):
-    want = _run("swarm", tmp_path / "jax", args, fasta)
-    got = _run("swarm-torch", tmp_path / "torch", args, fasta)
+def compare(tmp_path, args, fasta, engine=None):
+    want = _run("swarm", tmp_path / "jax", args, fasta, engine)
+    got = _run("swarm-torch", tmp_path / "torch", args, fasta, engine)
     assert got.returncode == want.returncode, got.stderr
     assert got.stdout == want.stdout
     assert got.stderr == want.stderr
@@ -121,6 +146,48 @@ def test_16bit_falls_back_to_native(tmp_path):
     compare(tmp_path, ["-d", "30"] + D2_OUTPUTS, fasta)
 
 
+#: (flags, corpus) of the seed/subseed-loop cases: d = 2 (band 4),
+#: d = 3 (band 7) and a 16-bit case (d = 30: band 84, so the aligner
+#: takes its full-row scores)
+LOOP_CASES = {
+    "d2": (["-d", "2"], dict(seed=54, n_centers=5, cloud_size=14, length=70,
+                              max_edits=3)),
+    "d3": (["-d", "3"], dict(seed=55, n_centers=4, cloud_size=12, length=60,
+                              max_edits=4)),
+    "16bit": (["-d", "30"], dict(seed=56, n_centers=2, cloud_size=10,
+                                 length=50, max_edits=8)),
+}
+
+
+@pytest.mark.parametrize("engine", ["device", "python"])
+@pytest.mark.parametrize("case", sorted(LOOP_CASES))
+def test_seed_loop_engines(tmp_path, case, engine):
+    flags, corpus = LOOP_CASES[case]
+    got = compare(tmp_path, flags + D2_OUTPUTS, amplicon_cloud(**corpus),
+                  engine)
+    assert got.returncode == 0, got.stderr
+    assert (tmp_path / "torch" / "out.txt").stat().st_size > 0
+
+
+@pytest.mark.parametrize("case", sorted(LOOP_CASES))
+def test_device_engine_runs_the_aligner(tmp_path, monkeypatch, case):
+    """With the threshold lowered as in that launcher, the port's device
+    engine hands target lists to DeviceAligner on these corpora."""
+    from swarm_tpu_torch import metrics
+    from swarm_tpu_torch.main import run
+    from swarm_tpu_torch.ops.search_torch import DeviceAligner
+
+    flags, corpus = LOOP_CASES[case]
+    (tmp_path / "in.fasta").write_text(amplicon_cloud(**corpus))
+    monkeypatch.setattr(DeviceAligner, "MIN_DEVICE_BATCH", 4)
+    monkeypatch.setenv("SWARM_TPU_D2_ENGINE", "device")
+    monkeypatch.chdir(tmp_path)
+    metrics.reset()
+    assert run(flags + ["-o", "out.txt", "-l", "log.txt", "in.fasta"],
+               "swarm", device="cpu") == 0
+    assert metrics.last_run["d2_device_batches"] > 0
+
+
 def test_d0(tmp_path):
     fasta = amplicon_cloud(seed=49, n_centers=5, cloud_size=10, length=60)
     fasta += fasta.replace(">", ">dup")  # duplicate sequences to merge
@@ -134,6 +201,30 @@ def test_d1_all_outputs(tmp_path):
         seed=50, n_centers=6, cloud_size=15, length=70, max_edits=2)
     compare(tmp_path, ["-d", "1"] + [x for kv in OUTPUT_FLAGS.items()
                                      for x in kv], fasta)
+
+
+def test_d1_fastidious(tmp_path):
+    # light swarms one edit from a heavy swarm's members: the graft join
+    fasta = amplicon_cloud(
+        seed=57, n_centers=6, cloud_size=15, length=70, max_edits=2)
+    compare(tmp_path, ["-d", "1", "-f"] + [x for kv in OUTPUT_FLAGS.items()
+                                           for x in kv], fasta)
+
+
+def test_d1_no_otu_breaking_network(tmp_path):
+    fasta = amplicon_cloud(
+        seed=58, n_centers=5, cloud_size=12, length=60, max_edits=2)
+    compare(tmp_path, ["-d", "1", "-n", "-j", "network.txt", "-o", "out.txt",
+                       "-s", "stats.txt", "-i", "structure.txt",
+                       "-l", "log.txt"], fasta)
+
+
+@pytest.mark.parametrize("flags", [["-d", "2"], ["-d", "3", "-n"]],
+                         ids=["d2", "d3n"])
+def test_native_engine(tmp_path, flags):
+    fasta = amplicon_cloud(
+        seed=59, n_centers=6, cloud_size=15, length=70, max_edits=3)
+    compare(tmp_path, flags + D2_OUTPUTS, fasta, engine="native")
 
 
 def test_option_error_exit_code(tmp_path):
@@ -151,9 +242,10 @@ def test_port_imports_no_jax(tmp_path, d):
         "import sys\n"
         "from swarm_tpu_torch.main import run\n"
         f"assert run(['-d', '{d}', '-o', 'out.txt', '-l', 'log.txt', "
-        "'in.fasta'], 'swarm') == 0\n"
+        "'in.fasta'], 'swarm', device='cpu') == 0\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
         "if 'jax' in m)[:5]\n"
+        "assert 'swarm_tpu' not in sys.modules\n"
     )
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=tmp_path, capture_output=True,

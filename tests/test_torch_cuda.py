@@ -10,22 +10,26 @@ import numpy as np
 import pytest
 import torch
 
-from swarm_tpu import _native
+from swarm_tpu_torch import _native
+from swarm_tpu_torch.corpora import (
+    D2_DIFFS_KERNEL_CASES,
+    chain_corpus,
+    dense_cloud_corpus,
+    make_db,
+    read_db,
+)
 from swarm_tpu_torch.ops import d2_diffs as torch_diffs
+from swarm_tpu_torch.ops import nw_scores
 from swarm_tpu_torch.ops.d2_diffs import (
     DeviceDiffEngine,
     d2_diffs,
     d2_diffs_reference,
 )
 from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
+from swarm_tpu_torch.ops.neighbors import pad_codes
+from swarm_tpu_torch.ops.search_torch import DeviceAligner
 
-from test_d2_diffs_jax import _chain_corpus, _mkdb
-
-pytestmark = [
-    pytest.mark.cuda,
-    pytest.mark.skipif(not _native.available(),
-                       reason="native kernels unavailable"),
-]
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -35,25 +39,11 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-#: (seed, d, (mismatch, gapopen, gapextend)) tie-heavy chain corpora of
-#: tests/test_pallas_d2_diffs.py, plus two bands above the register
-#: variants; chip_smoke.py checks the kernel on the same cases
-KERNEL_CASES = [
-    (1, 2, (4, 12, 4)),
-    (4, 2, (2, 2, 2)),
-    (5, 4, (1, 1, 1)),
-    (6, 2, (9, 3, 1)),
-    (3, 3, (4, 12, 4)),
-    (8, 9, (4, 2, 1)),    # B=39: local-memory variant
-    (7, 16, (4, 2, 1)),   # B=67: local-memory variant
-]
-
-
-@pytest.mark.parametrize("seed,d,scores", KERNEL_CASES)
+@pytest.mark.parametrize("seed,d,scores", D2_DIFFS_KERNEL_CASES)
 def test_d2_diffs_kernel_matches_reference(tmp_path, cuda_device, seed, d,
                                            scores):
     mismatch, go, ge = scores
-    db = _mkdb(tmp_path, _chain_corpus(seed, 50, 48, d + 1))
+    db = make_db(tmp_path, chain_corpus(seed, 50, 48, d + 1))
     eng = DeviceDiffEngine(db, d, cuda_device)
     pa, pb = np.triu_indices(len(db), k=1)
     tq = torch.from_numpy(np.concatenate([pa, pb]).astype(np.int64))
@@ -73,7 +63,7 @@ def test_d2_diffs_kernel_matches_reference(tmp_path, cuda_device, seed, d,
 
 def test_d2_diffs_engine_matches_native_on_card(tmp_path, cuda_device):
     mismatch, go, ge, d = 4, 12, 4, 2
-    db = _mkdb(tmp_path, _chain_corpus(11, 80, 60, 3))
+    db = make_db(tmp_path, chain_corpus(11, 80, 60, 3))
     pa, pb = np.triu_indices(len(db), k=1)
     pa, pb = pa.astype(np.int64), pb.astype(np.int64)
     eng = DeviceDiffEngine(db, d, cuda_device)
@@ -88,9 +78,96 @@ def test_d2_diffs_engine_matches_native_on_card(tmp_path, cuda_device):
 
 def test_screen_on_card_matches_cpu(tmp_path, cuda_device, monkeypatch):
     monkeypatch.setenv("SWARM_TPU_D2_TILE", "128")
-    db = _mkdb(tmp_path, _chain_corpus(12, 300, 60, 3))  # 3 tiles
+    db = make_db(tmp_path, chain_corpus(12, 300, 60, 3))  # 3 tiles
     got = D2NetworkEngine(db, 2, cuda_device).candidate_pairs()
     want = D2NetworkEngine(db, 2, torch.device("cpu")).candidate_pairs()
     assert got[2] == want[2] > 0
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.fixture
+def cloud_aligner(tmp_path, cuda_device):
+    """DeviceAligner over a small dense-cloud corpus (~250 nt), with the
+    ids of every record but the seed (record 0, a centre)."""
+    path = tmp_path / "dense.fasta"
+    dense_cloud_corpus(path, n_centers=2, cloud=300, length=250)
+    db = read_db(path)
+    padded = pad_codes(db.codes, db.offsets, db.lengths, int(db.longest))
+    al = DeviceAligner(padded, db.lengths, cuda_device)
+    ids = torch.arange(1, len(db), device=cuda_device)
+    return al, ids
+
+
+@pytest.mark.parametrize("scores", [(4, 12, 4), (3, 6, 2), (18, 24, 13)])
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+def test_full_scores_kernel_matches_reference(cloud_aligner, scores,
+                                              ids_dtype):
+    al, ids = cloud_aligner
+    mm, go, ge = scores
+    ids = ids.to(ids_dtype)
+    before = nw_scores.launches["full_scores"]
+    got = nw_scores.full_scores(al.padded, al.lengths, 0, ids, mm, go, ge)
+    torch.cuda.synchronize()
+    assert nw_scores.launches["full_scores"] == before + 1
+    want = nw_scores.nw_scores_reference(
+        al.padded, al.lengths, 0, ids, mm, go, ge)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("scores", [(4, 12, 4), (3, 6, 2), (18, 24, 13)])
+@pytest.mark.parametrize("band", [1, 4, 20, 21, 63])
+def test_banded_scores_kernel_matches_reference(cloud_aligner, scores, band):
+    """Exact equality with the same-band plain version (B <= 20: register
+    variants; above: the local-memory variant), and the screen's contract
+    against the full-row kernel."""
+    al, ids = cloud_aligner
+    mm, go, ge = scores
+    nb = ids.numel()
+    before = nw_scores.launches["banded_scores"]
+    got = nw_scores.banded_scores(
+        al.padded, al.lengths, 0, ids, mm, go, ge, band)
+    torch.cuda.synchronize()
+    assert nw_scores.launches["banded_scores"] == before + 1
+    want = nw_scores.banded_scores_reference(
+        al.padded[0].expand(nb, -1), al.padded[ids],
+        al.lengths[0].expand(nb), al.lengths[ids], mm, go, ge, band)
+    assert torch.equal(got, want)
+    full = nw_scores.full_scores(al.padded, al.lengths, 0, ids, mm, go, ge)
+    cutoff = go + band * ge - 1
+    inside = full <= cutoff
+    assert inside.any()
+    assert torch.equal(got[inside], full[inside])
+    assert bool((got[~inside] > cutoff).all())
+
+
+def test_score_kernels_take_empty_rows_and_empty_lists(cuda_device):
+    padded = torch.zeros((3, 40), dtype=torch.uint8, device=cuda_device)
+    padded[0, :30] = 1
+    padded[1, :28] = 1
+    lengths = torch.tensor([30, 28, 0], dtype=torch.int32, device=cuda_device)
+    ids = torch.tensor([1, 2], device=cuda_device)
+    full = nw_scores.full_scores(padded, lengths, 0, ids, 18, 24, 13)
+    band = nw_scores.banded_scores(padded, lengths, 0, ids, 18, 24, 13, 4)
+    assert full.tolist() == [24 + 2 * 13, nw_scores.INF]
+    assert band.tolist() == [24 + 2 * 13, nw_scores.INF]
+    none = ids[:0]
+    assert nw_scores.full_scores(
+        padded, lengths, 0, none, 18, 24, 13).numel() == 0
+    # an empty seed: INF for every target
+    assert nw_scores.full_scores(
+        padded, lengths, 2, ids[:1], 18, 24, 13).tolist() == [nw_scores.INF]
+    assert nw_scores.banded_scores(
+        padded, lengths, 2, ids[:1], 18, 24, 13, 4).tolist() == [nw_scores.INF]
+
+
+def test_device_aligner_on_card_matches_cpu(cloud_aligner):
+    al, ids = cloud_aligner
+    cpu = DeviceAligner(al.padded.cpu().numpy(), al.lengths.cpu().numpy(),
+                        torch.device("cpu"))
+    ids_np = ids[:200].cpu().numpy()
+    for cutoff in (None, 74, 30 * 37):  # full-row, band 4, band 84: full-row
+        np.testing.assert_array_equal(
+            al.scores(0, ids_np, 18, 24, 13, cutoff=cutoff),
+            cpu.scores(0, ids_np, 18, 24, 13, cutoff=cutoff))

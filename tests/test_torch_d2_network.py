@@ -125,6 +125,11 @@ def test_engine_choice(monkeypatch):
     monkeypatch.setenv("SWARM_TPU_D2_ENGINE", "network")
     assert choose_engine(10, 8, CPU) == "network"
     assert choose_engine(10, 16, CPU) == "native"
-    monkeypatch.setenv("SWARM_TPU_D2_ENGINE", "python")
+    # the seed/subseed loop runs only when asked for, in either regime
+    for engine in ("python", "device"):
+        monkeypatch.setenv("SWARM_TPU_D2_ENGINE", engine)
+        assert choose_engine(100_000, 8, cuda) == engine
+        assert choose_engine(10, 16, CPU) == engine
+    monkeypatch.setenv("SWARM_TPU_D2_ENGINE", "jax")
     with pytest.raises(ValueError):
         choose_engine(10, 8, CPU)

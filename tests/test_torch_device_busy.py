@@ -2,6 +2,7 @@
 chrome trace, on synthetic traces and on a traced CPU run of the port."""
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -56,6 +57,7 @@ def test_traced_run_on_cpu(tmp_path):
         [sys.executable, str(REPO / "scripts" / "device_busy.py"),
          str(tmp_path / "trace"), "-d", "2", "-o", "out.txt", str(fasta)],
         cwd=tmp_path, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "SWARM_TORCH_DEVICE": "cpu"},
     )
     assert proc.returncode == 0, proc.stderr
     got = json.loads(proc.stdout.splitlines()[-1])

@@ -1,0 +1,301 @@
+"""swarm_tpu_torch stands on its own, and its copied host layers have
+not drifted from swarm_tpu's.
+
+(a) statically: no module of the port, nor chip_smoke.py, nor the
+    launcher, nor scripts/device_busy.py imports swarm_tpu, jax, bench
+    or a tests/ module;
+(b) in a running process: bin/swarm-torch for d = 0, 1, 2 on the CPU
+    ends with neither jax nor swarm_tpu in sys.modules;
+(c) the copies against the originals on seeded corpora: db_read and the
+    native wrappers give the same arrays, the corpus generators the same
+    records (the CLI cases of tests/test_torch_cli.py hold the outputs
+    byte for byte);
+(d) run() with no device asked raises on a machine without CUDA, and
+    runs when the CPU is asked for.
+"""
+
+import ast
+import io
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from genfasta import amplicon_cloud
+
+REPO_ROOT = Path(__file__).resolve().parent.parent
+
+PORT_FILES = sorted(
+    [*(REPO_ROOT / "swarm_tpu_torch").rglob("*.py"),
+     REPO_ROOT / "chip_smoke.py",
+     REPO_ROOT / "bin" / "swarm-torch",
+     REPO_ROOT / "scripts" / "device_busy.py"])
+
+#: top-level module names the port must not import: the JAX package and
+#: JAX itself, the benchmark script, and every module under tests/
+FORBIDDEN = {"swarm_tpu", "jax", "jaxlib", "bench", "bench_kernels"} | {
+    p.stem for p in (REPO_ROOT / "tests").glob("*.py")}
+
+
+def _imported_modules(path):
+    """(line, top-level module) of every import in the file, wherever it
+    stands (module level or inside a function)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, (node.module or "").split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                "import_module", "__import__"):
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield node.lineno, str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO_ROOT)))
+def test_port_file_imports_nothing_of_the_jax_side(path):
+    bad = [(line, mod) for line, mod in _imported_modules(path)
+           if mod in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO_ROOT)} imports {bad}"
+
+
+def test_port_file_list_is_complete():
+    names = {str(p.relative_to(REPO_ROOT)) for p in PORT_FILES}
+    for must in ("swarm_tpu_torch/main.py", "swarm_tpu_torch/_native/__init__.py",
+                 "swarm_tpu_torch/models/general.py",
+                 "swarm_tpu_torch/ops/search_torch.py", "chip_smoke.py",
+                 "bin/swarm-torch", "scripts/device_busy.py"):
+        assert must in names
+    assert "_host_d1_backend" not in (
+        REPO_ROOT / "swarm_tpu_torch" / "main.py").read_text()
+
+
+#: runs the launcher in this interpreter, then looks at what it imported
+LAUNCHER_PROBE = """import runpy, sys
+try:
+    runpy.run_path({launcher!r}, run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "swarm_tpu", "bench"))
+assert not bad, bad[:5]
+"""
+
+
+@pytest.mark.parametrize("flags", [
+    ["-d", "0"], ["-d", "1"], ["-d", "1", "-f"], ["-d", "2"]],
+    ids=lambda f: "".join(f))
+def test_launcher_process_holds_no_jax(tmp_path, flags):
+    (tmp_path / "in.fasta").write_text(
+        amplicon_cloud(seed=71, n_centers=4, cloud_size=10, length=60))
+    probe = LAUNCHER_PROBE.format(
+        launcher=str(REPO_ROOT / "bin" / "swarm-torch"))
+    r = subprocess.run(
+        [sys.executable, "-c", probe, *flags, "-o", "out.txt", "-l",
+         "log.txt", "in.fasta"],
+        cwd=tmp_path, capture_output=True, timeout=300,
+        env={**os.environ, "SWARM_TORCH_DEVICE": "cpu",
+             "PYTHONPATH": str(REPO_ROOT)})
+    assert r.returncode == 0, r.stderr.decode()
+    assert (tmp_path / "out.txt").stat().st_size > 0
+
+
+# ---- (c) the copies against the originals -------------------------------
+
+def _read_db(package, path):
+    db_mod = __import__(f"{package}.db", fromlist=["db_read"])
+    params = __import__(f"{package}.params", fromlist=["Parameters"])
+    progress = __import__(f"{package}.progress", fromlist=["Progress"])
+    p = params.Parameters()
+    p.input_filename = str(path)
+    p.logfile = io.StringIO()
+    return db_mod.db_read(p, progress.Progress(io.StringIO(), True))
+
+
+@pytest.fixture(scope="module")
+def both_dbs(tmp_path_factory):
+    path = tmp_path_factory.mktemp("selfcontained") / "in.fasta"
+    path.write_text(amplicon_cloud(
+        seed=72, n_centers=8, cloud_size=20, length=80, max_edits=3))
+    return _read_db("swarm_tpu", path), _read_db("swarm_tpu_torch", path)
+
+
+def test_db_read_gives_the_same_arrays(both_dbs):
+    want, got = both_dbs
+    assert len(got) == len(want) > 100
+    assert got.longest == want.longest
+    for name in ("codes", "offsets", "lengths", "abundances"):
+        a, b = getattr(want, name), getattr(got, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert list(got.headers) == list(want.headers)
+
+
+def _native_results(native, db):
+    """A dict of arrays from the native wrappers the d=1 and d>=2 host
+    paths call, on one database."""
+    n = len(db)
+    ab = np.ascontiguousarray(db.abundances, dtype=np.int64)
+    lengths = np.ascontiguousarray(db.lengths, dtype=np.int64)
+    out = {}
+    out["pad_rows"] = native.pad_rows(
+        db.codes, db.offsets, db.lengths, int(db.longest))
+    profiles = native.qgram_profiles_arena(db.codes, db.offsets, db.lengths)
+    out["qgram_profiles_arena"] = profiles
+    out["qgram_profiles_native"] = native.qgram_profiles_native(
+        out["pad_rows"], db.lengths)
+    for no_break in (False, True):
+        ef, et = native.d1_network(
+            db.codes, db.offsets, db.lengths, ab, no_break, nthreads=1)
+        out[f"d1_network_from_{no_break}"] = ef
+        out[f"d1_network_to_{no_break}"] = et
+    pa, pb = np.triu_indices(min(n, 60), k=1)
+    diffs = native.d2_diffs_pairs(
+        db.codes, db.offsets, db.lengths, db.abundances,
+        pa.astype(np.int64), pb.astype(np.int64), 2, 18, 24, 13, False,
+        nthreads=1)
+    for i, arr in enumerate(diffs):
+        out[f"d2_diffs_pairs_{i}"] = arr
+    res = native.algo_cluster(
+        profiles, db.codes, db.offsets, lengths, db.abundances, 2,
+        18, 24, 13, 8, False, True)
+    for key in ("order", "swarmid", "swarm_bound", "swarm_seed", "swarm_size",
+                "struct_parent", "struct_child", "struct_diff", "struct_gen"):
+        out[f"algo_cluster_{key}"] = np.asarray(res[key])
+    order = np.arange(n, dtype=np.int64)
+    diffest = np.zeros(n, dtype=np.int64)
+    t_pos, t_ids, _ = native.d2_gen1_screen(
+        profiles, order, ab, diffest, 1, 0, int(ab[0]), False, 2)
+    out["d2_gen1_screen_pos"], out["d2_gen1_screen_ids"] = t_pos, t_ids
+    out["d2_gen1_screen_diffest"] = diffest
+    heavy = np.arange(0, n // 2, dtype=np.int64)
+    light = np.arange(n // 2, n, dtype=np.int64)
+    joined = native.graft_join(
+        db.codes, db.offsets, db.lengths, n, heavy, light)
+    out["graft_join_count"] = np.asarray(joined[0])
+    out["graft_join_cand"] = np.asarray(joined[1])
+    return out
+
+
+def test_native_wrappers_give_the_same_arrays(both_dbs):
+    from swarm_tpu import _native as jax_side
+    from swarm_tpu_torch import _native as port_side
+
+    assert jax_side.available() and port_side.available()
+    want_db, got_db = both_dbs
+    want = _native_results(jax_side, want_db)
+    got = _native_results(port_side, got_db)
+    assert sorted(got) == sorted(want)
+    for name, a in want.items():
+        np.testing.assert_array_equal(got[name], a, err_msg=name)
+    assert len(want["d1_network_from_False"]) > 0
+    assert (want["d2_diffs_pairs_0"] >= 0).any() or len(
+        want["d2_diffs_pairs_0"]) > 0
+
+
+def test_native_library_is_the_ports_own():
+    from swarm_tpu_torch import _native
+
+    src = REPO_ROOT / "swarm_tpu_torch" / "_native" / "swarm_native.c"
+    assert src.read_bytes() == (
+        REPO_ROOT / "swarm_tpu" / "_native" / "swarm_native.c").read_bytes()
+    so = _native.library_path()
+    assert so.exists()
+    assert so.parent == REPO_ROOT / "swarm_tpu_torch" / "_native_build"
+    ignored = (REPO_ROOT / ".gitignore").read_text().splitlines()
+    assert "swarm_tpu_torch/_native_build/" in ignored
+
+
+@pytest.mark.parametrize("name", [
+    "fatal", "params", "messages", "getopt_gnu", "progress", "metrics",
+    "stdcxx_sort", "db", "ops/nw_scalar", "ops/qgram", "ops/search",
+    "models/derep"])
+def test_unchanged_host_layers_equal_their_originals(name):
+    """These layers needed no change beyond their place in the package:
+    the copy is the original, byte for byte."""
+    assert (REPO_ROOT / "swarm_tpu_torch" / f"{name}.py").read_bytes() == (
+        REPO_ROOT / "swarm_tpu" / f"{name}.py").read_bytes()
+
+
+def test_corpus_generators_equal_their_originals(tmp_path):
+    import bench
+    from swarm_tpu_torch import corpora
+    from test_d2_diffs_jax import _chain_corpus
+
+    for n, length in ((300, 60), (500, 150)):
+        a, b = tmp_path / f"a{n}.fasta", tmp_path / f"b{n}.fasta"
+        assert corpora.gen_corpus(a, n=n, length=length) == \
+            bench.gen_corpus(b, n=n, length=length)
+        assert a.read_bytes() == b.read_bytes()
+    for seed, edits in ((1, 3), (7, 17)):
+        assert corpora.chain_corpus(seed, 50, 48, edits) == \
+            _chain_corpus(seed, 50, 48, edits)
+
+
+def test_dense_cloud_corpus_feeds_the_aligner(tmp_path):
+    """Every family's centre sees its whole cloud within 2 differences,
+    and the hub its own: the lists the device engine hands over."""
+    from swarm_tpu_torch import corpora
+    from swarm_tpu_torch.ops.search import search_diffs
+
+    path = tmp_path / "dense.fasta"
+    n = corpora.dense_cloud_corpus(path, n_centers=2, cloud=40, length=60)
+    assert n == 2 * (2 * 40 + 2)
+    db = _read_db("swarm_tpu_torch", path)
+    assert len(db) == n  # all records distinct
+    # sorted by abundance: the two centres first, then the two hubs
+    seqs = [db.sequence_codes(i) for i in range(n)]
+    width = max(len(s) for s in seqs)
+    rows = np.zeros((n, width), dtype=np.uint8)
+    for i, s in enumerate(seqs):
+        rows[i, : len(s)] = s
+    lens = np.array([len(s) for s in seqs], dtype=np.int64)
+    for centre in (0, 1):
+        _, diffs, _ = search_diffs(
+            seqs[centre], rows, lens, 18, 24, 13, 8)
+        assert int((diffs <= 2).sum()) >= 40 + 2  # itself, hub, cloud
+
+
+# ---- (d) the device choice ----------------------------------------------
+
+def test_run_without_a_device_request_needs_cuda(tmp_path, monkeypatch):
+    from swarm_tpu_torch.device import default_device
+    from swarm_tpu_torch.main import run
+
+    if torch.cuda.is_available():
+        assert default_device() == torch.device("cuda", 0)
+        return
+    (tmp_path / "in.fasta").write_text(
+        amplicon_cloud(seed=73, n_centers=2, cloud_size=5, length=40))
+    monkeypatch.chdir(tmp_path)
+    argv = ["-d", "2", "-o", "out.txt", "-l", "log.txt", "in.fasta"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        default_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(argv, "swarm")
+    assert not (tmp_path / "out.txt").exists()
+    assert run(argv, "swarm", device="cpu") == 0
+    assert (tmp_path / "out.txt").stat().st_size > 0
+    assert run(argv, "swarm", device=torch.device("cpu")) == 0
+
+
+def test_launcher_without_a_device_request_fails_loudly(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("the launcher takes the card here")
+    (tmp_path / "in.fasta").write_text(
+        amplicon_cloud(seed=74, n_centers=2, cloud_size=5, length=40))
+    env = {k: v for k, v in os.environ.items() if k != "SWARM_TORCH_DEVICE"}
+    r = subprocess.run(
+        [sys.executable, str(REPO_ROOT / "bin" / "swarm-torch"), "-d", "2",
+         "-o", "out.txt", "-l", "log.txt", "in.fasta"],
+        cwd=tmp_path, capture_output=True, timeout=300, env=env)
+    assert r.returncode != 0
+    assert b"no CUDA device" in r.stderr
+    assert not (tmp_path / "out.txt").exists()
