@@ -7,16 +7,22 @@ Phases, each printing its own lines; any failure exits 1 before the
 final line:
 
 1. the card (nvidia-smi name and power limit), then the native host
-   library and the CUDA kernels built from the checkout's sources;
+   library and the CUDA kernels built from the checkout's sources, and
+   the card's rate of int32 adds and mins (csrc/probe.cu);
 2. kernel d2_diffs against its plain PyTorch version on the card,
-   exactly (integer DP), on tie-heavy chain corpora and on 2^20 tasks
-   made of the d2_100k corpus' candidate pairs; both timed;
+   exactly (integer DP), on tie-heavy chain corpora, on a ragged-length
+   corpus for every register variant B = 1..20 and two cases of the
+   general variant, and on 2^20 tasks made of the d2_100k corpus'
+   candidate pairs; the last timed;
 3. kernels banded_scores and full_scores (one seed of the dense-cloud
    corpus against 4,096 targets of ~400 nt) against their plain
    versions on the card, exactly, for bands B = 4, 20, 63 and three
    penalty sets; the banded scores also against the full-row kernel
    under the screen's contract (equal where <= cutoff, both above it
-   elsewhere); both timed;
+   elsewhere); both timed; full_scores also on seeds and targets whose
+   lengths sit on the edges of its schedule (1, 31, 32, 33, around
+   32 * C for every strip width C, two passes, an empty row, a
+   one-element list);
 4. main paths through swarm_tpu_torch.main.run, each with a warm-up
    run, then one timed run with every kernel's launch count set to 0
    before it and read after it, then the port's native C engine
@@ -32,8 +38,18 @@ final line:
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and a C
 compiler. Imports no JAX.
+
+To compare two versions of the port on one card, run each in turns:
+
+    python3 chip_smoke.py --quick [--tree OTHER_CHECKOUT]
+
+runs only the timed kernel phases (2 and 3 at their timed shapes) and
+the d2_100k and d2_wide main paths of the package under OTHER_CHECKOUT
+(default: this checkout), and ends with one JSON line
+{"quick": {card, tree, kernels, main_paths}} instead of the two above.
 """
 
+import argparse
 import io
 import json
 import os
@@ -51,14 +67,20 @@ os.environ["SWARM_TPU_TIMING"] = "1"
 os.environ["SWARM_TPU_DB_CACHE"] = "0"
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
-# rate, and the float32 rate outside the tensor cores, which stands in
-# for the int32 work of these kernels (the data sheet has no int32 row)
+# rate, and the float32 rate outside the tensor cores (an FMA counted as
+# two), which stands in for the int32 work of these kernels: the data
+# sheet has no int32 row, and int32 add and min run at a lower rate,
+# which phase_probe measures
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-#: arithmetic per DP cell: the recurrences written out
-#: (compare, select, adds, mins, clamps)
-OPS_PER_SCORE_CELL = 12
-OPS_PER_DIFF_CELL = 35  # the cost cell plus the carried diff counts
+#: arithmetic per DP cell: the fewest instructions the function is known
+#: to need, read from the compiled code of the kernels here. Score cell:
+#: a compare, a three-way min, two add-mins, two adds. Diff cell (cost,
+#: tie-break order and carried count in one word): a three-way min, two
+#: add-mins, three logic operations, two adds. The recurrences written
+#: out plainly (compares, selects, clamps) come to 12 and 35.
+OPS_PER_SCORE_CELL = 6
+OPS_PER_DIFF_CELL = 8
 
 
 def say(msg):
@@ -86,6 +108,114 @@ def bound(n_bytes, n_ops):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_probe(dev):
+    """The card's rate of int32 adds and mins."""
+    import torch
+
+    from swarm_tpu_torch._build import load
+
+    lib = load()
+    stream = torch.cuda.current_stream().cuda_stream
+    blocks, iters = 132 * 8, 4096
+    out = torch.empty(blocks * 256, dtype=torch.int32, device=dev)
+
+    def launch():
+        if lib.swarm_probe_int32_rate(blocks, iters, 3, out.data_ptr(),
+                                      stream):
+            raise AssertionError("int32 rate probe failed to launch")
+
+    ms = cuda_ms(launch, 5)
+    ops = lib.swarm_probe_int32_ops(blocks, iters)
+    say(f"probe int32 rate: {blocks} blocks x 256 threads, 8 independent "
+        f"chains of {iters} steps (two adds and a min each): ops={ops} "
+        f"ms={ms:.4f} int32_tops_per_s={ops / ms / 1e9:.2f} "
+        f"(bounds use {PEAK_OPS_PER_S / 1e12:.0f}, the float32 rate)")
+
+
+def phase_d2_diffs_bands(dev):
+    """d2_diffs against its plain version for every register variant
+    (B = 1..20) and the general variant, on a ragged-length corpus;
+    returns max_abs_err."""
+    import numpy as np
+    import torch
+
+    from swarm_tpu_torch._build import load
+    from swarm_tpu_torch.corpora import D2_DIFFS_BAND_CASES, ragged_rows
+    from swarm_tpu_torch.ops.d2_diffs import d2_diffs, d2_diffs_reference
+
+    lib = load()
+    worst = 0
+    packed = []
+    for B, d, (mm, go, ge) in D2_DIFFS_BAND_CASES:
+        rows_np, lens_np = ragged_rows(100 + B, 96, 61 + B, B + 2)
+        rows = torch.from_numpy(rows_np).to(dev)
+        lens = torch.from_numpy(lens_np).to(dev)
+        n = len(lens_np)
+        tq = torch.arange(n, device=dev).repeat_interleave(n)
+        td = torch.arange(n, device=dev).repeat(n)
+        got = d2_diffs(rows, lens, tq, td, B, mm, go, ge, d)
+        want = d2_diffs_reference(rows[tq], rows[td], lens[tq], lens[td], B,
+                                  rows.shape[1], mm, go, ge, d)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        worst = max(worst, err)
+        packed.append(lib.swarm_d2_packed(
+            -(-rows.shape[1] // 16) * 16, B, mm, go, ge, d))
+        say(f"kernel d2_diffs ragged corpus B={B} d={d} scores={(mm, go, ge)} "
+            f"variant={'register' if packed[-1] else 'general'} "
+            f"lengths={int(lens_np.min())}..{int(lens_np.max())} "
+            f"tasks={tq.numel()} accepted={int((want >= 0).sum())} "
+            f"max_abs_err={err}")
+        if err:
+            raise AssertionError(
+                f"d2_diffs kernel disagrees with its plain version at B={B}")
+        if not (want >= 0).any() or not (want < 0).any():
+            raise AssertionError(f"ragged corpus at B={B} decides nothing")
+    if packed != [1] * 20 + [0, 0]:
+        raise AssertionError(f"unexpected d2_diffs variants: {packed}")
+    return worst
+
+
+def phase_full_scores_edges(dev):
+    """full_scores against its plain version where the lengths sit on
+    the edges of the kernel's schedule; returns max_abs_err."""
+    import torch
+
+    from swarm_tpu_torch.corpora import score_edge_cases
+    from swarm_tpu_torch.ops import nw_scores
+
+    built = nw_scores.built_full_strips()
+    if built != nw_scores.FULL_STRIPS:
+        raise AssertionError(f"the library's strips {built} are not "
+                             f"FULL_STRIPS {nw_scores.FULL_STRIPS}")
+    worst = n_cases = n_pairs = 0
+    for i, (name, padded, lengths, seed_id, ids) in enumerate(
+            score_edge_cases(nw_scores.FULL_STRIPS)):
+        mm, go, ge = ((4, 12, 4), (18, 24, 13), (1, 1, 1))[i % 3]
+        padded, lengths, ids = (torch.from_numpy(x).to(dev)
+                                for x in (padded, lengths, ids))
+        if i % 2:
+            ids = ids.to(torch.int32)
+        got = nw_scores.full_scores(padded, lengths, seed_id, ids, mm, go, ge)
+        want = nw_scores.nw_scores_reference(
+            padded, lengths, seed_id, ids, mm, go, ge)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        worst = max(worst, err)
+        n_cases += 1
+        n_pairs += ids.numel()
+        if err:
+            say(f"kernel full_scores edge case {name} scores={(mm, go, ge)} "
+                f"lengths={lengths.tolist()} got={got.tolist()} "
+                f"want={want.tolist()}")
+            raise AssertionError(
+                f"full_scores kernel disagrees with its plain version on "
+                f"edge case {name}")
+    say(f"kernel full_scores edge cases: cases={n_cases} pairs={n_pairs} "
+        f"strips={nw_scores.FULL_STRIPS} max_abs_err={worst}")
+    return worst
 
 
 def phase_d2_diffs_ties(dev, work):
@@ -320,7 +450,8 @@ def phase_main_path(name, fasta, flags, work, engine, kernel):
     """Warm-up run, then one timed run through the port under `engine`
     with every kernel's launch count set to 0 before it and read after
     it; then the native engine's run, whose files the port's must equal
-    byte for byte. Returns the timed run's launch count of `kernel`."""
+    byte for byte. Returns the timed run's launch count of `kernel`,
+    its seconds, the native engine's, and its [timing] lines."""
     import torch
 
     from swarm_tpu_torch import metrics
@@ -360,14 +491,25 @@ def phase_main_path(name, fasta, flags, work, engine, kernel):
                                  f"engine's ({len(a)} vs {len(b)} bytes)")
     say(f"main path {name}: {len(outputs)} output files byte-identical "
         f"to the native engine")
-    return counts[kernel]
+    return {"launches": counts[kernel], "warm_s": sec, "native_s": native_s,
+            "timing": timing}
 
 
 def main():
-    if not (REPO / "swarm_tpu_torch").is_dir():
-        say("FAIL swarm_tpu_torch not found next to chip_smoke.py")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", type=Path, default=REPO,
+                    help="checkout whose swarm_tpu_torch runs (with --quick)")
+    ap.add_argument("--quick", action="store_true",
+                    help="timed kernel phases and two main paths only")
+    args = ap.parse_args()
+    tree = args.tree.resolve()
+    if not (tree / "swarm_tpu_torch").is_dir():
+        say(f"FAIL swarm_tpu_torch not found in {tree}")
         return 1
-    sys.path.insert(0, str(REPO))
+    if tree != REPO and not args.quick:
+        say("FAIL --tree needs --quick")
+        return 1
+    sys.path.insert(0, str(tree))
     import torch
 
     if not torch.cuda.is_available():
@@ -394,10 +536,16 @@ def main():
         f"({_native.library_path().name}), CUDA kernels {t2 - t1:.1f}s "
         f"({_build.library_path().name})")
     for ln in log.splitlines():
-        if "registers" in ln or "spill" in ln:
-            say(f"  ptxas {ln.strip()}")
+        if "Compiling entry function" in ln or "registers" in ln \
+                or "spill" in ln:
+            say(f"  {ln.strip()}")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        if args.quick:
+            say(json.dumps({"quick": {
+                "card": card, "tree": str(tree),
+                **run_quick(dev, Path(tmp))}}))
+            return 0
         kernels = run_phases(dev, Path(tmp))
     say(json.dumps({"kernels": kernels}))
     say(card)
@@ -409,43 +557,68 @@ def main():
     return 0
 
 
-def run_phases(dev, work):
-    """Kernel and main-path phases; returns the kernel table."""
+#: name -> (corpus maker, its arguments, CLI flags, engine, kernel)
+MAIN_PATHS = {
+    "d2_100k": ("gen_corpus", {"n": 100_000, "length": 150},
+                ["-d", "2", "-o", "out.txt", "-s", "stats.txt", "-u",
+                 "uclust.txt", "-i", "structure.txt", "-w", "seeds.fasta"],
+                None, "d2_diffs"),
+    "d2_long": ("gen_corpus", {"n": 20_000, "length": 400},
+                ["-d", "2", "-o", "out.txt", "-s", "stats.txt"],
+                None, "d2_diffs"),
+    "d2_device": ("dense_cloud_corpus",
+                  {"n_centers": 4, "cloud": 2600, "length": 400},
+                  ["-d", "2", "-o", "out.txt", "-s", "stats.txt", "-i",
+                   "structure.txt"], "device", "banded_scores"),
+    "d2_wide": ("dense_cloud_corpus",
+                {"n_centers": 1, "cloud": 2601, "length": 400},
+                ["-d", "5", "-m", "1", "-p", "20", "-g", "1", "-e", "1",
+                 "-o", "out.txt", "-s", "stats.txt", "-i", "structure.txt"],
+                "device", "full_scores"),
+}
+
+
+def make_corpora(work, names):
     from swarm_tpu_torch import corpora
 
     corpus = {}
-    for name, n, length in (("d2_100k", 100_000, 150),
-                            ("d2_long", 20_000, 400)):
+    for name in names:
+        maker, kwargs = MAIN_PATHS[name][:2]
         corpus[name] = work / f"{name}.fasta"
-        corpora.gen_corpus(corpus[name], n=n, length=length)
-    for name, n_centers, cloud in (("d2_device", 4, 2600),
-                                   ("d2_wide", 1, 2601)):
-        corpus[name] = work / f"{name}.fasta"
-        corpora.dense_cloud_corpus(
-            corpus[name], n_centers=n_centers, cloud=cloud, length=400)
+        getattr(corpora, maker)(corpus[name], **kwargs)
+    return corpus
 
+
+def run_quick(dev, work):
+    """The timed kernel phases and the d2_100k and d2_wide main paths."""
+    corpus = make_corpora(work, ("d2_100k", "d2_device", "d2_wide"))
+    rows = {"d2_diffs": phase_d2_diffs_at_scale(dev, corpus["d2_100k"])}
+    rows.update(phase_nw_scores(dev, corpus["d2_device"]))
+    paths = {}
+    for name in ("d2_100k", "d2_wide"):
+        flags, engine, kernel = MAIN_PATHS[name][2:]
+        paths[name] = phase_main_path(name, corpus[name], flags, work,
+                                      engine, kernel)
+    return {"kernels": rows, "main_paths": paths}
+
+
+def run_phases(dev, work):
+    """Kernel and main-path phases; returns the kernel table."""
+    corpus = make_corpora(work, MAIN_PATHS)
+
+    phase_probe(dev)
     rows = {"d2_diffs": phase_d2_diffs_at_scale(dev, corpus["d2_100k"])}
     rows["d2_diffs"]["max_abs_err"] = max(
-        rows["d2_diffs"]["max_abs_err"], phase_d2_diffs_ties(dev, work))
+        rows["d2_diffs"]["max_abs_err"], phase_d2_diffs_ties(dev, work),
+        phase_d2_diffs_bands(dev))
     rows.update(phase_nw_scores(dev, corpus["d2_device"]))
+    rows["full_scores"]["max_abs_err"] = max(
+        rows["full_scores"]["max_abs_err"], phase_full_scores_edges(dev))
 
     launches = {}
-    launches["d2_diffs"] = phase_main_path(
-        "d2_100k", corpus["d2_100k"],
-        ["-d", "2", "-o", "out.txt", "-s", "stats.txt", "-u", "uclust.txt",
-         "-i", "structure.txt", "-w", "seeds.fasta"], work, None, "d2_diffs")
-    phase_main_path("d2_long", corpus["d2_long"],
-                    ["-d", "2", "-o", "out.txt", "-s", "stats.txt"], work,
-                    None, "d2_diffs")
-    launches["banded_scores"] = phase_main_path(
-        "d2_device", corpus["d2_device"],
-        ["-d", "2", "-o", "out.txt", "-s", "stats.txt", "-i",
-         "structure.txt"], work, "device", "banded_scores")
-    launches["full_scores"] = phase_main_path(
-        "d2_wide", corpus["d2_wide"],
-        ["-d", "5", "-m", "1", "-p", "20", "-g", "1", "-e", "1",
-         "-o", "out.txt", "-s", "stats.txt", "-i", "structure.txt"], work,
-        "device", "full_scores")
+    for name, (_, _, flags, engine, kernel) in MAIN_PATHS.items():
+        ran = phase_main_path(name, corpus[name], flags, work, engine, kernel)
+        launches.setdefault(kernel, ran["launches"])  # d2_diffs: d2_100k's
 
     static = {
         "d2_diffs": ("swarm_tpu_torch/csrc/d2_diffs.cu",

@@ -114,10 +114,21 @@ def load() -> ctypes.CDLL:
             lib.swarm_d2_diffs.restype = i32
             lib.swarm_d2_max_w.argtypes = []
             lib.swarm_d2_max_w.restype = i32
+            lib.swarm_d2_packed.argtypes = [i64, i32, i32, i32, i32, i32]
+            lib.swarm_d2_packed.restype = i32
             scores = [vp, i64, i64, vp, i64, vp, i32, i64, i32, i32, i32]
             lib.swarm_nw_banded_scores.argtypes = [*scores, i32, vp, vp]
             lib.swarm_nw_banded_scores.restype = i32
-            lib.swarm_nw_full_scores.argtypes = [*scores, vp, vp]
+            lib.swarm_nw_full_scores.argtypes = [*scores, vp, vp, i64, vp]
             lib.swarm_nw_full_scores.restype = i32
+            lib.swarm_nw_full_scratch_ints.argtypes = [i64, i64]
+            lib.swarm_nw_full_scratch_ints.restype = i64
+            lib.swarm_nw_full_strips.argtypes = [
+                ctypes.POINTER(ctypes.c_int), i32]
+            lib.swarm_nw_full_strips.restype = i32
+            lib.swarm_probe_int32_ops.argtypes = [i32, i32]
+            lib.swarm_probe_int32_ops.restype = i64
+            lib.swarm_probe_int32_rate.argtypes = [i32, i32, i32, vp, vp]
+            lib.swarm_probe_int32_rate.restype = i32
             _lib = lib
         return _lib

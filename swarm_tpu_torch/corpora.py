@@ -10,6 +10,11 @@ run on the card and a run on the CPU see the same sequences.
 - ``dense_cloud_corpus``: a few centres, each with a cloud of thousands
   of variants, so that the seed/subseed loop hands DeviceAligner target
   lists above its batch threshold.
+- ``ragged_rows``, ``D2_DIFFS_BAND_CASES``: one family of ragged
+  lengths, as padded code rows, for every band variant of the
+  exact-diff kernel.
+- ``score_edge_cases``: seeds and targets whose lengths sit on the edges
+  of the full-row score kernel's schedule.
 - ``read_db``, ``make_db``: a corpus as a Db, read back through db_read.
 """
 
@@ -30,6 +35,93 @@ D2_DIFFS_KERNEL_CASES = [
     (8, 9, (4, 2, 1)),
     (7, 16, (4, 2, 1)),
 ]
+
+
+#: (B, d, (mismatch, gapopen, gapextend)) cases of the d2_diffs kernel
+#: check on ragged_rows: every register variant B = 1..20 over five score
+#: sets (three tie-heavy), then two that take the general variant: a
+#: band above 20, and a cutoff the packed cost word has no room for
+D2_DIFFS_BAND_CASES = [
+    (B, max(1, B // 3),
+     [(4, 12, 4), (2, 2, 2), (1, 1, 1), (18, 24, 13), (9, 3, 1)][B % 5])
+    for B in range(1, 21)
+] + [(25, 6, (4, 2, 1)), (8, 2, (70000, 3, 1))]
+
+
+def ragged_rows(seed, n, length, max_edits):
+    """(rows [n, Lmax] uint8, lens [n] int32): row 0 is a random
+    sequence of `length` codes, row i is row 0 after 0..max_edits
+    edits biased towards insertions or deletions, so lengths differ by
+    up to max_edits; a tenth of the rows are unrelated or empty.
+    Padding holds random codes: nothing may read it."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, size=length).astype(np.uint8)
+    seqs = [base]
+    while len(seqs) < n:
+        kind = int(rng.integers(0, 20))
+        if kind == 0:
+            seqs.append(base[:0])
+            continue
+        if kind == 1:
+            L = int(rng.integers(1, length + max_edits))
+            seqs.append(rng.integers(0, 4, size=L).astype(np.uint8))
+            continue
+        v = base.copy()
+        grow = bool(rng.integers(0, 2))
+        for _ in range(int(rng.integers(0, max_edits + 1))):
+            p = int(rng.integers(0, len(v)))
+            op = int(rng.integers(0, 4))
+            if op == 0:
+                v[p] = (v[p] + 1 + rng.integers(0, 3)) % 4
+            elif grow:
+                v = np.insert(v, p, rng.integers(0, 4))
+            elif len(v) > 1:
+                v = np.delete(v, p)
+        seqs.append(v)
+    lens = np.array([len(v) for v in seqs], dtype=np.int32)
+    rows = rng.integers(0, 4, size=(n, int(lens.max()))).astype(np.uint8)
+    for i, v in enumerate(seqs):
+        rows[i, : len(v)] = v
+    return rows, lens
+
+
+def score_edge_cases(strips, seed=20260819):
+    """(name, padded [n, W] uint8, lengths [n] int32, seed_id, ids
+    int64) cases for the full-row score kernel, which gives each of 32
+    lanes a strip of C query columns, C the smallest of `strips` with
+    32 * C >= W (several passes of 32 * max(strips) columns beyond).
+
+    Seed lengths 1, 31, 32, 33 and one below, at and above 32 * C for
+    every C of `strips`, and two passes and a bit; once with targets no
+    longer than the seed (so W is the seed's length) and once with
+    longer ones too. Targets are the seed after a few edits, cut or
+    extended to lengths 1, 31, 32, 33 and around the seed's, plus an
+    empty row; the last case of each seed is a one-element list.
+    """
+    rng = np.random.default_rng(seed)
+    q_lens = {1, 31, 32, 33, 2 * 32 * strips[-1] + 7}
+    for C in strips:
+        q_lens |= {32 * C - 1, 32 * C, 32 * C + 1}
+    for ql in sorted(q_lens):
+        q = rng.integers(0, 4, size=ql).astype(np.uint8)
+        for longer in (False, True):
+            t_lens = {1, 31, 32, 33, ql - 1, ql, max(1, ql - 40), 0}
+            if longer:
+                t_lens |= {ql + 1, ql + 40}
+            t_lens = sorted(t for t in t_lens if 0 <= t and (longer or t <= ql))
+            W = max(t_lens + [ql])
+            padded = rng.integers(0, 4, size=(len(t_lens) + 1, W)).astype(
+                np.uint8)
+            padded[0, :ql] = q
+            for i, tl in enumerate(t_lens, start=1):
+                m = min(tl, ql)
+                keep = rng.random(m) < 0.9
+                padded[i, :m] = np.where(keep, q[:m], padded[i, :m])
+            lengths = np.array([ql] + t_lens, dtype=np.int32)
+            ids = np.arange(1, len(lengths), dtype=np.int64)
+            name = f"ql{ql}_{'longer' if longer else 'within'}"
+            yield name, padded, lengths, 0, ids
+        yield f"ql{ql}_one", padded, lengths, 0, ids[-1:]
 
 
 def _edit(rng, v, min_len):

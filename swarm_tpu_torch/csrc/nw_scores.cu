@@ -9,8 +9,7 @@
 //
 // Both kernels take the resident [n, stride] code matrix, the lengths,
 // one seed id and a list of target ids, and read the rows in place. The
-// seed's row is the query of every pair of a launch, so each block
-// stages it once in shared memory.
+// seed's row is the query of every pair of a launch.
 //
 // Band kernel. Contract of banded_scores_reference
 // (swarm_tpu_torch/ops/nw_scores.py): the DP restricted to the 2B+1
@@ -19,31 +18,52 @@
 // final cell is outside the band. Design: one thread owns one pair and
 // keeps the band (H, E per slot) in registers when B is a template
 // constant (B <= 20); wider bands (up to 63) take one variant with the
-// band in local memory. F is a sequential min along the slots, and a
-// pair stops at its own last target row. Bound: integer ALU work, about
-// 12 int32 ops per cell over sum(tlen) * (2B+1) cells; a launch of a
-// few thousand pairs fills only a few warps per SM, so it is latency
-// that sets its time, not throughput.
+// band in local memory. Each block stages the seed's row once in shared
+// memory. F is a sequential min along the slots, and a pair stops at
+// its own last target row. Bound: integer ALU work, about 12 int32 ops
+// per cell over sum(tlen) * (2B+1) cells; a launch of a few thousand
+// pairs fills only a few warps per SM, so it is latency that sets its
+// time, not throughput.
 //
-// Full-row kernel. Bit-identical to ops/search.py for every pair. One
-// warp owns one pair; the row state (H, E over the query's columns)
-// lives in shared memory, and a lane only ever touches the columns
-// congruent to its lane id, so the warp needs no barrier. A row is
-// walked in tiles of 32 columns: `pre` depends on the previous row
-// only, and F, the one dependency along the row, is the min-plus
-// prefix scan F[c] = min(fb, min_{j<c} pre[j] + Q - (j+1)R) + cR,
-// taken with warp shuffles inside a tile and carried between tiles.
-// Bound: integer ALU work over tlen * qlen cells per pair.
+// Full-row kernel. Bit-identical to ops/search.py for every pair. What
+// bounds it on the card: a launch is a few thousand pairs of ~400 x 400
+// cells, less than one wave of warps, so a pair's chain of dependent
+// steps sets the time unless each step carries much independent work
+// and little communication. Design: a skewed wavefront in registers.
+// One warp owns one pair at a time and walks over the list's pairs.
+// Lane l owns a strip of C consecutive query columns (C a template
+// constant, 32 * C >= the row width), with the strip's H, E and query
+// codes in registers. At step t lane l computes target row t - l over
+// its strip, left to right, so F is a plain carried register updated
+// by one DPX add-min (__viaddmin_s32): the sequential recurrence of
+// ops/search.py itself, no prefix scan. After a step a lane hands its
+// last column's new H and its F to lane l + 1: two shuffles per 32 * C
+// cells, plus two that pass the target's codes (loaded 32 at a time,
+// coalesced) down the lanes. A pair takes tlen + 31 steps, no shared
+// memory, and the lane that owns column qlen - 1 reads the score at
+// its step for row tlen - 1. Columns right of the query compute values
+// nothing reads (dependencies run rightwards only). A row wider than
+// 32 * 32 columns takes several passes of 1,024 columns; the last
+// lane's hand-over of a pass is kept per row in scratch memory of the
+// warp (allocated by the wrapper) and read by lane 0 of the next pass.
+// F uses min(F + R, H + Q) for min(F + R, pre + Q), equal for
+// Q >= R >= 0, which the cost model guarantees (gap open >= 0). A cell
+// is a compare, a three-way min and two add-mins on the ALU pipe, which
+// is what the kernel fills; its two plain adds (the mismatch, H + Q) are
+// written as multiply-adds by a kernel argument that is 1 (fma_add), so
+// they run on the FMA pipe beside them.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "dpx.cuh"
 
 namespace {
 
 constexpr int kInf = 1 << 28;
 constexpr int kBandThreads = 64;
 constexpr int kMaxBand = 63;
-constexpr int kMaxShared = 227 * 1024;
+constexpr int kMaxShared = 227 * 1024;  // bytes a block can use
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int64_t target_id(const void *ids, int ids64,
@@ -167,28 +187,46 @@ void launch_band(dim3 grid, size_t shmem, cudaStream_t st, const uint8_t *codes,
                                             ids64, nb, B, mm, go, ge, out);
 }
 
-// One warp per pair; dynamic shared memory: H and E rows of ql ints for
-// each warp of the block, then the staged query.
-__global__ void nw_full_kernel(const uint8_t *__restrict__ codes,
-                               int64_t stride,
-                               const int32_t *__restrict__ lens, int64_t seed,
-                               const void *__restrict__ ids, int ids64,
-                               int64_t nb, int mm, int go, int ge,
-                               int32_t *__restrict__ out) {
-  extern __shared__ int smem[];
+constexpr int kFullWarps = 4;  // warps of a block of the full-row kernel
+
+// Strip widths C the full-row kernel is built for, ascending. The one
+// list makes the table, the launch switch and what the library reports
+// (swarm_nw_full_strips).
+#define NW_FULL_STRIPS(X) \
+  X(1) X(2) X(4) X(6) X(8) X(10) X(13) X(16) X(20) X(26) X(32)
+#define NW_STRIP_ITEM(CC) CC,
+constexpr int kStrips[] = {NW_FULL_STRIPS(NW_STRIP_ITEM)};
+#undef NW_STRIP_ITEM
+constexpr int kNumStrips = sizeof(kStrips) / sizeof(kStrips[0]);
+constexpr int kMaxStrip = kStrips[kNumStrips - 1];  // widest strip of a lane
+
+// One warp per pair, lane l on columns [pass * 32C + l * C, + C). MULTI:
+// rows wider than 32 * C columns, several passes; scratch then holds
+// 2 * scratch_stride ints per warp of the grid.
+// Blocks per SM, so that the strip stays in registers: 5 (96 registers)
+// up to C = 16, 4 at C = 20, 3 beyond. At C = 13, 8 blocks spilled the
+// strip's query codes inside the step loop and ran slower than 5.
+template <int C, bool MULTI>
+__global__ void __launch_bounds__(kFullWarps * 32,
+                                  C <= 16 ? 5 : (C <= 20 ? 4 : 3))
+    nw_full_kernel(const uint8_t *__restrict__ codes, int64_t stride,
+                   const int32_t *__restrict__ lens, int64_t seed,
+                   const void *__restrict__ ids, int ids64, int64_t nb, int mm,
+                   int go, int ge, int one, int32_t *__restrict__ out,
+                   int *scratch, int64_t scratch_stride) {
   const int ql = lens[seed];
-  const int warps = blockDim.x >> 5;
-  const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  int *Hs = smem + (size_t)w * 2 * ql;
-  int *Es = Hs + ql;
-  uint8_t *sq = (uint8_t *)(smem + (size_t)warps * 2 * ql);
-  stage_query(sq, codes + seed * stride, ql);
+  const int64_t warp = (int64_t)blockIdx.x * kFullWarps + (threadIdx.x >> 5);
+  const int64_t n_warps = (int64_t)gridDim.x * kFullWarps;
   const int Q = go + ge;
   const int R = ge;
+  const int mm_reg = mm * one;  // held in a register, not re-read per cell
+  const uint8_t *__restrict__ q = codes + seed * stride;
+  const int n_pass = MULTI ? (ql + 32 * C - 1) / (32 * C) : 1;
+  volatile int *sH = MULTI ? scratch + warp * 2 * scratch_stride : nullptr;
+  volatile int *sF = sH + scratch_stride;
 
-  for (int64_t pair = (int64_t)blockIdx.x * warps + w; pair < nb;
-       pair += (int64_t)gridDim.x * warps) {
+  for (int64_t pair = warp; pair < nb; pair += n_warps) {
     const int64_t tid = target_id(ids, ids64, pair);
     const int tl = lens[tid];
     if (ql <= 0 || tl <= 0) {
@@ -196,48 +234,91 @@ __global__ void nw_full_kernel(const uint8_t *__restrict__ codes,
       continue;
     }
     const uint8_t *__restrict__ s = codes + tid * stride;
-    for (int col = lane; col < ql; col += 32) {
-      Hs[col] = Q + col * R;
-      Es[col] = 2 * Q + col * R;
-    }
-    for (int row = 0; row < tl; ++row) {
-      const int tc = s[row];
-      // carried along the row: the running min of the scan (seeded by
-      // the F boundary) and the previous tile's last H of the row above
-      int carry_run = 2 * go + (row + 2) * ge;
-      int carry_diag = row == 0 ? 0 : go + row * ge;
-      for (int base = 0; base < ql; base += 32) {
-        const int col = base + lane;
-        const bool act = col < ql;
-        const int hold = act ? Hs[col] : 0;
-        const int eold = act ? Es[col] : 0;
-        int dprev = __shfl_up_sync(kFull, hold, 1);
-        if (lane == 0) dprev = carry_diag;
-        const int V = (act && sq[col] == tc) ? 0 : mm;
-        const int pre = min(dprev + V, eold);
-        // inclusive prefix min over the tile of a[j] = pre[j] + Q - (j+1)R;
-        // idle lanes (right of the query) hold a value that never wins
-        int incl = act ? pre + Q - (col + 1) * R : (1 << 30);
+    for (int pass = 0; pass < n_pass; ++pass) {
+      const int col0 = pass * 32 * C + lane * C;
+      int H[C], E[C], qc[C];
 #pragma unroll
-        for (int sh = 1; sh < 32; sh <<= 1) {
-          const int v = __shfl_up_sync(kFull, incl, sh);
-          if (lane >= sh) incl = min(incl, v);
-        }
-        const int excl = __shfl_up_sync(kFull, incl, 1);
-        const int run = lane == 0 ? carry_run : min(carry_run, excl);
-        const int F = run + col * R;
-        const int h = min(pre, F);
-        if (act) {
-          Hs[col] = h;
-          Es[col] = min(h + Q, eold + R);
-        }
-        carry_run = min(carry_run, __shfl_sync(kFull, incl, 31));
-        carry_diag = __shfl_sync(kFull, hold, 31);
+      for (int c = 0; c < C; ++c) {
+        const int col = col0 + c;
+        qc[c] = col < ql ? q[col] : 0x100;  // no code right of the query
+        H[c] = Q + col * R;                 // row -1
+        E[c] = 2 * Q + col * R;
       }
+      // the column left of the strip: H[row-1] there, for the diagonal
+      int h_left = col0 == 0 ? 0 : Q + (col0 - 1) * R;
+      const bool final_pass = pass == n_pass - 1;
+      const int last = ql - 1 - pass * 32 * C;  // the pair's last column
+      const int lane_q = final_pass ? last / C : 31;
+      const int n_steps = tl + lane_q;
+      int h_out = 0, f_out = 0, tc = 0, chunk = 0, score = 0;
+      int chunk_next = lane < tl ? s[lane] : 0;  // loaded a chunk ahead
+      for (int t = 0; t < n_steps; ++t) {
+        if ((t & 31) == 0) {
+          chunk = chunk_next;
+          chunk_next = t + 32 + lane < tl ? s[t + 32 + lane] : 0;
+        }
+        const int tc_new = __shfl_sync(kFull, chunk, t & 31);
+        tc = __shfl_up_sync(kFull, tc, 1);
+        int h_in = __shfl_up_sync(kFull, h_out, 1);  // H[row] left of strip
+        int f_in = __shfl_up_sync(kFull, f_out, 1);  // F entering the strip
+        const int row = t - lane;
+        if (lane == 0) {
+          tc = tc_new;
+          if (!MULTI || pass == 0) {  // the matrix' left boundary
+            h_in = go + (row + 1) * ge;
+            f_in = 2 * go + (row + 2) * ge;
+          } else if (row < tl) {
+            h_in = sH[row];
+            f_in = sF[row];
+          }
+        }
+        if (row >= 0 && row < tl) {
+          int F = f_in;
+          int diag_in = h_left;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            int diag = diag_in;
+            if (qc[c] != tc) diag = fma_add(diag, mm_reg, one);
+            diag_in = H[c];
+            const int h = __vimin3_s32(diag, E[c], F);
+            const int hq = fma_add(h, Q, one);
+            E[c] = __viaddmin_s32(E[c], R, hq);
+            F = __viaddmin_s32(F, R, hq);
+            H[c] = h;
+          }
+          h_left = h_in;
+          h_out = H[C - 1];
+          f_out = F;
+          if (MULTI && !final_pass) {
+            if (lane == 31) {
+              sH[row] = h_out;
+              sF[row] = f_out;
+            }
+          } else if (lane == lane_q && row == tl - 1) {
+            const int cq = last - lane_q * C;
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+              if (c == cq) score = H[c];
+          }
+        }
+      }
+      if (final_pass && lane == lane_q) out[pair] = score;
+      if (MULTI) __syncwarp();  // scratch rows, before the next pass reads
     }
-    // the lane that owns the last column wrote it itself
-    if (lane == ((ql - 1) & 31)) out[pair] = Hs[ql - 1];
   }
+}
+
+// The strip width for rows of `width` columns: the smallest built C with
+// 32 * C >= width, else kMaxStrip (several passes).
+int strip_for_width(int64_t width) {
+  for (int c : kStrips)
+    if (32 * (int64_t)c >= width) return c;
+  return kMaxStrip;
+}
+
+int64_t full_blocks(int64_t nb) {
+  const int64_t blocks = (nb + kFullWarps - 1) / kFullWarps;
+  return blocks < 132 * 16 ? blocks : 132 * 16;
 }
 
 }  // namespace
@@ -276,33 +357,54 @@ extern "C" int swarm_nw_banded_scores(const void *codes, int64_t stride,
   return (int)cudaGetLastError();
 }
 
+// The strip widths the full-row kernel is built for: writes the first
+// `cap` of them to `out` and returns how many there are.
+extern "C" int swarm_nw_full_strips(int *out, int cap) {
+  for (int i = 0; i < kNumStrips && i < cap; ++i) out[i] = kStrips[i];
+  return kNumStrips;
+}
+
+// ints of scratch memory swarm_nw_full_scores needs for nb pairs of rows
+// of `width` columns (0 while one pass covers a row).
+extern "C" int64_t swarm_nw_full_scratch_ints(int64_t width, int64_t nb) {
+  if (nb <= 0 || width <= 32 * kMaxStrip) return 0;
+  return full_blocks(nb) * kFullWarps * 2 * width;
+}
+
 // Exact scores of row `seed` against rows ids[0..nb); returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue when one
-// warp's rows of `width` columns do not fit in shared memory).
+// cudaGetLastError() after the launch (cudaErrorInvalidValue when the
+// rows need scratch memory and `scratch` holds fewer ints than
+// swarm_nw_full_scratch_ints says).
 extern "C" int swarm_nw_full_scores(const void *codes, int64_t stride,
                                     int64_t width, const void *lens,
                                     int64_t seed, const void *ids, int ids64,
                                     int64_t nb, int mm, int go, int ge,
-                                    void *out, void *stream) {
+                                    void *out, void *scratch,
+                                    int64_t scratch_ints, void *stream) {
   if (nb <= 0) return 0;
-  // shared memory is sized for the widest row; the kernel uses ql <= width
-  const int64_t per_warp = 8 * width;
-  const int64_t query = (width + 15) / 16 * 16;
-  int64_t warps = per_warp > 0 ? (kMaxShared - query) / per_warp : 8;
-  if (warps < 1) return (int)cudaErrorInvalidValue;
-  if (warps > 8) warps = 8;
-  // several blocks per SM while the rows are short
-  while (warps > 1 && warps * per_warp + query > 48 * 1024) warps >>= 1;
-  const size_t shmem = (size_t)(warps * per_warp + query);
-  if (shmem > 48 * 1024)
-    cudaFuncSetAttribute(nw_full_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)shmem);
-  int64_t blocks = (nb + warps - 1) / warps;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  nw_full_kernel<<<dim3((unsigned)blocks), dim3((unsigned)(warps * 32)), shmem,
-                   (cudaStream_t)stream>>>(
-      (const uint8_t *)codes, stride, (const int32_t *)lens, seed, ids, ids64,
-      nb, mm, go, ge, (int32_t *)out);
+  if (go < 0 || ge < 0) return (int)cudaErrorInvalidValue;
+  if (scratch_ints < swarm_nw_full_scratch_ints(width, nb))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)full_blocks(nb));
+  const dim3 block(kFullWarps * 32);
+  cudaStream_t st = (cudaStream_t)stream;
+#define NW_FULL(CC)                                                        \
+  case CC:                                                                 \
+    nw_full_kernel<CC, false><<<grid, block, 0, st>>>(                     \
+        (const uint8_t *)codes, stride, (const int32_t *)lens, seed, ids,  \
+        ids64, nb, mm, go, ge, 1, (int32_t *)out, (int *)scratch, width);  \
+    break;
+  if (width > 32 * kMaxStrip) {
+    nw_full_kernel<kMaxStrip, true><<<grid, block, 0, st>>>(
+        (const uint8_t *)codes, stride, (const int32_t *)lens, seed, ids,
+        ids64, nb, mm, go, ge, 1, (int32_t *)out, (int *)scratch, width);
+    return (int)cudaGetLastError();
+  }
+  switch (strip_for_width(width)) {
+    NW_FULL_STRIPS(NW_FULL)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NW_FULL
   return (int)cudaGetLastError();
 }

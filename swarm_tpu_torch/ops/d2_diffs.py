@@ -118,10 +118,12 @@ def d2_diffs(rows, lens, tq, td, B, mismatch, go, ge, d):
     """diffs[N] (int32, -1 = rejected) for directed tasks given by row
     indices: query rows[tq[t]], target rows[td[t]].
 
-    rows: [n, Lmax] uint8 codes; lens: [n] int32; tq/td: [N] int64.
+    rows: [n, Lmax] uint8 codes 0..3 (rows may be a column slice of a
+    wider matrix); lens: [n] int32; tq/td: [N] int64.
     On the CPU this is d2_diffs_reference over the gathered rows; on a
     CUDA device it is the kernel of csrc/d2_diffs.cu, which reads the
-    rows in place.
+    rows in place, 16 bytes at a time: a matrix whose row stride is not
+    a multiple of 16 bytes is copied into one that is (row_stride_16).
     """
     global launches
     if rows.dim() != 2 or rows.dtype != torch.uint8:
@@ -145,7 +147,9 @@ def d2_diffs(rows, lens, tq, td, B, mismatch, go, ge, d):
     lib = load()
     if B < 1 or 2 * B + 1 > lib.swarm_d2_max_w():
         raise ValueError(f"band B={B} is wider than the kernel takes")
-    rows, lens, tq, td = (t.contiguous() for t in (rows, lens, tq, td))
+    lens, tq, td = (t.contiguous() for t in (lens, tq, td))
+    if rows.stride(1) != 1 or rows.stride(0) % 16 or rows.data_ptr() % 16:
+        rows = row_stride_16(rows)
     out = torch.empty(tq.shape[0], dtype=torch.int32, device=rows.device)
     if tq.shape[0] == 0:
         return out
@@ -161,10 +165,23 @@ def d2_diffs(rows, lens, tq, td, B, mismatch, go, ge, d):
     return out
 
 
+def row_stride_16(rows):
+    """`rows` ([n, L] uint8) as a view of a fresh zero-padded matrix
+    whose row stride is a multiple of 16 bytes, the unit the kernel
+    reads. Shape and values are those of `rows`."""
+    n, L = rows.shape
+    store = torch.zeros((n, max(-(-L // 16) * 16, 16)), dtype=torch.uint8,
+                        device=rows.device)
+    store[:, :L] = rows
+    return store[:, :L]
+
+
 class DeviceDiffEngine:
     """Directed diff tasks through d2_diffs on one device.
 
-    Construction uploads the padded code rows once; diffs_pairs()
+    Construction uploads the padded code rows once, at a row stride of
+    a multiple of 16 bytes (`rows` is the [n, Lmax] view of it, so the
+    plain version sees the same matrix as before); diffs_pairs()
     mirrors the contract of _native.d2_diffs_pairs (diff_ab/diff_ba
     with -1 for skipped directions and rejections).
     """
@@ -176,8 +193,9 @@ class DeviceDiffEngine:
         self.n = len(db)
         self.device = torch.device(device)
         self.Lmax = max(int(db.longest), 1)
-        rows = pad_codes(db.codes, db.offsets, db.lengths, self.Lmax)
-        self.rows = torch.from_numpy(rows).to(self.device)
+        stride = -(-self.Lmax // 16) * 16
+        rows = pad_codes(db.codes, db.offsets, db.lengths, stride)
+        self.rows = torch.from_numpy(rows).to(self.device)[:, :self.Lmax]
         self.lens = torch.from_numpy(
             np.ascontiguousarray(db.lengths, dtype=np.int32)).to(self.device)
         self.abundances = np.asarray(db.abundances, dtype=np.int64)

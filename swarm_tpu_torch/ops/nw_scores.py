@@ -32,6 +32,13 @@ INF = 1 << 28
 #: widest band the band kernel takes (the rule of DeviceAligner)
 MAX_BAND = 63
 
+#: strip widths C the full-row kernel is built for (csrc/nw_scores.cu:
+#: NW_FULL_STRIPS): each of a warp's 32 lanes owns C query columns, a
+#: launch takes the smallest C with 32 * C >= the row width, and rows
+#: wider than 32 * 32 columns take several passes. The edge cases of the
+#: tests are made from this list; built_full_strips() is the library's
+FULL_STRIPS = (1, 2, 4, 6, 8, 10, 13, 16, 20, 26, 32)
+
 #: kernel launches made by the wrappers (CUDA tensors only)
 launches = {"banded_scores": 0, "full_scores": 0}
 
@@ -158,6 +165,16 @@ def nw_scores_reference(padded, lengths, seed_id, target_ids, mm, go, ge):
     return scores
 
 
+def built_full_strips():
+    """The strip widths the built kernel library holds (needs nvcc)."""
+    import ctypes
+
+    from .._build import load
+
+    buf = (ctypes.c_int * 64)()
+    return tuple(buf[:load().swarm_nw_full_strips(buf, len(buf))])
+
+
 def _check(padded, lengths, seed_id, target_ids):
     if padded.dim() != 2 or padded.dtype != torch.uint8:
         raise ValueError("padded must be a [n, W] uint8 tensor")
@@ -179,6 +196,8 @@ def _launch(name, padded, lengths, seed_id, target_ids, mm, go, ge, band):
     full-row kernel."""
     from .._build import load
 
+    if go < 0 or ge < 0:
+        raise ValueError("gap penalties must not be negative")
     lib = load()
     padded, lengths, target_ids = (
         t.contiguous() for t in (padded, lengths, target_ids))
@@ -193,7 +212,13 @@ def _launch(name, padded, lengths, seed_id, target_ids, mm, go, ge, band):
                 int(target_ids.dtype == torch.int64), nb,
                 int(mm), int(go), int(ge))
         if band is None:
-            err = lib.swarm_nw_full_scores(*args, out.data_ptr(), stream)
+            # rows wider than one pass of the kernel: per-warp scratch
+            scratch = torch.empty(
+                lib.swarm_nw_full_scratch_ints(padded.shape[1], nb),
+                dtype=torch.int32, device=padded.device)
+            err = lib.swarm_nw_full_scores(
+                *args, out.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                stream)
         else:
             err = lib.swarm_nw_banded_scores(
                 *args, int(band), out.data_ptr(), stream)

@@ -12,11 +12,14 @@ import torch
 
 from swarm_tpu_torch import _native
 from swarm_tpu_torch.corpora import (
+    D2_DIFFS_BAND_CASES,
     D2_DIFFS_KERNEL_CASES,
     chain_corpus,
     dense_cloud_corpus,
     make_db,
+    ragged_rows,
     read_db,
+    score_edge_cases,
 )
 from swarm_tpu_torch.ops import d2_diffs as torch_diffs
 from swarm_tpu_torch.ops import nw_scores
@@ -59,6 +62,32 @@ def test_d2_diffs_kernel_matches_reference(tmp_path, cuda_device, seed, d,
         eng.Lmax, mismatch, go, ge, d)
     assert torch.equal(got.cpu(), want.cpu())
     assert (want >= 0).any()
+
+
+@pytest.mark.parametrize("B,d,scores", D2_DIFFS_BAND_CASES)
+def test_d2_diffs_kernel_matches_reference_at_every_band(cuda_device, B, d,
+                                                         scores):
+    """Every register variant (B = 1..20) and the general variant (the
+    last two cases), on lengths that differ by up to B and more; the
+    matrix' width is no multiple of 16, so the wrapper re-strides it."""
+    from swarm_tpu_torch._build import load
+
+    mismatch, go, ge = scores
+    rows_np, lens_np = ragged_rows(100 + B, 96, 61 + B, B + 2)
+    rows = torch.from_numpy(rows_np).to(cuda_device)
+    lens = torch.from_numpy(lens_np).to(cuda_device)
+    n = len(lens_np)
+    tq = torch.arange(n, device=cuda_device).repeat_interleave(n)
+    td = torch.arange(n, device=cuda_device).repeat(n)
+    got = d2_diffs(rows, lens, tq, td, B, mismatch, go, ge, d)
+    torch.cuda.synchronize()
+    want = d2_diffs_reference(rows[tq], rows[td], lens[tq], lens[td], B,
+                              rows.shape[1], mismatch, go, ge, d)
+    assert torch.equal(got, want)
+    assert (want >= 0).any() and (want < 0).any()
+    packed = load().swarm_d2_packed(
+        -(-rows.shape[1] // 16) * 16, B, mismatch, go, ge, d)
+    assert packed == (1 if B <= 20 and mismatch < 70000 else 0)
 
 
 def test_d2_diffs_engine_matches_native_on_card(tmp_path, cuda_device):
@@ -114,6 +143,29 @@ def test_full_scores_kernel_matches_reference(cloud_aligner, scores,
         al.padded, al.lengths, 0, ids, mm, go, ge)
     assert got.dtype == torch.int32
     assert torch.equal(got, want)
+
+
+def test_full_scores_kernel_on_the_edges_of_its_schedule(cuda_device):
+    """Seed and target lengths 1, 31, 32, 33, one below, at and above
+    32 * C for every strip width C the kernel is built with, rows of
+    more than one pass, targets longer and shorter than the seed, an
+    empty row, one-element lists; int32 and int64 ids."""
+    assert nw_scores.built_full_strips() == nw_scores.FULL_STRIPS
+    n_cases = 0
+    for i, (name, padded, lengths, seed_id, ids) in enumerate(
+            score_edge_cases(nw_scores.FULL_STRIPS)):
+        mm, go, ge = ((4, 12, 4), (18, 24, 13), (1, 1, 1))[i % 3]
+        padded, lengths, ids = (torch.from_numpy(x).to(cuda_device)
+                                for x in (padded, lengths, ids))
+        if i % 2:
+            ids = ids.to(torch.int32)
+        got = nw_scores.full_scores(padded, lengths, seed_id, ids, mm, go, ge)
+        torch.cuda.synchronize()
+        want = nw_scores.nw_scores_reference(
+            padded, lengths, seed_id, ids, mm, go, ge)
+        assert torch.equal(got, want), name
+        n_cases += 1
+    assert n_cases > 100
 
 
 @pytest.mark.parametrize("scores", [(4, 12, 4), (3, 6, 2), (18, 24, 13)])
