@@ -19,10 +19,15 @@ final line:
    versions on the card, exactly, for bands B = 4, 20, 63 and three
    penalty sets; the banded scores also against the full-row kernel
    under the screen's contract (equal where <= cutoff, both above it
-   elsewhere); both timed; full_scores also on seeds and targets whose
-   lengths sit on the edges of its schedule (1, 31, 32, 33, around
-   32 * C for every strip width C, two passes, an empty row, a
-   one-element list);
+   elsewhere); both timed, banded_scores at three shapes (the list, a
+   list of one in-band target, the list repeated 64 times) queued
+   behind a busy kernel so that the host's enqueue time is not in the
+   reading, beside an empty kernel's launch time; full_scores also on
+   seeds and targets whose lengths sit on the edges of its schedule (1,
+   31, 32, 33, around 32 * C for every strip width C, two passes, an
+   empty row, a one-element list), banded_scores on every band B =
+   1..20, 21, 40, 63 over ragged lengths and on lengths at the edges of
+   the band;
 4. main paths through swarm_tpu_torch.main.run, each with a warm-up
    run, then one timed run with every kernel's launch count set to 0
    before it and read after it, then the port's native C engine
@@ -44,7 +49,8 @@ To compare two versions of the port on one card, run each in turns:
     python3 chip_smoke.py --quick [--tree OTHER_CHECKOUT]
 
 runs only the timed kernel phases (2 and 3 at their timed shapes) and
-the d2_100k and d2_wide main paths of the package under OTHER_CHECKOUT
+the d2_100k, d2_device and d2_wide main paths of the package under
+OTHER_CHECKOUT
 (default: this checkout), and ends with one JSON line
 {"quick": {card, tree, kernels, main_paths}} instead of the two above.
 """
@@ -87,19 +93,47 @@ def say(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, busy=None):
+    """Milliseconds of one call of fn, by CUDA events around `reps`
+    calls. With `busy` (busy_kernel) the calls are queued behind a
+    kernel that holds the card for some milliseconds, so they run back
+    to back and the host's time to enqueue them is not in the reading:
+    a wrapper's Python costs more than a kernel of a few microseconds
+    runs."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if busy is not None:
+        busy()
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def busy_kernel(dev):
+    """A launcher of csrc/probe.cu's kernel: as it stands it holds the
+    card for some milliseconds; with iters=0 it is an empty kernel."""
+    import torch
+
+    from swarm_tpu_torch._build import load
+
+    lib = load()
+    n_blocks = 132 * 8
+    out = torch.empty(n_blocks * 256, dtype=torch.int32, device=dev)
+
+    def launch(iters=1 << 16, blocks=n_blocks):
+        stream = torch.cuda.current_stream().cuda_stream
+        if lib.swarm_probe_int32_rate(blocks, iters, 3, out.data_ptr(),
+                                      stream):
+            raise AssertionError("probe kernel failed to launch")
+
+    return launch
 
 
 def bound(n_bytes, n_ops):
@@ -112,22 +146,12 @@ def bound(n_bytes, n_ops):
 
 def phase_probe(dev):
     """The card's rate of int32 adds and mins."""
-    import torch
-
     from swarm_tpu_torch._build import load
 
-    lib = load()
-    stream = torch.cuda.current_stream().cuda_stream
     blocks, iters = 132 * 8, 4096
-    out = torch.empty(blocks * 256, dtype=torch.int32, device=dev)
-
-    def launch():
-        if lib.swarm_probe_int32_rate(blocks, iters, 3, out.data_ptr(),
-                                      stream):
-            raise AssertionError("int32 rate probe failed to launch")
-
-    ms = cuda_ms(launch, 5)
-    ops = lib.swarm_probe_int32_ops(blocks, iters)
+    launch = busy_kernel(dev)
+    ms = cuda_ms(lambda: launch(iters, blocks), 5)
+    ops = load().swarm_probe_int32_ops(blocks, iters)
     say(f"probe int32 rate: {blocks} blocks x 256 threads, 8 independent "
         f"chains of {iters} steps (two adds and a min each): ops={ops} "
         f"ms={ms:.4f} int32_tops_per_s={ops / ms / 1e9:.2f} "
@@ -215,6 +239,45 @@ def phase_full_scores_edges(dev):
                 f"edge case {name}")
     say(f"kernel full_scores edge cases: cases={n_cases} pairs={n_pairs} "
         f"strips={nw_scores.FULL_STRIPS} max_abs_err={worst}")
+    return worst
+
+
+def phase_banded_scores_edges(dev):
+    """banded_scores against its plain version on every band over ragged
+    lengths and where the lengths sit on the edges of the band; returns
+    max_abs_err."""
+    import torch
+
+    from swarm_tpu_torch.corpora import band_edge_cases
+    from swarm_tpu_torch.ops import nw_scores
+
+    worst = n_cases = n_pairs = n_inf = 0
+    for name, padded, lengths, seed_id, ids, B, (mm, go, ge) in \
+            band_edge_cases():
+        padded, lengths, ids = (torch.from_numpy(x).to(dev)
+                                for x in (padded, lengths, ids))
+        nb = ids.numel()
+        got = nw_scores.banded_scores(
+            padded, lengths, seed_id, ids, mm, go, ge, B)
+        tid = ids.long()
+        want = nw_scores.banded_scores_reference(
+            padded[seed_id].expand(nb, -1), padded[tid],
+            lengths[seed_id].expand(nb), lengths[tid], mm, go, ge, B)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max()) if nb else 0
+        worst = max(worst, err)
+        n_cases += 1
+        n_pairs += nb
+        n_inf += int((want == nw_scores.INF).sum())
+        if err or got.shape != want.shape:
+            say(f"kernel banded_scores edge case {name} B={B} "
+                f"scores={(mm, go, ge)} lengths={lengths.tolist()} "
+                f"got={got.tolist()} want={want.tolist()}")
+            raise AssertionError(
+                f"banded_scores kernel disagrees with its plain version on "
+                f"edge case {name}")
+    say(f"kernel banded_scores edge cases: cases={n_cases} pairs={n_pairs} "
+        f"outside_the_band={n_inf} max_abs_err={worst}")
     return worst
 
 
@@ -376,19 +439,49 @@ def phase_nw_scores(dev, fasta):
                                      "against the full-row kernel")
 
     mm, go, ge, B = 18, 24, 13, 4  # default scores at d = 2
-    ms = cuda_ms(lambda: nw_scores.banded_scores(
-        al.padded, al.lengths, seed_id, ids, mm, go, ge, B), 20)
+    busy = busy_kernel(dev)
+    launch_floor_ms = cuda_ms(lambda: busy(iters=0, blocks=1), 200, busy)
+    say(f"launch floor: an empty kernel (1 block, 0 steps of csrc/probe.cu) "
+        f"launch_floor_ms={launch_floor_ms:.5f}")
+
+    def banded(some_ids):
+        return nw_scores.banded_scores(
+            al.padded, al.lengths, seed_id, some_ids, mm, go, ge, B)
+
+    in_band = (lens > 0) & ((lens - ql).abs() <= B)
+    # (i) the list; (ii) one in-band target: the floor one pair's
+    # recurrence sets; (iii) the list 64 times over: enough to fill the card
+    short = banded(ids)
+    ms = cuda_ms(lambda: banded(ids), 20, busy)
+    one_id = ids[in_band][:1]
+    chain_ms = cuda_ms(lambda: banded(one_id), 20, busy)
+    many_ids = ids.repeat(64)
+    err = int((banded(many_ids).long() - short.repeat(64).long()).abs().max())
+    worst_band = max(worst_band, err)
+    saturated_ms = cuda_ms(lambda: banded(many_ids), 10, busy)
     plain_ms = cuda_ms(lambda: nw_scores.banded_scores_reference(
         qrows, rows, qlens, lens, mm, go, ge, B), 2)
-    in_band = (lens > 0) & ((lens - ql).abs() <= B)
     cells = int((lens.long() * in_band).sum()) * (2 * B + 1)
     bound_ms, bound_by = bound(io_bytes, cells * OPS_PER_SCORE_CELL)
-    say(f"kernel banded_scores timed: targets={nb} B={B} kernel_ms={ms:.4f} "
+    saturated_bound_ms, _ = bound(64 * io_bytes,
+                                  64 * cells * OPS_PER_SCORE_CELL)
+    say(f"kernel banded_scores timed: targets={nb} in_band="
+        f"{int(in_band.sum())} B={B} kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.3f} cells={cells} bytes={io_bytes} "
-        f"bound_ms={bound_ms:.5f} ({bound_by})")
+        f"bound_ms={bound_ms:.5f} ({bound_by}) one_target_chain_ms="
+        f"{chain_ms:.4f} targets_x64={many_ids.numel()} saturated_ms="
+        f"{saturated_ms:.4f} saturated_bound_ms={saturated_bound_ms:.5f} "
+        f"share={saturated_bound_ms / saturated_ms:.3f} "
+        f"x64_equals_list_tiled_max_abs_err={err}")
+    if err:
+        raise AssertionError("banded_scores on the list repeated 64 times "
+                             "is not the list's scores tiled")
     result["banded_scores"] = {
         "max_abs_err": worst_band, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "chain_ms": chain_ms, "saturated_ms": saturated_ms,
+        "saturated_bound_ms": saturated_bound_ms,
+        "launch_floor_ms": launch_floor_ms}
 
     ms = cuda_ms(lambda: nw_scores.full_scores(
         al.padded, al.lengths, seed_id, ids, mm, go, ge), 10)
@@ -500,7 +593,7 @@ def main():
     ap.add_argument("--tree", type=Path, default=REPO,
                     help="checkout whose swarm_tpu_torch runs (with --quick)")
     ap.add_argument("--quick", action="store_true",
-                    help="timed kernel phases and two main paths only")
+                    help="timed kernel phases and three main paths only")
     args = ap.parse_args()
     tree = args.tree.resolve()
     if not (tree / "swarm_tpu_torch").is_dir():
@@ -590,12 +683,13 @@ def make_corpora(work, names):
 
 
 def run_quick(dev, work):
-    """The timed kernel phases and the d2_100k and d2_wide main paths."""
+    """The timed kernel phases and the d2_100k, d2_device and d2_wide
+    main paths."""
     corpus = make_corpora(work, ("d2_100k", "d2_device", "d2_wide"))
     rows = {"d2_diffs": phase_d2_diffs_at_scale(dev, corpus["d2_100k"])}
     rows.update(phase_nw_scores(dev, corpus["d2_device"]))
     paths = {}
-    for name in ("d2_100k", "d2_wide"):
+    for name in ("d2_100k", "d2_device", "d2_wide"):
         flags, engine, kernel = MAIN_PATHS[name][2:]
         paths[name] = phase_main_path(name, corpus[name], flags, work,
                                       engine, kernel)
@@ -614,6 +708,8 @@ def run_phases(dev, work):
     rows.update(phase_nw_scores(dev, corpus["d2_device"]))
     rows["full_scores"]["max_abs_err"] = max(
         rows["full_scores"]["max_abs_err"], phase_full_scores_edges(dev))
+    rows["banded_scores"]["max_abs_err"] = max(
+        rows["banded_scores"]["max_abs_err"], phase_banded_scores_edges(dev))
 
     launches = {}
     for name, (_, _, flags, engine, kernel) in MAIN_PATHS.items():

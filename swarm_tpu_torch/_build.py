@@ -119,6 +119,8 @@ def load() -> ctypes.CDLL:
             scores = [vp, i64, i64, vp, i64, vp, i32, i64, i32, i32, i32]
             lib.swarm_nw_banded_scores.argtypes = [*scores, i32, vp, vp]
             lib.swarm_nw_banded_scores.restype = i32
+            lib.swarm_nw_band_fits.argtypes = [i64, i32, i32, i32]
+            lib.swarm_nw_band_fits.restype = i32
             lib.swarm_nw_full_scores.argtypes = [*scores, vp, vp, i64, vp]
             lib.swarm_nw_full_scores.restype = i32
             lib.swarm_nw_full_scratch_ints.argtypes = [i64, i64]

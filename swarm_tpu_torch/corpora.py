@@ -15,6 +15,9 @@ run on the card and a run on the CPU see the same sequences.
   exact-diff kernel.
 - ``score_edge_cases``: seeds and targets whose lengths sit on the edges
   of the full-row score kernel's schedule.
+- ``band_edge_cases``: every band of the banded score kernel on ragged
+  lengths, and seeds and targets whose lengths sit on the edges of the
+  band.
 - ``read_db``, ``make_db``: a corpus as a Db, read back through db_read.
 """
 
@@ -122,6 +125,65 @@ def score_edge_cases(strips, seed=20260819):
             name = f"ql{ql}_{'longer' if longer else 'within'}"
             yield name, padded, lengths, 0, ids
         yield f"ql{ql}_one", padded, lengths, 0, ids[-1:]
+
+
+#: (mismatch, gapopen, gapextend) sets of the score kernels' checks
+SCORE_PENALTIES = ((4, 12, 4), (3, 6, 2), (18, 24, 13))
+
+
+def band_edge_cases(seed=20260820):
+    """(name, padded [n, W] uint8, lengths [n] int32, seed_id, ids, band,
+    (mismatch, gapopen, gapextend)) cases for the banded score kernel,
+    which keeps the 2B+1 slots of a pair in registers up to B = 20, reads
+    rows 16 bytes at a time and peels the first B + 1 rows.
+
+    Every band B = 1..20 and B = 21, 40, 63 (the general variant) with
+    row 0 of ``ragged_rows`` as the seed against the other rows; B = 4
+    under every set of SCORE_PENALTIES; then, for bands on both sides of
+    the variants' limits, seeds of length 1, below B, just above B and
+    well above it against targets of length 0, 1, the seed's, and the
+    seed's -+ B (the band's last slots) and -+ (B + 1) (outside: INF);
+    an empty seed; an empty list. Row widths are mostly no multiple of
+    16, padding holds random codes, ids alternate between int32 and
+    int64, penalties rotate through SCORE_PENALTIES.
+    """
+    rng = np.random.default_rng(seed)
+    made = 0
+
+    def case(name, padded, lengths, seed_id, ids, band, scores=None):
+        nonlocal made
+        made += 1
+        return (name, padded, lengths, seed_id,
+                ids.astype(np.int32 if made % 2 else np.int64), band,
+                scores or SCORE_PENALTIES[made % 3])
+
+    for B in list(range(1, 21)) + [21, 40, 63]:
+        rows, lens = ragged_rows(200 + B, 40, 61 + B, B + 2)
+        yield case(f"ragged_B{B}", rows, lens, 0, np.arange(1, len(lens)), B)
+    rows, lens = ragged_rows(204, 40, 65, 6)
+    for scores in SCORE_PENALTIES:
+        yield case(f"ragged_B4_mm{scores[0]}", rows, lens, 0,
+                   np.arange(1, len(lens)), 4, scores)
+    for B in (1, 2, 4, 7, 20, 21, 63):
+        for ql in sorted({1, max(1, B - 1), B + 2, 2 * B + 35}):
+            q = rng.integers(0, 4, size=ql).astype(np.uint8)
+            t_lens = sorted(t for t in {0, 1, ql, ql - B, ql + B, ql - B - 1,
+                                        ql + B + 1} if t >= 0)
+            W = max(t_lens + [ql])
+            W += 3 if W % 16 == 0 else 0
+            padded = rng.integers(0, 4, size=(len(t_lens) + 1, W)).astype(
+                np.uint8)
+            padded[0, :ql] = q
+            for i, tl in enumerate(t_lens, start=1):
+                m = min(tl, ql)
+                keep = rng.random(m) < 0.9
+                padded[i, :m] = np.where(keep, q[:m], padded[i, :m])
+            lengths = np.array([ql] + t_lens, dtype=np.int32)
+            ids = np.arange(1, len(lengths))
+            yield case(f"B{B}_ql{ql}", padded, lengths, 0, ids, B)
+    # the last matrix again: its row 1 is empty
+    yield case("empty_seed", padded, lengths, 1, ids, 4)
+    yield case("empty_list", padded, lengths, 0, ids[:0], 4)
 
 
 def _edit(rng, v, min_len):

@@ -216,14 +216,7 @@ __device__ __forceinline__ int and_or(int a, int keep, int set) {
 __device__ __forceinline__ uint32_t load_codes16(const uint4 *__restrict__ row,
                                                  int chunk, int n_chunks) {
   if (chunk >= n_chunks) return 0;
-  const uint4 v = __ldg(row + chunk);
-  auto squeeze = [](uint32_t w) {  // 4 bytes -> 8 bits
-    w &= 0x03030303u;
-    w = (w | (w >> 6)) & 0x000f000fu;
-    return (w | (w >> 12)) & 0xffu;
-  };
-  return squeeze(v.x) | (squeeze(v.y) << 8) | (squeeze(v.z) << 16) |
-         (squeeze(v.w) << 24);
+  return pack_codes16(__ldg(row + chunk));
 }
 
 // The codes of one row, in order, 16 loaded at a time.

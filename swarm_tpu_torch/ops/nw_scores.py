@@ -22,10 +22,15 @@ Two functions, each with a plain PyTorch version and a CUDA kernel
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. The kernels read the code rows
 in place through the target ids: no gathered copy of the rows, no
-padding of the batch or of the row width.
+padding of the batch. The band kernel reads rows 16 bytes at a time as
+2-bit codes (the alphabet is 0..3; it compares codes modulo 4), so it
+wants a matrix whose row stride is a multiple of 16 bytes, as
+DeviceAligner keeps it; any other matrix is copied into one first.
 """
 
 import torch
+
+from .d2_diffs import row_stride_16
 
 INF = 1 << 28
 
@@ -41,6 +46,19 @@ FULL_STRIPS = (1, 2, 4, 6, 8, 10, 13, 16, 20, 26, 32)
 
 #: kernel launches made by the wrappers (CUDA tensors only)
 launches = {"banded_scores": 0, "full_scores": 0}
+
+
+def band_fits(width: int, mm: int, go: int, ge: int) -> bool:
+    """Whether the band kernel takes rows of `width` columns under
+    these penalties (csrc/nw_scores.cu: band_fits). It clamps a score to
+    INF once, at the end, which equals the plain version's clamp of
+    every cell while penalties are not negative and no state reaches
+    2^31: a path takes at most one step a row and a column, each adds at
+    most max(mm, go + ge), and it starts at INF or at a boundary."""
+    if mm < 0 or go < 0 or ge < 0:
+        return False
+    big = max(mm, go + ge) + 1
+    return INF + (3 * width + 2 * MAX_BAND + 16) * big < 1 << 31
 
 
 def band_for_cutoff(cutoff: int, go: int, ge: int) -> int:
@@ -199,8 +217,13 @@ def _launch(name, padded, lengths, seed_id, target_ids, mm, go, ge, band):
     if go < 0 or ge < 0:
         raise ValueError("gap penalties must not be negative")
     lib = load()
-    padded, lengths, target_ids = (
-        t.contiguous() for t in (padded, lengths, target_ids))
+    lengths, target_ids = lengths.contiguous(), target_ids.contiguous()
+    if band is None:
+        if padded.stride(1) != 1:
+            padded = padded.contiguous()
+    elif padded.stride(1) != 1 or padded.stride(0) % 16 \
+            or padded.data_ptr() % 16:
+        padded = row_stride_16(padded)
     nb = target_ids.shape[0]
     out = torch.empty(nb, dtype=torch.int32, device=padded.device)
     if nb == 0:
@@ -232,10 +255,15 @@ def banded_scores(padded, lengths, seed_id, target_ids, mm, go, ge, band):
     """[B] int32 banded scores of row `seed_id` against rows
     `target_ids` of the resident code matrix (contract in the module
     header). CPU: banded_scores_reference over the gathered rows; CUDA:
-    the band kernel of csrc/nw_scores.cu."""
+    the band kernel of csrc/nw_scores.cu, which takes codes modulo 4.
+    Raises for penalties and widths outside band_fits."""
     _check(padded, lengths, seed_id, target_ids)
     if not 1 <= band <= MAX_BAND:
         raise ValueError(f"band {band} outside 1..{MAX_BAND}")
+    if not band_fits(padded.shape[1], mm, go, ge):
+        raise ValueError(
+            f"penalties {(mm, go, ge)} on rows of {padded.shape[1]} columns: "
+            f"negative, or a score could pass 2^31")
     if padded.device.type == "cpu":
         tid = target_ids.long()
         nb = tid.shape[0]

@@ -24,6 +24,7 @@ exactly.
 import numpy as np
 import torch
 
+from .d2_diffs import row_stride_16
 from .nw_scores import MAX_BAND, band_for_cutoff, banded_scores, full_scores
 
 
@@ -40,8 +41,10 @@ class DeviceAligner:
                  device):
         self.device = torch.device(device)
         self.n = padded_np.shape[0]
-        self.padded = torch.from_numpy(
-            np.ascontiguousarray(padded_np, dtype=np.uint8)).to(self.device)
+        # rows at a stride of a multiple of 16 bytes, the unit the band
+        # kernel reads: no copy at every launch
+        self.padded = row_stride_16(torch.from_numpy(
+            np.ascontiguousarray(padded_np, dtype=np.uint8)).to(self.device))
         self.lengths = torch.from_numpy(
             np.ascontiguousarray(lengths_np, dtype=np.int32)).to(self.device)
 

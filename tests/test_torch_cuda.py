@@ -14,6 +14,7 @@ from swarm_tpu_torch import _native
 from swarm_tpu_torch.corpora import (
     D2_DIFFS_BAND_CASES,
     D2_DIFFS_KERNEL_CASES,
+    band_edge_cases,
     chain_corpus,
     dense_cloud_corpus,
     make_db,
@@ -172,7 +173,7 @@ def test_full_scores_kernel_on_the_edges_of_its_schedule(cuda_device):
 @pytest.mark.parametrize("band", [1, 4, 20, 21, 63])
 def test_banded_scores_kernel_matches_reference(cloud_aligner, scores, band):
     """Exact equality with the same-band plain version (B <= 20: register
-    variants; above: the local-memory variant), and the screen's contract
+    variants; above: the general variant), and the screen's contract
     against the full-row kernel."""
     al, ids = cloud_aligner
     mm, go, ge = scores
@@ -192,6 +193,60 @@ def test_banded_scores_kernel_matches_reference(cloud_aligner, scores, band):
     assert inside.any()
     assert torch.equal(got[inside], full[inside])
     assert bool((got[~inside] > cutoff).all())
+
+
+BAND_EDGE_CASES = list(band_edge_cases())
+
+
+@pytest.mark.parametrize("case", BAND_EDGE_CASES,
+                         ids=[c[0] for c in BAND_EDGE_CASES])
+def test_banded_scores_kernel_on_the_edges_of_the_band(cuda_device, case):
+    """Every band B = 1..20 (register variants) and 21, 40, 63 (general
+    variant) on ragged lengths; seeds shorter than the band, of length
+    1, targets of length 0, 1, at the band's last slots and one beyond;
+    an empty seed, an empty list; widths that are no multiple of 16
+    (the wrapper re-strides them); int32 and int64 ids. Exact for every
+    pair, above the cutoff too."""
+    name, padded, lengths, seed_id, ids, band, (mm, go, ge) = case
+    padded, lengths, ids = (torch.from_numpy(x).to(cuda_device)
+                            for x in (padded, lengths, ids))
+    nb = ids.numel()
+    before = nw_scores.launches["banded_scores"]
+    got = nw_scores.banded_scores(
+        padded, lengths, seed_id, ids, mm, go, ge, band)
+    torch.cuda.synchronize()
+    assert nw_scores.launches["banded_scores"] == before + (1 if nb else 0)
+    tid = ids.long()
+    want = nw_scores.banded_scores_reference(
+        padded[seed_id].expand(nb, -1), padded[tid],
+        lengths[seed_id].expand(nb), lengths[tid], mm, go, ge, band)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want), name
+
+
+def test_banded_scores_kernel_refuses_what_its_clamp_cannot_take(
+        cuda_device):
+    """Penalties under which a state could pass 2^31 before the single
+    clamp at the end: the wrapper raises and launches nothing, and the
+    library's own check agrees with the wrapper's."""
+    from swarm_tpu_torch._build import load
+
+    padded = torch.zeros((2, 32), dtype=torch.uint8, device=cuda_device)
+    lengths = torch.tensor([24, 22], dtype=torch.int32, device=cuda_device)
+    ids = torch.tensor([1], device=cuda_device)
+    before = nw_scores.launches["banded_scores"]
+    for scores in ((1 << 24, 24, 13), (-1, 24, 13), (18, -1, 13)):
+        with pytest.raises(ValueError):
+            nw_scores.banded_scores(padded, lengths, 0, ids, *scores, 4)
+    assert nw_scores.launches["banded_scores"] == before
+    lib = load()
+    for width, scores in ((401, (18, 24, 13)), (401, (1 << 21, 24, 13)),
+                          (1 << 20, (300, 300, 300)), (48, (1 << 22, 0, 0)),
+                          (16384, (255, 255, 255)), (401, (18, 24, -1))):
+        assert bool(lib.swarm_nw_band_fits(width, *scores)) == \
+            nw_scores.band_fits(width, *scores)
+    assert nw_scores.banded_scores(
+        padded, lengths, 0, ids, 18, 24, 13, 4).tolist() == [24 + 2 * 13]
 
 
 def test_score_kernels_take_empty_rows_and_empty_lists(cuda_device):
