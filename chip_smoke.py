@@ -28,17 +28,27 @@ final line:
    empty row, a one-element list), banded_scores on every band B =
    1..20, 21, 40, 63 over ragged lengths and on lengths at the edges of
    the band;
-4. main paths through swarm_tpu_torch.main.run, each with a warm-up
+4. the d=1 sort-join kernels d1_keygen, d1_join and d1_verify against
+   their plain versions on the card, exactly (keys and flags element for
+   element, candidate pairs in the kernel's order), on rows at the edges
+   of the kernels, on one run of 125 rows sharing a key, and on the
+   d1_1m corpus, which is also timed: each kernel's passes, torch.sort
+   of the keys (the sort phase) and the plain versions;
+5. main paths through swarm_tpu_torch.main.run, each with a warm-up
    run, then one timed run with every kernel's launch count set to 0
    before it and read after it, then the port's native C engine
-   (SWARM_TPU_D2_ENGINE=native), whose output files the run's must
-   equal byte for byte:
+   (SWARM_TPU_D2_ENGINE=native at d >= 2, SWARM_TPU_D1_NATIVE_MAX above
+   n at d = 1), whose output files the run's must equal byte for byte:
    - d2_100k (99,831 amplicons of 142-158 nt) and d2_long (19,991 of
      ~400 nt): `swarm -d 2`, the network engine, kernel d2_diffs;
    - d2_device (20,808 amplicons of ~400 nt in dense clouds): `swarm
      -d 2` under SWARM_TPU_D2_ENGINE=device, kernel banded_scores;
    - d2_wide (5,204 amplicons, `-d 5 -m 1 -p 20 -g 1 -e 1`, band 70):
-     the same engine, kernel full_scores.
+     the same engine, kernel full_scores;
+   - d1_1m (gen_corpus of 1,000,000 amplicons of ~150 nt) with `-d 1
+     -o -s` and d1_full_100k (the d2_100k corpus) with `-d 1 -o -s -u
+     -i -w`: the d=1 sort-join engine, kernels d1_keygen, d1_join and
+     d1_verify.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and a C
@@ -48,9 +58,9 @@ To compare two versions of the port on one card, run each in turns:
 
     python3 chip_smoke.py --quick [--tree OTHER_CHECKOUT]
 
-runs only the timed kernel phases (2 and 3 at their timed shapes) and
-the d2_100k, d2_device and d2_wide main paths of the package under
-OTHER_CHECKOUT
+runs only the timed kernel phases (2, 3 and 4 at their timed shapes) and
+the d2_100k, d2_device, d2_wide and d1_1m main paths of the package
+under OTHER_CHECKOUT
 (default: this checkout), and ends with one JSON line
 {"quick": {card, tree, kernels, main_paths}} instead of the two above.
 """
@@ -87,6 +97,15 @@ PEAK_OPS_PER_S = 67e12
 #: out plainly (compares, selects, clamps) come to 12 and 35.
 OPS_PER_SCORE_CELL = 6
 OPS_PER_DIFF_CELL = 8
+#: integer operations of the d=1 keygen as written (csrc/d1_join.cu): a
+#: base costs ~16 over the two walks of its row (decode, two hash terms,
+#: two powers, two prefix sums, the run test) and a key ~6 more (two
+#: subtractions and a multiply-add a half); the count pass is ~half an
+#: operation a base. The join and the verify do a few operations a byte.
+OPS_PER_KEYGEN_BASE = 16
+OPS_PER_KEY = 6
+OPS_PER_JOIN_ELEMENT = 4
+OPS_PER_VERIFY_WORD = 12
 
 
 def say(msg):
@@ -498,9 +517,186 @@ def phase_nw_scores(dev, fasta):
     return result
 
 
-def run_cli(argv, workdir, engine=None):
-    """One CLI run of the port in `workdir` under SWARM_TPU_D2_ENGINE=
-    `engine`; returns (seconds, [timing] lines)."""
+def _d1_rows(db, dev):
+    """(packed, lengths) of a Db as the d=1 engine puts them on `dev`."""
+    import numpy as np
+    import torch
+
+    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
+    from swarm_tpu_torch.ops.neighbors import pad_codes
+
+    width = sj._round_up(max(int(db.longest), 1), 64)
+    padded = pad_codes(db.codes, db.offsets, db.lengths, width)
+    packed = torch.from_numpy(sj.pack2bit(padded).view(np.int32)).to(dev)
+    return packed, torch.from_numpy(db.lengths.astype(np.int32)).to(dev)
+
+
+def _d1_plain_keygen(packed, lengths):
+    import torch
+
+    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
+
+    (h0, h1), valid = sj.deletion_keys_poly(sj.unpack2bit(packed), lengths)
+    return sj.make_keys(h0, h1)[valid], \
+        torch.nonzero(valid)[:, 0].to(torch.int32), valid.sum(dim=1)
+
+
+def _sorted_keys(keys, owners):
+    import torch
+
+    skeys, order = torch.sort(keys)
+    return skeys, torch.take(owners, order)
+
+
+def _dedup(cand):
+    import torch
+
+    return torch.unique_consecutive(torch.sort(cand).values)
+
+
+def d1_check(name, packed, lengths):
+    """d1_keygen, d1_join and d1_verify against their plain versions on
+    the same card tensors; returns the max_abs_err of each and the
+    pipeline's tensors."""
+    import torch
+
+    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
+
+    def err(got, want):
+        if got.shape != want.shape:
+            return float("inf")
+        return int((got.long() - want.long()).abs().max()) if got.numel() \
+            else 0
+
+    counts = sj.keygen_count(packed, lengths)
+    keys, owners = sj.deletion_keys(packed, lengths)
+    want_keys, want_owners, want_counts = _d1_plain_keygen(packed, lengths)
+    e_keygen = max(err(counts, want_counts), err(owners, want_owners),
+                   *(err(a, b) for a, b in zip(sj.split_keys(keys),
+                                               sj.split_keys(want_keys))))
+    del want_keys, want_owners, want_counts
+    skeys, sowners = _sorted_keys(keys, owners)
+    cand = sj.join_pairs(skeys, sowners)
+    e_join = max(err(cand, sj.join_pairs_reference(skeys, sowners)),
+                 err(sj.join_count(skeys, sowners), torch.bincount(
+                     sj._join_links(skeys, sowners)[0],
+                     minlength=skeys.numel())))
+    uniq = _dedup(cand)
+    ok = sj.verify_pairs(packed, lengths, uniq)
+    a, b = sj.pair_ids(uniq)
+    e_verify = err(ok, sj.verify_dist1_packed(packed[a], packed[b],
+                                              lengths[a], lengths[b]))
+    torch.cuda.synchronize()
+    say(f"kernels d1 {name}: rows={packed.shape[0]} words={packed.shape[1]} "
+        f"keys={keys.numel()} candidates={cand.numel()} "
+        f"unique={uniq.numel()} at_distance_1={int(ok.sum())} "
+        f"max_abs_err keygen={e_keygen} join={e_join} verify={e_verify}")
+    if e_keygen or e_join or e_verify:
+        raise AssertionError(f"a d=1 kernel disagrees with its plain version "
+                             f"on {name}")
+    if not ok.any():
+        raise AssertionError(f"{name}: no pair at distance 1 to verify")
+    return {"d1_keygen": e_keygen, "d1_join": e_join, "d1_verify": e_verify}, \
+        (keys, owners, skeys, sowners, cand, uniq, ok)
+
+
+def phase_d1_kernels(dev, fasta, edges):
+    """The d=1 kernels against their plain versions (with `edges`, also
+    on the edge rows and the 125-row run) and timed on the d1_1m corpus;
+    returns the three kernels' rows of numbers."""
+    import torch
+
+    from swarm_tpu_torch.corpora import (
+        d1_edge_rows, insertion_run, make_db, read_db, rows_records)
+    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
+
+    worst = dict.fromkeys(D1_KERNELS, 0)
+    if edges:
+        with tempfile.TemporaryDirectory(prefix="d1_edges_") as tmp:
+            for case, rows in (("edge_rows", d1_edge_rows()),
+                               ("insertion_run", insertion_run())):
+                (Path(tmp) / case).mkdir()
+                db = make_db(Path(tmp) / case, rows_records(rows))
+                errs, _ = d1_check(case, *_d1_rows(db, dev))
+                worst = {k: max(worst[k], errs[k]) for k in worst}
+
+    t0 = time.perf_counter()
+    db = read_db(fasta)
+    n = min(len(db), 1 << 20)
+    packed, lengths = _d1_rows(db, dev)
+    packed, lengths = packed[:n].contiguous(), lengths[:n].contiguous()
+    say(f"kernels d1 d1_1m: read and packed {n} rows in "
+        f"{time.perf_counter() - t0:.1f}s")
+    errs, (keys, owners, skeys, sowners, cand, uniq, ok) = d1_check(
+        "d1_1m", packed, lengths)
+    worst = {k: max(worst[k], errs[k]) for k in worst}
+
+    counts = sj.keygen_count(packed, lengths)
+    ends = torch.cumsum(counts, dim=0, dtype=torch.int64)
+    n_keys = keys.numel()
+    sort_ms = cuda_ms(lambda: _sorted_keys(keys, owners), 3)
+    say(f"sort phase: torch.sort of {n_keys} int64 keys and the owners "
+        f"taken through its indices: sort_ms={sort_ms:.3f}")
+    del keys, owners
+    count_ms = cuda_ms(lambda: sj.keygen_count(packed, lengths), 10)
+    emit_ms = cuda_ms(lambda: sj.keygen_emit(packed, lengths, ends, n_keys), 5)
+    plain_ms = cuda_ms(lambda: _d1_plain_keygen(packed, lengths), 1)
+    bases = int(lengths.long().sum())
+    n_bytes = packed.numel() * 4 + n * 4 + n_keys * 12
+    n_ops = OPS_PER_KEYGEN_BASE * bases + OPS_PER_KEY * n_keys
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    say(f"kernel d1_keygen timed: rows={n} bases={bases} keys={n_keys} "
+        f"count_ms={count_ms:.4f} emit_ms={emit_ms:.4f} "
+        f"kernel_ms={count_ms + emit_ms:.4f} plain_ms={plain_ms:.3f} "
+        f"bytes={n_bytes} ops={n_ops} bound_ms={bound_ms:.4f} ({bound_by})")
+    result = {"d1_keygen": {
+        "max_abs_err": worst["d1_keygen"], "ms": count_ms + emit_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "count_ms": count_ms, "emit_ms": emit_ms}}
+
+    jcounts = sj.join_count(skeys, sowners)
+    jends = torch.cumsum(jcounts, dim=0, dtype=torch.int64)
+    n_cand = cand.numel()
+    count_ms = cuda_ms(lambda: sj.join_count(skeys, sowners), 10)
+    emit_ms = cuda_ms(lambda: sj.join_emit(skeys, sowners, jends, n_cand), 10)
+    plain_ms = cuda_ms(lambda: sj.join_pairs_reference(skeys, sowners), 1)
+    n_bytes = n_keys * 12 + n_cand * 8
+    n_ops = OPS_PER_JOIN_ELEMENT * n_keys
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    say(f"kernel d1_join timed: keys={n_keys} candidates={n_cand} "
+        f"count_ms={count_ms:.4f} emit_ms={emit_ms:.4f} "
+        f"kernel_ms={count_ms + emit_ms:.4f} plain_ms={plain_ms:.3f} "
+        f"bytes={n_bytes} ops={n_ops} bound_ms={bound_ms:.4f} ({bound_by})")
+    result["d1_join"] = {
+        "max_abs_err": worst["d1_join"], "ms": count_ms + emit_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "count_ms": count_ms, "emit_ms": emit_ms,
+        "sort_ms": sort_ms}
+    del skeys, sowners
+
+    dedup_ms = cuda_ms(lambda: _dedup(cand), 5)
+    ms = cuda_ms(lambda: sj.verify_pairs(packed, lengths, uniq), 10)
+    a, b = sj.pair_ids(uniq)
+    plain_ms = cuda_ms(lambda: sj.verify_dist1_packed(
+        packed[a], packed[b], lengths[a], lengths[b]), 1)
+    rows_read = int(torch.unique(torch.cat([a, b])).numel())
+    n_bytes = uniq.numel() * 9 + rows_read * (packed.shape[1] * 4 + 4)
+    n_ops = OPS_PER_VERIFY_WORD * uniq.numel() * packed.shape[1]
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    say(f"kernel d1_verify timed: pairs={uniq.numel()} rows_read={rows_read} "
+        f"at_distance_1={int(ok.sum())} kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.3f} dedup_ms={dedup_ms:.3f} bytes={n_bytes} "
+        f"ops={n_ops} bound_ms={bound_ms:.4f} ({bound_by})")
+    result["d1_verify"] = {
+        "max_abs_err": worst["d1_verify"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "dedup_ms": dedup_ms}
+    return result
+
+
+def run_cli(argv, workdir, env=None):
+    """One CLI run of the port in `workdir` with the variables of `env`
+    set; returns (seconds, [timing] lines)."""
     from swarm_tpu_torch.main import run
 
     workdir.mkdir(parents=True, exist_ok=True)
@@ -509,14 +705,15 @@ def run_cli(argv, workdir, engine=None):
     real_err = sys.__stderr__
     os.chdir(workdir)
     sys.__stderr__ = err  # progress.py writes its [timing] lines here
-    if engine:
-        os.environ["SWARM_TPU_D2_ENGINE"] = engine
+    env = env or {}
+    os.environ.update(env)
     try:
         t0 = time.perf_counter()
         rc = run(argv, "swarm")
         sec = time.perf_counter() - t0
     finally:
-        os.environ.pop("SWARM_TPU_D2_ENGINE", None)
+        for key in env:
+            os.environ.pop(key, None)
         sys.__stderr__ = real_err
         os.chdir(cwd)
     if rc != 0:
@@ -526,25 +723,28 @@ def run_cli(argv, workdir, engine=None):
 
 
 def kernel_counts():
-    from swarm_tpu_torch.ops import d2_diffs, nw_scores
+    from swarm_tpu_torch.ops import d2_diffs, neighbors_sortjoin, nw_scores
 
-    return {"d2_diffs": d2_diffs.launches, **nw_scores.launches}
+    return {"d2_diffs": d2_diffs.launches, **nw_scores.launches,
+            **neighbors_sortjoin.launches}
 
 
 def reset_kernel_counts():
-    from swarm_tpu_torch.ops import d2_diffs, nw_scores
+    from swarm_tpu_torch.ops import d2_diffs, neighbors_sortjoin, nw_scores
 
     d2_diffs.launches = 0
-    for name in nw_scores.launches:
-        nw_scores.launches[name] = 0
+    for counts in (nw_scores.launches, neighbors_sortjoin.launches):
+        for name in counts:
+            counts[name] = 0
 
 
-def phase_main_path(name, fasta, flags, work, engine, kernel):
-    """Warm-up run, then one timed run through the port under `engine`
-    with every kernel's launch count set to 0 before it and read after
-    it; then the native engine's run, whose files the port's must equal
-    byte for byte. Returns the timed run's launch count of `kernel`,
-    its seconds, the native engine's, and its [timing] lines."""
+def phase_main_path(name, fasta, flags, work, env, kernels, native_env):
+    """Warm-up run, then one timed run through the port with the
+    variables of `env` set and every kernel's launch count set to 0
+    before it and read after it; then the native engine's run (under
+    `native_env`), whose files the port's must equal byte for byte.
+    Returns the timed run's launch counts of `kernels`, its seconds, the
+    native engine's, and its [timing] lines."""
     import torch
 
     from swarm_tpu_torch import metrics
@@ -553,27 +753,36 @@ def phase_main_path(name, fasta, flags, work, engine, kernel):
     argv = flags + ["-l", "log.txt", str(fasta)]
     outputs = [flags[i + 1] for i in range(len(flags) - 1)
                if flags[i] in ("-o", "-s", "-u", "-i", "-w")] + ["log.txt"]
-    warm_s, _ = run_cli(argv, work / f"{name}_warm", engine)
+    engine = env.get("SWARM_TPU_D2_ENGINE")
+    warm_s, _ = run_cli(argv, work / f"{name}_warm", env)
     torch.cuda.synchronize()
 
     reset_kernel_counts()
     metrics.reset()
-    sec, timing = run_cli(argv, work / f"{name}_torch", engine)
+    torch.cuda.reset_peak_memory_stats()
+    sec, timing = run_cli(argv, work / f"{name}_torch", env)
     counts = kernel_counts()
-    if engine is None and \
+    comparisons = dict(metrics.last_run)
+    peak = torch.cuda.max_memory_allocated()
+    if flags[:2] == ["-d", "2"] and engine is None and \
             metrics.last_run.get("qgram_screen_comparisons") != n * (n - 1) // 2:
         raise AssertionError(f"{name}: the network engine did not run")
-    if counts[kernel] < 1:
-        raise AssertionError(f"{name}: kernel {kernel} never launched")
-    native_s, _ = run_cli(argv, work / f"{name}_native", "native")
+    if flags[:2] == ["-d", "1"] and not any(
+            ln.startswith("[timing] d1 join (cuda)") for ln in timing):
+        raise AssertionError(f"{name}: the d=1 sort-join engine did not run")
+    for kernel in kernels:
+        if counts[kernel] < 1:
+            raise AssertionError(f"{name}: kernel {kernel} never launched")
+    native_s, _ = run_cli(argv, work / f"{name}_native", native_env)
 
-    say(f"main path {name}: n={n} engine={engine or 'auto (network)'} "
+    say(f"main path {name}: n={n} engine={engine or 'auto'} "
         f"flags={' '.join(flags)} warmup_s={warm_s:.3f} warm_s={sec:.3f} "
-        f"native_engine_s={native_s:.3f} launches={counts}")
+        f"native_engine_s={native_s:.3f} launches={counts} "
+        f"comparisons={comparisons} device_peak_bytes={peak}")
     if engine == "device":
         say(f"main path {name}: target lists that took the device="
-            f"{metrics.last_run.get('d2_device_batches')} stayed under "
-            f"MIN_DEVICE_BATCH={metrics.last_run.get('d2_host_batches')}")
+            f"{comparisons.get('d2_device_batches')} stayed under "
+            f"MIN_DEVICE_BATCH={comparisons.get('d2_host_batches')}")
     for ln in timing:
         say(f"  {name} {ln}")
     for out in outputs:
@@ -584,7 +793,8 @@ def phase_main_path(name, fasta, flags, work, engine, kernel):
                                  f"engine's ({len(a)} vs {len(b)} bytes)")
     say(f"main path {name}: {len(outputs)} output files byte-identical "
         f"to the native engine")
-    return {"launches": counts[kernel], "warm_s": sec, "native_s": native_s,
+    return {"launches": {k: counts[k] for k in kernels}, "warm_s": sec,
+            "native_s": native_s, "device_peak_bytes": peak,
             "timing": timing}
 
 
@@ -650,49 +860,75 @@ def main():
     return 0
 
 
-#: name -> (corpus maker, its arguments, CLI flags, engine, kernel)
+D2_NATIVE = {"SWARM_TPU_D2_ENGINE": "native"}
+D1_NATIVE = {"SWARM_TPU_D1_NATIVE_MAX": str(1 << 40)}
+D1_KERNELS = ("d1_keygen", "d1_join", "d1_verify")
+
+#: name -> (corpus maker, its arguments, CLI flags, environment, kernels,
+#: environment of the native engine)
 MAIN_PATHS = {
     "d2_100k": ("gen_corpus", {"n": 100_000, "length": 150},
                 ["-d", "2", "-o", "out.txt", "-s", "stats.txt", "-u",
                  "uclust.txt", "-i", "structure.txt", "-w", "seeds.fasta"],
-                None, "d2_diffs"),
+                {}, ("d2_diffs",), D2_NATIVE),
     "d2_long": ("gen_corpus", {"n": 20_000, "length": 400},
                 ["-d", "2", "-o", "out.txt", "-s", "stats.txt"],
-                None, "d2_diffs"),
+                {}, ("d2_diffs",), D2_NATIVE),
     "d2_device": ("dense_cloud_corpus",
                   {"n_centers": 4, "cloud": 2600, "length": 400},
                   ["-d", "2", "-o", "out.txt", "-s", "stats.txt", "-i",
-                   "structure.txt"], "device", "banded_scores"),
+                   "structure.txt"], {"SWARM_TPU_D2_ENGINE": "device"},
+                  ("banded_scores",), D2_NATIVE),
     "d2_wide": ("dense_cloud_corpus",
                 {"n_centers": 1, "cloud": 2601, "length": 400},
                 ["-d", "5", "-m", "1", "-p", "20", "-g", "1", "-e", "1",
                  "-o", "out.txt", "-s", "stats.txt", "-i", "structure.txt"],
-                "device", "full_scores"),
+                {"SWARM_TPU_D2_ENGINE": "device"}, ("full_scores",),
+                D2_NATIVE),
+    "d1_1m": ("gen_corpus", {"n": 1_000_000, "length": 150},
+              ["-d", "1", "-o", "out.txt", "-s", "stats.txt"],
+              {}, D1_KERNELS, D1_NATIVE),
+    "d1_full_100k": ("gen_corpus", {"n": 100_000, "length": 150},
+                     ["-d", "1", "-o", "out.txt", "-s", "stats.txt", "-u",
+                      "uclust.txt", "-i", "structure.txt", "-w",
+                      "seeds.fasta"], {}, D1_KERNELS, D1_NATIVE),
 }
 
 
 def make_corpora(work, names):
+    """name -> FASTA file; paths with the same corpus share one file."""
     from swarm_tpu_torch import corpora
 
-    corpus = {}
+    corpus, made = {}, {}
     for name in names:
         maker, kwargs = MAIN_PATHS[name][:2]
-        corpus[name] = work / f"{name}.fasta"
-        getattr(corpora, maker)(corpus[name], **kwargs)
+        key = (maker, tuple(sorted(kwargs.items())))
+        if key not in made:
+            made[key] = work / f"{name}.fasta"
+            t0 = time.perf_counter()
+            getattr(corpora, maker)(made[key], **kwargs)
+            say(f"corpus {name}: {maker}({kwargs}) "
+                f"{time.perf_counter() - t0:.1f}s")
+        corpus[name] = made[key]
     return corpus
 
 
+def run_main_path(name, corpus, work):
+    flags, env, kernels, native_env = MAIN_PATHS[name][2:]
+    return phase_main_path(name, corpus[name], flags, work, env, kernels,
+                           native_env)
+
+
+QUICK_PATHS = ("d2_100k", "d2_device", "d2_wide", "d1_1m")
+
+
 def run_quick(dev, work):
-    """The timed kernel phases and the d2_100k, d2_device and d2_wide
-    main paths."""
-    corpus = make_corpora(work, ("d2_100k", "d2_device", "d2_wide"))
+    """The timed kernel phases and the QUICK_PATHS main paths."""
+    corpus = make_corpora(work, QUICK_PATHS)
     rows = {"d2_diffs": phase_d2_diffs_at_scale(dev, corpus["d2_100k"])}
     rows.update(phase_nw_scores(dev, corpus["d2_device"]))
-    paths = {}
-    for name in ("d2_100k", "d2_device", "d2_wide"):
-        flags, engine, kernel = MAIN_PATHS[name][2:]
-        paths[name] = phase_main_path(name, corpus[name], flags, work,
-                                      engine, kernel)
+    rows.update(phase_d1_kernels(dev, corpus["d1_1m"], edges=False))
+    paths = {name: run_main_path(name, corpus, work) for name in QUICK_PATHS}
     return {"kernels": rows, "main_paths": paths}
 
 
@@ -710,12 +946,15 @@ def run_phases(dev, work):
         rows["full_scores"]["max_abs_err"], phase_full_scores_edges(dev))
     rows["banded_scores"]["max_abs_err"] = max(
         rows["banded_scores"]["max_abs_err"], phase_banded_scores_edges(dev))
+    rows.update(phase_d1_kernels(dev, corpus["d1_1m"], edges=True))
 
     launches = {}
-    for name, (_, _, flags, engine, kernel) in MAIN_PATHS.items():
-        ran = phase_main_path(name, corpus[name], flags, work, engine, kernel)
-        launches.setdefault(kernel, ran["launches"])  # d2_diffs: d2_100k's
+    for name in MAIN_PATHS:
+        ran = run_main_path(name, corpus, work)
+        for kernel, count in ran["launches"].items():
+            launches.setdefault(kernel, count)  # the first path's count
 
+    d1 = "swarm_tpu_torch/csrc/d1_join.cu"
     static = {
         "d2_diffs": ("swarm_tpu_torch/csrc/d2_diffs.cu",
                      "swarm_tpu/ops/pallas_d2_diffs.py:191"),
@@ -723,6 +962,10 @@ def run_phases(dev, work):
                           "swarm_tpu/ops/pallas_nw.py:410"),
         "full_scores": ("swarm_tpu_torch/csrc/nw_scores.cu",
                         "swarm_tpu/ops/pallas_nw.py:240"),
+        # the d=1 path's device work was XLA programs, not Pallas kernels
+        "d1_keygen": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:142"),
+        "d1_join": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:416"),
+        "d1_verify": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:337"),
     }
     return [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches[name], **rows[name]}

@@ -18,6 +18,9 @@ run on the card and a run on the CPU see the same sequences.
 - ``band_edge_cases``: every band of the banded score kernel on ragged
   lengths, and seeds and targets whose lengths sit on the edges of the
   band.
+- ``d1_edge_rows``, ``insertion_run``: rows on the edges of the d=1
+  sort-join kernels (word edges, length 1, homopolymers, prefixes) and
+  one run of 125 rows that share one key.
 - ``read_db``, ``make_db``: a corpus as a Db, read back through db_read.
 """
 
@@ -305,6 +308,69 @@ def dense_cloud_corpus(path: Path, n_centers: int, cloud: int, length: int,
     with open(path, "w") as fh:
         fh.writelines(records[i] for i in order)
     return len(records)
+
+
+def d1_edge_rows(seed=20260821):
+    """Distinct code rows (uint8 arrays) on the edges of the d=1 kernels:
+    the four rows of length 1 (they share the key of the empty string),
+    homopolymers (one run: a full key and one deletion) and their
+    neighbours, and for lengths 15, 16, 17, 31, 32, 33, 63, 64, 65 (the
+    edges of 16-base words and 64-base loads) a random row with
+    substitutions, deletions and insertions at both ends and inside, a
+    prefix one shorter (the first difference at the shorter's end) and
+    rows at distance 2."""
+    rng = np.random.default_rng(seed)
+    rows = [np.array([c], dtype=np.uint8) for c in range(4)]
+    for c in range(4):
+        rows.append(np.full(10, c, dtype=np.uint8))
+    rows += [np.full(9, 0, dtype=np.uint8), np.full(11, 0, dtype=np.uint8)]
+    h = np.full(10, 2, dtype=np.uint8)
+    h[4] = 1
+    rows.append(h)
+    for L in (15, 16, 17, 31, 32, 33, 63, 64, 65):
+        base = rng.integers(0, 4, size=L).astype(np.uint8)
+        rows.append(base)
+        for p in (0, L // 2, L - 1):
+            v = base.copy()
+            v[p] = (v[p] + 1 + rng.integers(0, 3)) % 4
+            rows.append(v)
+            rows.append(np.delete(base, p))
+        for p in (0, L // 3, L):
+            rows.append(np.insert(base, p, rng.integers(0, 4)))
+        two = base.copy()
+        two[0] = (two[0] + 1) % 4
+        two[L - 1] = (two[L - 1] + 2) % 4
+        rows += [two, base[:L - 2], np.roll(base, 1)]
+    out, seen = [], set()
+    for r in rows:
+        r = r.astype(np.uint8)
+        if r.tobytes() not in seen:
+            seen.add(r.tobytes())
+            out.append(r)
+    return out
+
+
+def insertion_run(seed=20260822, length=40):
+    """A random row of `length` codes and every distinct single insertion
+    of it (3 * length + 4 rows): all of them share the row's own key, so
+    the sorted keys hold one run of 3 * length + 5 slots."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, size=length).astype(np.uint8)
+    out, seen = [base], {base.tobytes()}
+    for p in range(length + 1):
+        for b in range(4):
+            v = np.insert(base, p, b).astype(np.uint8)
+            if v.tobytes() not in seen:
+                seen.add(v.tobytes())
+                out.append(v)
+    return out
+
+
+def rows_records(rows, seed=20260823):
+    """FASTA records of code rows, with seeded abundances."""
+    rng = np.random.default_rng(seed)
+    return [_record(f"r{i}", int(rng.integers(1, 50)), r)
+            for i, r in enumerate(rows)]
 
 
 def read_db(path: Path):

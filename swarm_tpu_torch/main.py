@@ -4,8 +4,9 @@ Counterpart of swarm_tpu/main.py (the reference main(),
 src/swarm.cc:633-675), with the same CLI and output streams:
 
 - d = 0: models/derep.py (host);
-- d = 1: models/d1.py with the native C network construction and BFS;
-  the torch sort-join engine is not ported yet;
+- d = 1: models/d1.py, whose network comes from the torch sort-join
+  engine on the device from 65,536 amplicons up (the native C code
+  below), and the native BFS;
 - d >= 2: models/general.py, whose network and device engines run on
   the torch device.
 
@@ -82,7 +83,7 @@ def run(argv, progname: str, device=None) -> int:
         elif p.opt_differences == 1:
             from .models.d1 import algo_d1_run
 
-            algo_d1_run(p, db, progress)
+            algo_d1_run(p, db, progress, device)
         else:
             from .models.general import algo_run
 

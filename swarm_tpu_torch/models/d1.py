@@ -1,10 +1,10 @@
 """d=1 engine (reference: src/algod1.cc).
 
-Counterpart of swarm_tpu/models/d1.py with the host network construction
-taken directly: the exact 1-difference network comes from the native
-C code (ops/neighbors.py: NeighborIndex) and feeds a host
-breadth-first cluster growth that replicates the reference's ordering
-rules:
+Counterpart of swarm_tpu/models/d1.py: the exact 1-difference network
+comes from ops/neighbors.py: NeighborIndex (the native C code below
+NATIVE_MAX amplicons, the torch sort-join engine on the device above
+it, started before the duplicate check) and feeds a host breadth-first
+cluster growth that replicates the reference's ordering rules:
   - amplicons processed in abundance-sorted order;
   - per generation, new members attach in ascending amplicon order;
   - a member's parent is the lowest-index subseed that links it.
@@ -155,14 +155,19 @@ def _dump_network_python(p, db, progress, n, link_start, link_count,
     progress.done()
 
 
-def algo_d1_run(p: Parameters, db: Db, progress: Progress) -> None:
+def algo_d1_run(p: Parameters, db: Db, progress: Progress, device) -> None:
+    """`device`: the torch device of the sort-join engine (None: cuda:0)."""
     n = len(db)
     abundances = db.abundances.astype(np.uint64)
 
     # --- hashing phase: exact duplicate-sequence check ---
     from .. import _native
 
-    index = NeighborIndex(db, threads=p.opt_threads)
+    # start the device join before the host-side hashing phase: the
+    # device works while the host runs the duplicate check (a dup fatal
+    # just abandons the speculative work: it produces no output)
+    index = NeighborIndex(db, threads=p.opt_threads, device=device)
+    index.start_network()
 
     progress.init("Hashing sequences:", n)
     dup_msg = (

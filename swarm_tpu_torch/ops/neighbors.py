@@ -5,9 +5,11 @@ microvariants as incrementally-updated Zobrist hashes and probes a hash
 table (src/variants.cc:184-249, src/algod1.cc:558-627). Here the same
 mathematics is expressed as dense batched array ops — three gathers into
 a Zobrist table, XOR prefix/suffix scans, and a binary-search join
-against the sorted amplicon hash array. This is the host part of
-swarm_tpu/ops/neighbors.py: the d=1 network itself comes from the
-native C code, and the batched hashes serve the fastidious python join.
+against the sorted amplicon hash array. Counterpart of
+swarm_tpu/ops/neighbors.py: NeighborIndex builds the d=1 network with
+the native C code below NATIVE_MAX amplicons and with the torch
+sort-join engine (ops/neighbors_sortjoin.py) above it, and the batched
+hashes serve the fastidious python join.
 
 Canonical variant set of a length-L sequence s (identical to the
 reference's enumeration, which guarantees each 1-edit *sequence* is
@@ -21,6 +23,7 @@ Because every hash match is verified exactly against the candidate
 sequence, hash randomness never affects output (reference SURVEY §3.5).
 """
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -176,18 +179,29 @@ def decode_slot(slot: np.ndarray, max_len: int, padded: np.ndarray, amp: np.ndar
 
 
 class NeighborIndex:
-    """Padded codes + Zobrist machinery for a database, and the d=1
-    network from the native host code (swarm_native.c: d1_network).
+    """Padded codes + Zobrist machinery for a database, and its d=1
+    network.
 
-    Counterpart of swarm_tpu's NeighborIndex with its host backend
-    taken directly: no backend lookup, no device join.
+    Counterpart of swarm_tpu's NeighborIndex under its auto backend,
+    with the device join on the torch `device`. The rule, decided before
+    anything is launched: the native host builder (swarm_native.c:
+    d1_network) takes fewer than NATIVE_MAX amplicons
+    (SWARM_TPU_D1_NATIVE_MAX overrides it, as in swarm_tpu) and
+    mixed-length corpora, whose single table would be mostly padding
+    (the width-bucketed engine is not ported); the torch sort-join
+    engine takes the rest, and a failure there raises.
     """
 
-    def __init__(self, db, threads: int = 1):
+    #: the native host builder takes n below this
+    NATIVE_MAX = 65_536
+
+    def __init__(self, db, threads: int = 1, device=None):
         self.db = db
         self.max_len = max(int(db.longest), 1)
         self.lengths = db.lengths.astype(np.int64)
         self.threads = max(int(threads), 1)
+        self.device = device
+        self._engine = None
         self._padded = None
         self._zob = None
 
@@ -210,6 +224,28 @@ class NeighborIndex:
     def seq_hashes(self) -> np.ndarray:
         return sequence_hashes(self.padded, self.lengths, self.zob)
 
+    def uses_native(self) -> bool:
+        """Whether the native host builder makes the network."""
+        from .neighbors_sortjoin import buckets_worthwhile
+
+        native_max = int(
+            os.environ.get("SWARM_TPU_D1_NATIVE_MAX", str(self.NATIVE_MAX))
+        )
+        return len(self.lengths) < native_max or buckets_worthwhile(
+            self.lengths)
+
+    def start_network(self) -> None:
+        """Start the device join before the hashing phase, so that the
+        device works while the host checks for duplicate sequences (a
+        duplicate's fatal abandons the work with no output); a no-op for
+        the native builder."""
+        if len(self.lengths) == 0 or self.uses_native():
+            return
+        from .neighbors_sortjoin import SortJoinNeighborEngine
+
+        self._engine = SortJoinNeighborEngine(self.db, self.device)
+        self._engine.start()
+
     def build_network(self, no_break: bool, abundances: np.ndarray):
         """Return (edges_from, edges_to): all pairs dist(a,b)==1 with the
         abundance rule applied (ab[a] >= ab[b] unless no_break), a != b.
@@ -220,13 +256,19 @@ class NeighborIndex:
 
         if len(self.lengths) == 0:
             return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
-        ef, et = _native.d1_network(
-            self.db.codes, self.db.offsets, self.db.lengths,
-            np.asarray(abundances, dtype=np.int64), no_break,
-            nthreads=self.threads,
-        )
-        metrics.record(d1_join_comparisons=int(len(ef)))
-        return ef, et
+        if self.uses_native():
+            ef, et = _native.d1_network(
+                self.db.codes, self.db.offsets, self.db.lengths,
+                np.asarray(abundances, dtype=np.int64), no_break,
+                nthreads=self.threads,
+            )
+            metrics.record(d1_join_comparisons=int(len(ef)))
+            return ef, et
+        from .neighbors_sortjoin import SortJoinNeighborEngine
+
+        engine = self._engine or SortJoinNeighborEngine(self.db, self.device)
+        self._engine = None
+        return engine.build_network(no_break, abundances)
 
 
 def _join(hashes, valid, sorted_hashes, order):

@@ -1,11 +1,14 @@
 """bin/swarm-torch against bin/swarm, run as subprocesses on the same
 corpora and flags: exit code, stdout, stderr and every output file must
 be byte-identical. Both sides run the d>=2 network engine with device
-diffs (on the CPU here, through each engine's plain path), and the
-seed/subseed loop under SWARM_TPU_D2_ENGINE=device and python. The port
-runs on the CPU because the tests ask for it (SWARM_TORCH_DEVICE=cpu)."""
+diffs (on the CPU here, through each engine's plain path), the
+seed/subseed loop under SWARM_TPU_D2_ENGINE=device and python, and the
+d=1 sort-join engine (SWARM_TPU_BACKEND=jax on the JAX side,
+SWARM_TPU_D1_NATIVE_MAX=0 on the port's). The port runs on the CPU
+because the tests ask for it (SWARM_TORCH_DEVICE=cpu)."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -15,11 +18,6 @@ import numpy as np
 import pytest
 
 from genfasta import amplicon_cloud
-from swarm_tpu import _native
-
-pytestmark = pytest.mark.skipif(
-    not _native.available(), reason="native kernels unavailable"
-)
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 
@@ -56,14 +54,15 @@ sys.exit(main())
 """
 
 
-def _run(launcher, workdir, args, fasta, engine=None):
+def _run(launcher, workdir, args, fasta, engine=None, extra_env=None):
     """One run of bin/<launcher> (under SWARM_TPU_D2_ENGINE=engine when
-    given); for the seed/subseed-loop engines, of the aligner launcher for
-    that side instead."""
+    given, and `extra_env`); for the seed/subseed-loop engines, of the
+    aligner launcher for that side instead."""
     workdir.mkdir(parents=True)
     (workdir / "input.fasta").write_text(fasta)
     # argv[0] is "swarm" on both sides: diagnostics print it
-    env = {**os.environ, **ENV, "PYTHONPATH": str(REPO_ROOT)}
+    env = {**os.environ, **ENV, **(extra_env or {}),
+           "PYTHONPATH": str(REPO_ROOT)}
     if engine is not None:
         env["SWARM_TPU_D2_ENGINE"] = engine
     if engine in ("device", "python"):
@@ -77,9 +76,10 @@ def _run(launcher, workdir, args, fasta, engine=None):
     )
 
 
-def compare(tmp_path, args, fasta, engine=None):
-    want = _run("swarm", tmp_path / "jax", args, fasta, engine)
-    got = _run("swarm-torch", tmp_path / "torch", args, fasta, engine)
+def compare(tmp_path, args, fasta, engine=None, extra_env=None):
+    want = _run("swarm", tmp_path / "jax", args, fasta, engine, extra_env)
+    got = _run("swarm-torch", tmp_path / "torch", args, fasta, engine,
+               extra_env)
     assert got.returncode == want.returncode, got.stderr
     assert got.stdout == want.stdout
     assert got.stderr == want.stderr
@@ -217,6 +217,80 @@ def test_d1_no_otu_breaking_network(tmp_path):
     compare(tmp_path, ["-d", "1", "-n", "-j", "network.txt", "-o", "out.txt",
                        "-s", "stats.txt", "-i", "structure.txt",
                        "-l", "log.txt"], fasta)
+
+
+#: both sides on their d=1 sort-join engine, whatever the corpus' size:
+#: swarm_tpu's device backend (JAX on the CPU here) and the port's torch
+#: engine; each variable is read by one side only
+D1_ENGINE_ENV = {"SWARM_TPU_BACKEND": "jax", "SWARM_TPU_D1_NATIVE_MAX": "0"}
+
+ALL_OUTPUTS = [x for kv in OUTPUT_FLAGS.items() for x in kv]
+
+
+def _d1_corpus(case):
+    fasta = amplicon_cloud(
+        seed=60, n_centers=6, cloud_size=15, length=70, max_edits=2)
+    if case == "no_abundances":  # -a 3 supplies them
+        return re.sub(r"_[0-9]+\n", "\n", fasta)
+    if case == "usearch":  # -z: ";size=N;" abundances
+        return re.sub(r"_([0-9]+)\n", r";size=\1;\n", fasta)
+    if case == "duplicate":  # the duplicate-sequence fatal
+        head, seq = fasta.split("\n")[:2]
+        return fasta + f">dup_{head.split('_')[-1]}\n{seq}\n"
+    return fasta
+
+
+#: name -> (flags, corpus case) of the d=1 torch-engine cases
+D1_ENGINE_CASES = {
+    "all_outputs": (["-d", "1"] + ALL_OUTPUTS, "plain"),
+    "no_otu_breaking": (["-d", "1", "-n"] + ALL_OUTPUTS, "plain"),
+    "append_abundance": (["-d", "1", "-a", "3"] + ALL_OUTPUTS,
+                         "no_abundances"),
+    "usearch_abundance": (["-d", "1", "-z"] + ALL_OUTPUTS, "usearch"),
+    "fastidious": (["-d", "1", "-f"] + ALL_OUTPUTS, "plain"),
+    "duplicate_fatal": (["-d", "1", "-o", "out.txt", "-l", "log.txt"],
+                        "duplicate"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(D1_ENGINE_CASES))
+def test_d1_sortjoin_engine(tmp_path, case):
+    flags, corpus = D1_ENGINE_CASES[case]
+    got = compare(tmp_path, flags, _d1_corpus(corpus),
+                  extra_env=D1_ENGINE_ENV)
+    if case == "duplicate_fatal":
+        assert got.returncode != 0
+        assert b"identical sequences" in got.stderr + (
+            tmp_path / "torch" / "log.txt").read_bytes()
+    else:
+        assert got.returncode == 0, got.stderr
+        assert (tmp_path / "torch" / "network.txt").stat().st_size > 0
+
+
+def test_d1_sortjoin_engine_runs_in_process(tmp_path, monkeypatch):
+    """The same forcing in one process: the port's d=1 run builds its
+    network with the sort-join engine, on the CPU as asked."""
+    from swarm_tpu_torch import metrics
+    from swarm_tpu_torch.main import run
+    from swarm_tpu_torch.ops import neighbors_sortjoin
+
+    (tmp_path / "in.fasta").write_text(_d1_corpus("plain"))
+    monkeypatch.setenv("SWARM_TPU_D1_NATIVE_MAX", "0")
+    monkeypatch.chdir(tmp_path)
+    started = []
+    real_start = neighbors_sortjoin.SortJoinNeighborEngine.start
+
+    def start(self):
+        started.append(self.device)
+        return real_start(self)
+
+    monkeypatch.setattr(neighbors_sortjoin.SortJoinNeighborEngine, "start",
+                        start)
+    metrics.reset()
+    assert run(["-d", "1", "-o", "out.txt", "-l", "log.txt", "in.fasta"],
+               "swarm", device="cpu") == 0
+    assert started and {d.type for d in started} == {"cpu"}
+    assert metrics.last_run["d1_join_comparisons"] > 0
 
 
 @pytest.mark.parametrize("flags", [["-d", "2"], ["-d", "3", "-n"]],

@@ -16,13 +16,18 @@ from swarm_tpu_torch.corpora import (
     D2_DIFFS_KERNEL_CASES,
     band_edge_cases,
     chain_corpus,
+    d1_edge_rows,
     dense_cloud_corpus,
+    gen_corpus,
+    insertion_run,
     make_db,
     ragged_rows,
     read_db,
+    rows_records,
     score_edge_cases,
 )
 from swarm_tpu_torch.ops import d2_diffs as torch_diffs
+from swarm_tpu_torch.ops import neighbors_sortjoin as sj
 from swarm_tpu_torch.ops import nw_scores
 from swarm_tpu_torch.ops.d2_diffs import (
     DeviceDiffEngine,
@@ -278,3 +283,111 @@ def test_device_aligner_on_card_matches_cpu(cloud_aligner):
         np.testing.assert_array_equal(
             al.scores(0, ids_np, 18, 24, 13, cutoff=cutoff),
             cpu.scores(0, ids_np, 18, 24, 13, cutoff=cutoff))
+
+
+# ---- the d=1 sort-join kernels (csrc/d1_join.cu) -------------------------
+
+D1_CASES = ["edge_rows", "insertion_run", "one_row", "gen_corpus"]
+
+
+def _d1_db(tmp_path, case):
+    if case == "gen_corpus":
+        gen_corpus(tmp_path / "c.fasta", n=3000, length=150, seed=5)
+        return read_db(tmp_path / "c.fasta")
+    rows = {"edge_rows": d1_edge_rows, "insertion_run": insertion_run,
+            "one_row": lambda: [np.array([1, 1, 0, 3], np.uint8)]}[case]()
+    return make_db(tmp_path, rows_records(rows))
+
+
+def _d1_rows(db, device):
+    """(packed, lengths) as SortJoinNeighborEngine puts them on the device."""
+    width = sj._round_up(max(int(db.longest), 1), 64)
+    padded = pad_codes(db.codes, db.offsets, db.lengths, width)
+    packed = torch.from_numpy(sj.pack2bit(padded).view(np.int32))
+    lengths = torch.from_numpy(db.lengths.astype(np.int32))
+    return packed.to(device), lengths.to(device)
+
+
+@pytest.mark.parametrize("case", D1_CASES)
+def test_d1_kernels_match_reference(tmp_path, cuda_device, case):
+    """keygen and verify element for element, the join in the kernel's
+    order, each against its plain version on the same card tensors."""
+    packed, lengths = _d1_rows(_d1_db(tmp_path, case), cuda_device)
+    before = dict(sj.launches)
+    counts = sj.keygen_count(packed, lengths)
+    keys, owners = sj.deletion_keys(packed, lengths)
+    torch.cuda.synchronize()
+    (h0, h1), valid = sj.deletion_keys_poly(sj.unpack2bit(packed), lengths)
+    want_owners = torch.nonzero(valid)[:, 0].to(torch.int32)
+    assert torch.equal(counts, valid.sum(dim=1, dtype=torch.int32))
+    assert torch.equal(keys, sj.make_keys(h0, h1)[valid])
+    assert torch.equal(owners, want_owners)
+
+    skeys, order = torch.sort(keys)
+    sowners = torch.take(owners, order)
+    pairs = sj.join_pairs(skeys, sowners)
+    torch.cuda.synchronize()
+    assert torch.equal(sj.join_count(skeys, sowners),
+                       torch.bincount(sj._join_links(skeys, sowners)[0],
+                                      minlength=skeys.numel()).int())
+    assert torch.equal(pairs, sj.join_pairs_reference(skeys, sowners))
+
+    uniq = torch.unique(pairs)
+    ok = sj.verify_pairs(packed, lengths, uniq)
+    a, b = sj.pair_ids(uniq)
+    want = sj.verify_dist1_packed(packed[a], packed[b], lengths[a],
+                                  lengths[b])
+    assert torch.equal(ok, want)
+    assert sj.launches["d1_keygen"] == before["d1_keygen"] + 3
+    assert sj.launches["d1_join"] == before["d1_join"] + 2 + int(
+        pairs.numel() > 0)
+    if case != "one_row":
+        assert want.any()
+
+
+@pytest.mark.parametrize("case", ["word_edges", "edge_rows"])
+def test_d1_verify_kernel_on_every_pair(tmp_path, cuda_device, case):
+    """Every pair of rows, whatever their keys: equal lengths, lengths
+    one apart, prefixes, others."""
+    rows = d1_edge_rows() if case == "edge_rows" else [
+        np.random.default_rng(L).integers(0, 4, L).astype(np.uint8)
+        for L in (15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129)]
+    if case == "word_edges":  # each row less its last base, and plus one
+        rows = rows + [r[:-1] for r in rows] + [np.append(r, 2) for r in rows]
+    packed, lengths = _d1_rows(make_db(tmp_path, rows_records(rows)),
+                               cuda_device)
+    a, b = np.triu_indices(len(rows), k=1)
+    pairs = torch.from_numpy(a.astype(np.int64) << 32 | b).to(cuda_device)
+    got = sj.verify_pairs(packed, lengths, pairs)
+    ta, tb = sj.pair_ids(pairs)
+    want = sj.verify_dist1_packed(packed[ta], packed[tb], lengths[ta],
+                                  lengths[tb])
+    assert torch.equal(got, want)
+    assert want.any()
+
+
+@pytest.mark.parametrize("no_break", [False, True])
+@pytest.mark.parametrize("case", D1_CASES)
+def test_d1_engine_on_card_matches_native(tmp_path, cuda_device, case,
+                                          no_break):
+    db = _d1_db(tmp_path, case)
+    ab = db.abundances.astype(np.int64)
+    eng = sj.SortJoinNeighborEngine(db, cuda_device)
+    eng.start()
+    ef, et = eng.build_network(no_break, ab)
+    nf, nt = _native.d1_network(db.codes, db.offsets, db.lengths, ab,
+                                no_break)
+    np.testing.assert_array_equal(ef, nf)
+    np.testing.assert_array_equal(et, nt)
+
+
+def test_d1_wrappers_refuse_what_the_kernels_cannot_read(cuda_device):
+    packed = torch.zeros((4, 6), dtype=torch.int32, device=cuda_device)
+    lengths = torch.full((4,), 10, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 4 words"):
+        sj.keygen_count(packed, lengths)  # rows of 6 words
+    with pytest.raises(ValueError, match="int32"):
+        sj.keygen_count(packed.long(), lengths)
+    with pytest.raises(ValueError, match="beside the rows"):
+        sj.verify_pairs(packed[:, :4].contiguous(), lengths,
+                        torch.zeros(1, dtype=torch.int64))

@@ -11,9 +11,9 @@ import torch
 
 import jax.numpy as jnp
 
-from swarm_tpu import _native
 from swarm_tpu.ops.d2_diffs_jax import d2_diffs_program
 from swarm_tpu.ops.neighbors import pad_codes
+from swarm_tpu_torch import _native
 from swarm_tpu_torch.ops import d2_diffs as torch_diffs
 from swarm_tpu_torch.ops.d2_diffs import (
     DeviceDiffEngine,
@@ -22,10 +22,6 @@ from swarm_tpu_torch.ops.d2_diffs import (
 )
 
 from test_d2_diffs_jax import _chain_corpus, _mkdb
-
-pytestmark = pytest.mark.skipif(
-    not _native.available(), reason="native kernels unavailable"
-)
 
 # the parametrisations of tests/test_pallas_d2_diffs.py
 PALLAS_CASES = [

@@ -12,14 +12,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from swarm_tpu import _native
 from swarm_tpu.ops.pallas_d2_diffs import d2_diffs_pallas
 
 from test_torch_d2_diffs import PALLAS_CASES, reference_diffs, task_arrays
-
-pytestmark = pytest.mark.skipif(
-    not _native.available(), reason="native kernels unavailable"
-)
 
 
 @pytest.mark.parametrize("seed,d,scores", PALLAS_CASES)

@@ -6,7 +6,6 @@ import numpy as np
 import pytest
 import torch
 
-from swarm_tpu import _native
 from swarm_tpu.ops.d2_diffs_jax import DeviceDiffEngine as JaxDiffEngine
 from swarm_tpu.ops.d2_network import D2NetworkEngine as JaxNetworkEngine
 from swarm_tpu_torch.models.general import choose_engine
@@ -14,10 +13,6 @@ from swarm_tpu_torch.ops.d2_diffs import DeviceDiffEngine
 from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
 
 from test_d2_network import _db_from_seqs
-
-pytestmark = pytest.mark.skipif(
-    not _native.available(), reason="native kernels unavailable"
-)
 
 CPU = torch.device("cpu")
 

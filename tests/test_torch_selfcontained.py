@@ -5,7 +5,8 @@ not drifted from swarm_tpu's.
     launcher, nor scripts/device_busy.py imports swarm_tpu, jax, bench
     or a tests/ module;
 (b) in a running process: bin/swarm-torch for d = 0, 1, 2 on the CPU
-    ends with neither jax nor swarm_tpu in sys.modules;
+    ends with neither jax nor swarm_tpu in sys.modules, d = 1 also with
+    its sort-join engine forced (SWARM_TPU_D1_NATIVE_MAX=0);
 (c) the copies against the originals on seeded corpora: db_read and the
     native wrappers give the same arrays, the corpus generators the same
     records (the CLI cases of tests/test_torch_cli.py hold the outputs
@@ -70,7 +71,8 @@ def test_port_file_list_is_complete():
     names = {str(p.relative_to(REPO_ROOT)) for p in PORT_FILES}
     for must in ("swarm_tpu_torch/main.py", "swarm_tpu_torch/_native/__init__.py",
                  "swarm_tpu_torch/models/general.py",
-                 "swarm_tpu_torch/ops/search_torch.py", "chip_smoke.py",
+                 "swarm_tpu_torch/ops/search_torch.py",
+                 "swarm_tpu_torch/ops/neighbors_sortjoin.py", "chip_smoke.py",
                  "bin/swarm-torch", "scripts/device_busy.py"):
         assert must in names
     assert "_host_d1_backend" not in (
@@ -104,6 +106,25 @@ def test_launcher_process_holds_no_jax(tmp_path, flags):
         env={**os.environ, "SWARM_TORCH_DEVICE": "cpu",
              "PYTHONPATH": str(REPO_ROOT)})
     assert r.returncode == 0, r.stderr.decode()
+    assert (tmp_path / "out.txt").stat().st_size > 0
+
+
+def test_launcher_d1_sortjoin_engine_holds_no_jax(tmp_path):
+    """-d 1 with the torch sort-join engine forced: the engine runs (its
+    [timing] lines show it) and imports nothing of the JAX side."""
+    (tmp_path / "in.fasta").write_text(
+        amplicon_cloud(seed=75, n_centers=4, cloud_size=10, length=60))
+    probe = LAUNCHER_PROBE.format(
+        launcher=str(REPO_ROOT / "bin" / "swarm-torch"))
+    r = subprocess.run(
+        [sys.executable, "-c", probe, "-d", "1", "-o", "out.txt", "-l",
+         "log.txt", "in.fasta"],
+        cwd=tmp_path, capture_output=True, timeout=300,
+        env={**os.environ, "SWARM_TORCH_DEVICE": "cpu",
+             "SWARM_TPU_D1_NATIVE_MAX": "0", "SWARM_TPU_TIMING": "1",
+             "PYTHONPATH": str(REPO_ROOT)})
+    assert r.returncode == 0, r.stderr.decode()
+    assert b"[timing] d1 join (cpu) verify+dedup" in r.stderr
     assert (tmp_path / "out.txt").stat().st_size > 0
 
 
