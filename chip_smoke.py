@@ -28,12 +28,17 @@ final line:
    empty row, a one-element list), banded_scores on every band B =
    1..20, 21, 40, 63 over ragged lengths and on lengths at the edges of
    the band;
-4. the d=1 sort-join kernels d1_keygen, d1_join and d1_verify against
-   their plain versions on the card, exactly (keys and flags element for
-   element, candidate pairs in the kernel's order), on rows at the edges
-   of the kernels, on one run of 125 rows sharing a key, and on the
-   d1_1m corpus, which is also timed: each kernel's passes, torch.sort
-   of the keys (the sort phase) and the plain versions;
+4. the d=1 sort-join kernels d1_keygen (its count and pack pass, which
+   packs the code arena into ragged rows, and its emit pass), d1_join
+   and d1_verify against their plain versions on the card, exactly
+   (packed words, keys and flags element for element, candidate pairs
+   in the kernel's order), on rows at the edges of the kernels, on one
+   run of 125 rows sharing a key, on rows of mixed lengths at the edges
+   of the ragged layout (1 to 5,003 nt), and on the d1_1m and
+   d1_mixed_1m corpora, which are also timed: each kernel's passes, the
+   pack with its bound, torch.sort of the keys (the sort phase), the
+   plain versions, and the arena's copy to the card from pageable and
+   from pinned memory;
 5. main paths through swarm_tpu_torch.main.run, each with a warm-up
    run, then one timed run with every kernel's launch count set to 0
    before it and read after it, then the port's native C engine
@@ -46,8 +51,10 @@ final line:
    - d2_wide (5,204 amplicons, `-d 5 -m 1 -p 20 -g 1 -e 1`, band 70):
      the same engine, kernel full_scores;
    - d1_1m (gen_corpus of 1,000,000 amplicons of ~150 nt) with `-d 1
-     -o -s` and d1_full_100k (the d2_100k corpus) with `-d 1 -o -s -u
-     -i -w`: the d=1 sort-join engine, kernels d1_keygen, d1_join and
+     -o -s`, d1_full_100k (the d2_100k corpus) with `-d 1 -o -s -u -i
+     -w` and d1_mixed_1m (mixed_length_corpus of 1,000,000 amplicons of
+     ~60 to ~5,000 nt, ~187 nt a row) with `-d 1 -o -s -i`: the d=1
+     sort-join engine on ragged rows, kernels d1_keygen, d1_join and
      d1_verify.
 
 The second-to-last line is the kernel table as JSON; the last line is
@@ -59,8 +66,8 @@ To compare two versions of the port on one card, run each in turns:
     python3 chip_smoke.py --quick [--tree OTHER_CHECKOUT]
 
 runs only the timed kernel phases (2, 3 and 4 at their timed shapes) and
-the d2_100k, d2_device, d2_wide and d1_1m main paths of the package
-under OTHER_CHECKOUT
+the d2_100k, d2_device, d2_wide, d1_1m and d1_mixed_1m main paths of the
+package under OTHER_CHECKOUT
 (default: this checkout), and ends with one JSON line
 {"quick": {card, tree, kernels, main_paths}} instead of the two above.
 """
@@ -518,27 +525,11 @@ def phase_nw_scores(dev, fasta):
 
 
 def _d1_rows(db, dev):
-    """(packed, lengths) of a Db as the d=1 engine puts them on `dev`."""
-    import numpy as np
-    import torch
+    """(codes, offsets, lengths, row_word, n_words) of a Db: its code
+    arena and ragged layout as the d=1 engine puts them on `dev`."""
+    from swarm_tpu_torch.ops.neighbors_sortjoin import SortJoinNeighborEngine
 
-    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
-    from swarm_tpu_torch.ops.neighbors import pad_codes
-
-    width = sj._round_up(max(int(db.longest), 1), 64)
-    padded = pad_codes(db.codes, db.offsets, db.lengths, width)
-    packed = torch.from_numpy(sj.pack2bit(padded).view(np.int32)).to(dev)
-    return packed, torch.from_numpy(db.lengths.astype(np.int32)).to(dev)
-
-
-def _d1_plain_keygen(packed, lengths):
-    import torch
-
-    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
-
-    (h0, h1), valid = sj.deletion_keys_poly(sj.unpack2bit(packed), lengths)
-    return sj.make_keys(h0, h1)[valid], \
-        torch.nonzero(valid)[:, 0].to(torch.int32), valid.sum(dim=1)
+    return SortJoinNeighborEngine(db, dev).arena()
 
 
 def _sorted_keys(keys, owners):
@@ -554,13 +545,15 @@ def _dedup(cand):
     return torch.unique_consecutive(torch.sort(cand).values)
 
 
-def d1_check(name, packed, lengths):
-    """d1_keygen, d1_join and d1_verify against their plain versions on
-    the same card tensors; returns the max_abs_err of each and the
-    pipeline's tensors."""
+def d1_check(name, rows):
+    """d1_keygen (its count and pack pass, then its emit pass), d1_join
+    and d1_verify against their plain versions on the same card tensors;
+    returns the max_abs_err of each and the pipeline's tensors."""
     import torch
 
     from swarm_tpu_torch.ops import neighbors_sortjoin as sj
+
+    codes, offsets, lengths, row_word, n_words = rows
 
     def err(got, want):
         if got.shape != want.shape:
@@ -568,13 +561,18 @@ def d1_check(name, packed, lengths):
         return int((got.long() - want.long()).abs().max()) if got.numel() \
             else 0
 
-    counts = sj.keygen_count(packed, lengths)
-    keys, owners = sj.deletion_keys(packed, lengths)
-    want_keys, want_owners, want_counts = _d1_plain_keygen(packed, lengths)
-    e_keygen = max(err(counts, want_counts), err(owners, want_owners),
+    counts, words = sj.keygen_count(codes, offsets, lengths, row_word,
+                                    n_words)
+    ends, total = sj._cumsum_total(counts)
+    keys, owners = sj.keygen_emit(words, row_word, lengths, ends, total)
+    want_words, want_layout = sj.pack_ragged(codes, offsets, lengths)
+    want_keys, want_owners, want_counts = sj.ragged_keys_reference(
+        want_words, want_layout, lengths)
+    e_keygen = max(err(words, want_words), err(row_word, want_layout),
+                   err(counts, want_counts), err(owners, want_owners),
                    *(err(a, b) for a, b in zip(sj.split_keys(keys),
                                                sj.split_keys(want_keys))))
-    del want_keys, want_owners, want_counts
+    del want_keys, want_owners, want_counts, want_words
     skeys, sowners = _sorted_keys(keys, owners)
     cand = sj.join_pairs(skeys, sowners)
     e_join = max(err(cand, sj.join_pairs_reference(skeys, sowners)),
@@ -582,12 +580,12 @@ def d1_check(name, packed, lengths):
                      sj._join_links(skeys, sowners)[0],
                      minlength=skeys.numel())))
     uniq = _dedup(cand)
-    ok = sj.verify_pairs(packed, lengths, uniq)
-    a, b = sj.pair_ids(uniq)
-    e_verify = err(ok, sj.verify_dist1_packed(packed[a], packed[b],
-                                              lengths[a], lengths[b]))
+    ok = sj.verify_pairs(words, row_word, lengths, uniq)
+    e_verify = err(ok, sj.verify_ragged_reference(words, row_word, lengths,
+                                                  uniq))
     torch.cuda.synchronize()
-    say(f"kernels d1 {name}: rows={packed.shape[0]} words={packed.shape[1]} "
+    say(f"kernels d1 {name}: rows={lengths.numel()} lengths="
+        f"{int(lengths.min())}..{int(lengths.max())} words={n_words} "
         f"keys={keys.numel()} candidates={cand.numel()} "
         f"unique={uniq.numel()} at_distance_1={int(ok.sum())} "
         f"max_abs_err keygen={e_keygen} join={e_join} verify={e_verify}")
@@ -597,62 +595,81 @@ def d1_check(name, packed, lengths):
     if not ok.any():
         raise AssertionError(f"{name}: no pair at distance 1 to verify")
     return {"d1_keygen": e_keygen, "d1_join": e_join, "d1_verify": e_verify}, \
-        (keys, owners, skeys, sowners, cand, uniq, ok)
+        (words, ends, keys, owners, skeys, sowners, cand, uniq, ok)
 
 
-def phase_d1_kernels(dev, fasta, edges):
-    """The d=1 kernels against their plain versions (with `edges`, also
-    on the edge rows and the 125-row run) and timed on the d1_1m corpus;
-    returns the three kernels' rows of numbers."""
+def _h2d_ms(db, dev):
+    """(pageable_ms, pinned_ms): host-clock milliseconds to copy the code
+    arena to the card from pageable memory, and by pin_memory() and a
+    copy from pinned memory; the median of five each, in turns."""
+    import numpy as np
     import torch
 
-    from swarm_tpu_torch.corpora import (
-        d1_edge_rows, insertion_run, make_db, read_db, rows_records)
-    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
+    host = torch.from_numpy(db.codes)
+    times = {"pageable": [], "pinned": []}
+    for _ in range(5):
+        for how in times:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            src = host.pin_memory() if how == "pinned" else host
+            src.to(dev, non_blocking=how == "pinned")
+            torch.cuda.synchronize()
+            times[how].append((time.perf_counter() - t0) * 1e3)
+    return tuple(float(np.median(times[how])) for how in times)
 
-    worst = dict.fromkeys(D1_KERNELS, 0)
-    if edges:
-        with tempfile.TemporaryDirectory(prefix="d1_edges_") as tmp:
-            for case, rows in (("edge_rows", d1_edge_rows()),
-                               ("insertion_run", insertion_run())):
-                (Path(tmp) / case).mkdir()
-                db = make_db(Path(tmp) / case, rows_records(rows))
-                errs, _ = d1_check(case, *_d1_rows(db, dev))
-                worst = {k: max(worst[k], errs[k]) for k in worst}
+
+def d1_timed(name, fasta, dev):
+    """The d=1 kernels against their plain versions on a corpus and
+    timed there; returns (the three kernels' rows of numbers, the
+    corpus' own numbers)."""
+    import torch
+
+    from swarm_tpu_torch.corpora import read_db
+    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
 
     t0 = time.perf_counter()
     db = read_db(fasta)
-    n = min(len(db), 1 << 20)
-    packed, lengths = _d1_rows(db, dev)
-    packed, lengths = packed[:n].contiguous(), lengths[:n].contiguous()
-    say(f"kernels d1 d1_1m: read and packed {n} rows in "
-        f"{time.perf_counter() - t0:.1f}s")
-    errs, (keys, owners, skeys, sowners, cand, uniq, ok) = d1_check(
-        "d1_1m", packed, lengths)
-    worst = {k: max(worst[k], errs[k]) for k in worst}
+    pageable_ms, pinned_ms = _h2d_ms(db, dev)
+    rows = _d1_rows(db, dev)
+    codes, offsets, lengths, row_word, n_words = rows
+    n = lengths.numel()
+    say(f"kernels d1 {name}: read {n} rows ({codes.numel()} bases) in "
+        f"{time.perf_counter() - t0:.1f}s; H2D of the arena: "
+        f"pageable_ms={pageable_ms:.3f} pinned_ms={pinned_ms:.3f}")
+    errs, (words, ends, keys, owners, skeys, sowners, cand, uniq, ok) = \
+        d1_check(name, rows)
 
-    counts = sj.keygen_count(packed, lengths)
-    ends = torch.cumsum(counts, dim=0, dtype=torch.int64)
     n_keys = keys.numel()
     sort_ms = cuda_ms(lambda: _sorted_keys(keys, owners), 3)
-    say(f"sort phase: torch.sort of {n_keys} int64 keys and the owners "
-        f"taken through its indices: sort_ms={sort_ms:.3f}")
+    say(f"sort phase {name}: torch.sort of {n_keys} int64 keys and the "
+        f"owners taken through its indices: sort_ms={sort_ms:.3f}")
     del keys, owners
-    count_ms = cuda_ms(lambda: sj.keygen_count(packed, lengths), 10)
-    emit_ms = cuda_ms(lambda: sj.keygen_emit(packed, lengths, ends, n_keys), 5)
-    plain_ms = cuda_ms(lambda: _d1_plain_keygen(packed, lengths), 1)
-    bases = int(lengths.long().sum())
-    n_bytes = packed.numel() * 4 + n * 4 + n_keys * 12
+    count_ms = cuda_ms(lambda: sj.keygen_count(
+        codes, offsets, lengths, row_word, n_words), 10)
+    emit_ms = cuda_ms(lambda: sj.keygen_emit(
+        words, row_word, lengths, ends, n_keys), 5)
+    pack_plain_ms = cuda_ms(lambda: sj.pack_ragged(codes, offsets, lengths),
+                            1)
+    plain_ms = pack_plain_ms + cuda_ms(lambda: sj.ragged_keys_reference(
+        words, row_word, lengths), 1)
+    bases = codes.numel()
+    row_bytes = n * (8 + 4 + 8)  # offsets, lengths, row_word
+    pack_bytes = bases + row_bytes + 4 * n_words + 4 * n
+    pack_bound_ms, _ = bound(pack_bytes, 0)
+    n_bytes = bases + row_bytes + 4 * n_words + n_keys * 12
     n_ops = OPS_PER_KEYGEN_BASE * bases + OPS_PER_KEY * n_keys
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    say(f"kernel d1_keygen timed: rows={n} bases={bases} keys={n_keys} "
-        f"count_ms={count_ms:.4f} emit_ms={emit_ms:.4f} "
-        f"kernel_ms={count_ms + emit_ms:.4f} plain_ms={plain_ms:.3f} "
+    say(f"kernel d1_keygen timed {name}: rows={n} bases={bases} "
+        f"words={n_words} keys={n_keys} count_pack_ms={count_ms:.4f} "
+        f"(bytes={pack_bytes} bound_ms={pack_bound_ms:.4f}) "
+        f"emit_ms={emit_ms:.4f} kernel_ms={count_ms + emit_ms:.4f} "
+        f"plain_ms={plain_ms:.3f} (pack {pack_plain_ms:.3f}) "
         f"bytes={n_bytes} ops={n_ops} bound_ms={bound_ms:.4f} ({bound_by})")
     result = {"d1_keygen": {
-        "max_abs_err": worst["d1_keygen"], "ms": count_ms + emit_ms,
+        "max_abs_err": errs["d1_keygen"], "ms": count_ms + emit_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "count_ms": count_ms, "emit_ms": emit_ms}}
+        "library_ms": None, "count_pack_ms": count_ms, "emit_ms": emit_ms,
+        "pack_bound_ms": pack_bound_ms, "pack_plain_ms": pack_plain_ms}}
 
     jcounts = sj.join_count(skeys, sowners)
     jends = torch.cumsum(jcounts, dim=0, dtype=torch.int64)
@@ -663,34 +680,71 @@ def phase_d1_kernels(dev, fasta, edges):
     n_bytes = n_keys * 12 + n_cand * 8
     n_ops = OPS_PER_JOIN_ELEMENT * n_keys
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    say(f"kernel d1_join timed: keys={n_keys} candidates={n_cand} "
+    say(f"kernel d1_join timed {name}: keys={n_keys} candidates={n_cand} "
         f"count_ms={count_ms:.4f} emit_ms={emit_ms:.4f} "
         f"kernel_ms={count_ms + emit_ms:.4f} plain_ms={plain_ms:.3f} "
         f"bytes={n_bytes} ops={n_ops} bound_ms={bound_ms:.4f} ({bound_by})")
     result["d1_join"] = {
-        "max_abs_err": worst["d1_join"], "ms": count_ms + emit_ms,
+        "max_abs_err": errs["d1_join"], "ms": count_ms + emit_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "count_ms": count_ms, "emit_ms": emit_ms,
         "sort_ms": sort_ms}
     del skeys, sowners
 
     dedup_ms = cuda_ms(lambda: _dedup(cand), 5)
-    ms = cuda_ms(lambda: sj.verify_pairs(packed, lengths, uniq), 10)
+    ms = cuda_ms(lambda: sj.verify_pairs(words, row_word, lengths, uniq), 10)
+    plain_ms = cuda_ms(lambda: sj.verify_ragged_reference(
+        words, row_word, lengths, uniq), 1)
     a, b = sj.pair_ids(uniq)
-    plain_ms = cuda_ms(lambda: sj.verify_dist1_packed(
-        packed[a], packed[b], lengths[a], lengths[b]), 1)
-    rows_read = int(torch.unique(torch.cat([a, b])).numel())
-    n_bytes = uniq.numel() * 9 + rows_read * (packed.shape[1] * 4 + 4)
-    n_ops = OPS_PER_VERIFY_WORD * uniq.numel() * packed.shape[1]
+    read = torch.unique(torch.cat([a, b]))
+    sizes = sj.row_sizes(lengths.long())
+    n_bytes = uniq.numel() * 9 + int(sizes[read].sum()) * 4 + \
+        read.numel() * (4 + 8)
+    walked = int(sj.row_sizes(torch.minimum(lengths[a], lengths[b]).long())
+                 .sum())
+    n_ops = OPS_PER_VERIFY_WORD * walked
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    say(f"kernel d1_verify timed: pairs={uniq.numel()} rows_read={rows_read} "
+    say(f"kernel d1_verify timed {name}: pairs={uniq.numel()} "
+        f"rows_read={read.numel()} words_walked={walked} "
         f"at_distance_1={int(ok.sum())} kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.3f} dedup_ms={dedup_ms:.3f} bytes={n_bytes} "
         f"ops={n_ops} bound_ms={bound_ms:.4f} ({bound_by})")
     result["d1_verify"] = {
-        "max_abs_err": worst["d1_verify"], "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": errs["d1_verify"], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "dedup_ms": dedup_ms}
+    return result, {"h2d_pageable_ms": pageable_ms,
+                    "h2d_pinned_ms": pinned_ms}
+
+
+def phase_d1_kernels(dev, corpus, edges):
+    """The d=1 kernels against their plain versions (with `edges`, also
+    on the edge rows, the 125-row run and the ragged edge rows) and
+    timed on the d1_1m and d1_mixed_1m corpora; returns the three
+    kernels' rows of numbers (d1_1m's, with d1_mixed_1m's beside them
+    under "d1_mixed_1m")."""
+    from swarm_tpu_torch.corpora import (
+        d1_edge_rows, insertion_run, make_db, ragged_edge_rows, rows_records)
+
+    worst = dict.fromkeys(D1_KERNELS, 0)
+    if edges:
+        with tempfile.TemporaryDirectory(prefix="d1_edges_") as tmp:
+            for case, rows in (("edge_rows", d1_edge_rows()),
+                               ("insertion_run", insertion_run()),
+                               ("ragged_edge_rows", ragged_edge_rows())):
+                (Path(tmp) / case).mkdir()
+                db = make_db(Path(tmp) / case, rows_records(rows))
+                errs, _ = d1_check(case, _d1_rows(db, dev))
+                worst = {k: max(worst[k], errs[k]) for k in worst}
+
+    result, h2d = d1_timed("d1_1m", corpus["d1_1m"], dev)
+    mixed, mixed_h2d = d1_timed("d1_mixed_1m", corpus["d1_mixed_1m"], dev)
+    for kernel, row in result.items():
+        row["max_abs_err"] = max(row["max_abs_err"], worst[kernel],
+                                 mixed[kernel]["max_abs_err"])
+        row["d1_mixed_1m"] = mixed[kernel]
+    result["d1_keygen"].update(h2d)
+    result["d1_keygen"]["d1_mixed_1m"].update(mixed_h2d)
     return result
 
 
@@ -803,7 +857,7 @@ def main():
     ap.add_argument("--tree", type=Path, default=REPO,
                     help="checkout whose swarm_tpu_torch runs (with --quick)")
     ap.add_argument("--quick", action="store_true",
-                    help="timed kernel phases and three main paths only")
+                    help="timed kernel phases and the quick main paths only")
     args = ap.parse_args()
     tree = args.tree.resolve()
     if not (tree / "swarm_tpu_torch").is_dir():
@@ -892,6 +946,9 @@ MAIN_PATHS = {
                      ["-d", "1", "-o", "out.txt", "-s", "stats.txt", "-u",
                       "uclust.txt", "-i", "structure.txt", "-w",
                       "seeds.fasta"], {}, D1_KERNELS, D1_NATIVE),
+    "d1_mixed_1m": ("mixed_length_corpus", {"n": 1_000_000},
+                    ["-d", "1", "-o", "out.txt", "-s", "stats.txt", "-i",
+                     "structure.txt"], {}, D1_KERNELS, D1_NATIVE),
 }
 
 
@@ -919,7 +976,7 @@ def run_main_path(name, corpus, work):
                            native_env)
 
 
-QUICK_PATHS = ("d2_100k", "d2_device", "d2_wide", "d1_1m")
+QUICK_PATHS = ("d2_100k", "d2_device", "d2_wide", "d1_1m", "d1_mixed_1m")
 
 
 def run_quick(dev, work):
@@ -927,7 +984,7 @@ def run_quick(dev, work):
     corpus = make_corpora(work, QUICK_PATHS)
     rows = {"d2_diffs": phase_d2_diffs_at_scale(dev, corpus["d2_100k"])}
     rows.update(phase_nw_scores(dev, corpus["d2_device"]))
-    rows.update(phase_d1_kernels(dev, corpus["d1_1m"], edges=False))
+    rows.update(phase_d1_kernels(dev, corpus, edges=False))
     paths = {name: run_main_path(name, corpus, work) for name in QUICK_PATHS}
     return {"kernels": rows, "main_paths": paths}
 
@@ -946,7 +1003,7 @@ def run_phases(dev, work):
         rows["full_scores"]["max_abs_err"], phase_full_scores_edges(dev))
     rows["banded_scores"]["max_abs_err"] = max(
         rows["banded_scores"]["max_abs_err"], phase_banded_scores_edges(dev))
-    rows.update(phase_d1_kernels(dev, corpus["d1_1m"], edges=True))
+    rows.update(phase_d1_kernels(dev, corpus, edges=True))
 
     launches = {}
     for name in MAIN_PATHS:

@@ -116,12 +116,14 @@ def load() -> ctypes.CDLL:
             lib.swarm_d2_max_w.restype = i32
             lib.swarm_d2_packed.argtypes = [i64, i32, i32, i32, i32, i32]
             lib.swarm_d2_packed.restype = i32
-            lib.swarm_d1_keygen_count.argtypes = [vp, i64, vp, i64, vp, vp]
+            lib.swarm_d1_keygen_count.argtypes = [
+                vp, i64, vp, vp, vp, i64, vp, i64, vp, vp]
             lib.swarm_d1_keygen_emit.argtypes = [
-                vp, i64, vp, i64, vp, vp, vp, vp]
+                vp, i64, vp, vp, i64, vp, vp, vp, vp]
             lib.swarm_d1_join_count.argtypes = [vp, vp, i64, vp, vp]
             lib.swarm_d1_join_emit.argtypes = [vp, vp, i64, vp, vp, vp]
-            lib.swarm_d1_verify.argtypes = [vp, i64, vp, vp, i64, vp, vp]
+            lib.swarm_d1_verify.argtypes = [
+                vp, i64, vp, vp, i64, vp, i64, vp, vp]
             for fn in ("keygen_count", "keygen_emit", "join_count",
                        "join_emit", "verify"):
                 getattr(lib, f"swarm_d1_{fn}").restype = i32

@@ -21,6 +21,11 @@ run on the card and a run on the CPU see the same sequences.
 - ``d1_edge_rows``, ``insertion_run``: rows on the edges of the d=1
   sort-join kernels (word edges, length 1, homopolymers, prefixes) and
   one run of 125 rows that share one key.
+- ``ragged_edge_rows``: rows of mixed lengths on the edges of the
+  ragged layout (1 to 5,003 nt), with their neighbours at distance 1.
+- ``mixed_length_corpus``: gen_corpus' clouds around centres of mixed
+  lengths (V4, V3-V4, full-length 16S, long reads, and centres on JAX's
+  width-bucket edges): the d1_mixed_1m corpus.
 - ``read_db``, ``make_db``: a corpus as a Db, read back through db_read.
 """
 
@@ -202,8 +207,11 @@ def _edit(rng, v, min_len):
     return np.insert(v, p, rng.integers(0, 4))
 
 
+_ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
 def _record(name, abundance, codes):
-    return f">{name}_{abundance}\n" + "".join("ACGT"[c] for c in codes) + "\n"
+    return f">{name}_{abundance}\n{_ACGT[np.asarray(codes)].tobytes().decode()}\n"
 
 
 def gen_corpus(path: Path, n: int, length: int, seed: int = 20260816) -> int:
@@ -239,6 +247,75 @@ def gen_corpus(path: Path, n: int, length: int, seed: int = 20260816) -> int:
     with open(path, "w") as fh:
         fh.writelines(records[i] for i in order)
     return idx
+
+
+#: centre lengths of mixed_length_corpus: (share of the drawn centres,
+#: shortest, longest): V4-like amplicons, V3-V4, full-length 16S
+MIXED_SHARES = ((0.90, 120, 180), (0.09, 380, 460), (0.01, 1400, 1600))
+#: (centres, shortest, longest) that every mixed_length_corpus holds:
+#: long reads, and centres on JAX's width-bucket edges 64 * 4^k, so that
+#: their clouds' edits cross them
+MIXED_FIXED = ((4, 4000, 5000), (2, 64, 64), (2, 256, 256), (2, 1024, 1024),
+               (2, 4096, 4096))
+
+
+def mixed_length_corpus(path: Path, n: int, seed: int = 20260824) -> int:
+    """Dereplicated amplicon clouds of mixed lengths; returns the count.
+
+    gen_corpus' shape (clouds of 20 around each centre, each member 1-2
+    edits from an earlier one, abundances 1..999, records in a seeded
+    random order), with the centres' lengths of MIXED_FIXED and, for
+    the rest, MIXED_SHARES: about 188 nt a row. Every random number is
+    drawn in bulk, and records are written through a byte table.
+    """
+    rng = np.random.Generator(np.random.Philox(seed))
+    cloud = 20
+    n_centers = n // cloud + n // 1000 + 2  # a few spare: duplicates
+    fixed = [(lo, hi) for count, lo, hi in MIXED_FIXED for _ in range(count)]
+    kind = rng.choice(len(MIXED_SHARES), size=max(0, n_centers - len(fixed)),
+                      p=[share for share, _, _ in MIXED_SHARES])
+    bounds = np.array(fixed + [MIXED_SHARES[k][1:] for k in kind])
+    lengths = rng.integers(bounds[:, 0], bounds[:, 1] + 1)
+    codes = rng.integers(0, 4, size=int(lengths.sum())).astype(np.uint8)
+    n_var = len(lengths) * (cloud - 1)
+    parent, pos = rng.random(n_var), rng.random((n_var, 2))
+    n_edits = rng.integers(1, 3, size=n_var)
+    op = rng.integers(0, 3, size=(n_var, 2))
+    new = rng.integers(0, 4, size=(n_var, 2)).astype(np.uint8)
+    shift = rng.integers(1, 4, size=(n_var, 2)).astype(np.uint8)
+    abundance = rng.integers(1, 1000, size=len(lengths) * cloud)
+
+    seen, records, t = set(), [], 0
+    for centre in np.split(codes, np.cumsum(lengths)[:-1]):
+        variants = [centre]
+        for _ in range(cloud - 1):
+            v = variants[int(parent[t] * len(variants))]
+            for e in range(n_edits[t]):
+                p = int(pos[t, e] * len(v))
+                if op[t, e] == 0:
+                    v = v.copy()
+                    v[p] = (v[p] + shift[t, e]) % 4
+                elif op[t, e] == 1 and len(v) > 10:
+                    v = np.delete(v, p)
+                else:
+                    v = np.insert(v, p, new[t, e])
+            variants.append(v)
+            t += 1
+        for v in variants:
+            key = v.tobytes()
+            if key in seen:
+                continue
+            seen.add(key)
+            records.append(b">m%d_%d\n%s\n" % (
+                len(records), abundance[len(records)], _ACGT[v].tobytes()))
+            if len(records) >= n:
+                break
+        if len(records) >= n:
+            break
+    order = rng.permutation(len(records))
+    with open(path, "wb") as fh:
+        fh.writelines(records[i] for i in order)
+    return len(records)
 
 
 def chain_corpus(seed, n, length, edits):
@@ -345,6 +422,42 @@ def d1_edge_rows(seed=20260821):
     for r in rows:
         r = r.astype(np.uint8)
         if r.tobytes() not in seen:
+            seen.add(r.tobytes())
+            out.append(r)
+    return out
+
+
+#: lengths on the edges of the ragged layout: 16-base words, 64-base
+#: uint4s, and the longest rows of a mixed corpus
+RAGGED_EDGE_LENGTHS = (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1023, 1024,
+                       1025, 4095, 4096, 4097, 5000, 5003)
+
+
+def ragged_edge_rows(seed=20260825, lengths=RAGGED_EDGE_LENGTHS):
+    """Distinct code rows of mixed lengths on the edges of the ragged
+    layout: for each length, a random row, its substitutions, deletions
+    and insertions at both ends and inside (a deletion of a 65-base row
+    has one uint4 less), a prefix one shorter and a row at distance 2."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for L in lengths:
+        base = rng.integers(0, 4, size=L).astype(np.uint8)
+        rows.append(base)
+        for p in sorted({0, L // 2, L - 1}):
+            v = base.copy()
+            v[p] = (v[p] + 1 + rng.integers(0, 3)) % 4
+            rows += [v, np.delete(base, p), np.insert(base, p, rng.integers(
+                0, 4))]
+        rows.append(np.append(base, rng.integers(0, 4)))
+        if L >= 2:
+            two = base.copy()
+            two[0] = (two[0] + 1) % 4
+            two[-1] = (two[-1] + 2) % 4
+            rows += [two, base[:-1]]
+    out, seen = [], set()
+    for r in rows:
+        r = r.astype(np.uint8)
+        if len(r) and r.tobytes() not in seen:
             seen.add(r.tobytes())
             out.append(r)
     return out

@@ -186,10 +186,10 @@ class NeighborIndex:
     with the device join on the torch `device`. The rule, decided before
     anything is launched: the native host builder (swarm_native.c:
     d1_network) takes fewer than NATIVE_MAX amplicons
-    (SWARM_TPU_D1_NATIVE_MAX overrides it, as in swarm_tpu) and
-    mixed-length corpora, whose single table would be mostly padding
-    (the width-bucketed engine is not ported); the torch sort-join
-    engine takes the rest, and a failure there raises.
+    (SWARM_TPU_D1_NATIVE_MAX overrides it, as in swarm_tpu); the torch
+    sort-join engine takes the rest, whatever their mix of lengths (its
+    rows are ragged: swarm_tpu's width buckets have no counterpart), and
+    a failure there raises.
     """
 
     #: the native host builder takes n below this
@@ -226,13 +226,10 @@ class NeighborIndex:
 
     def uses_native(self) -> bool:
         """Whether the native host builder makes the network."""
-        from .neighbors_sortjoin import buckets_worthwhile
-
         native_max = int(
             os.environ.get("SWARM_TPU_D1_NATIVE_MAX", str(self.NATIVE_MAX))
         )
-        return len(self.lengths) < native_max or buckets_worthwhile(
-            self.lengths)
+        return len(self.lengths) < native_max
 
     def start_network(self) -> None:
         """Start the device join before the hashing phase, so that the

@@ -8,6 +8,7 @@ SWARM_TPU_D1_NATIVE_MAX=0 on the port's). The port runs on the CPU
 because the tests ask for it (SWARM_TORCH_DEVICE=cpu)."""
 
 import os
+import random
 import re
 import shutil
 import subprocess
@@ -17,7 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from genfasta import amplicon_cloud
+from genfasta import amplicon_cloud, mutate, random_seq
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 
@@ -265,6 +266,38 @@ def test_d1_sortjoin_engine(tmp_path, case):
     else:
         assert got.returncode == 0, got.stderr
         assert (tmp_path / "torch" / "network.txt").stat().st_size > 0
+
+
+def mixed_lengths_fasta():
+    """Amplicon clouds of 60-80 nt and two reads of 900 and 960 nt with
+    three single edits each: a corpus that swarm_tpu gives its
+    width-bucketed engine (BucketedSortJoinEngine.worthwhile)."""
+    rng = random.Random(62)
+    fasta = amplicon_cloud(
+        seed=61, n_centers=6, cloud_size=15, length=70, max_edits=2)
+    for i, length in enumerate((900, 960)):
+        read = random_seq(rng, length)
+        for j, seq in enumerate([read] + [mutate(read, rng, 1)
+                                          for _ in range(3)]):
+            fasta += f">long{i}v{j}_{rng.randint(1, 50)}\n{seq}\n"
+    return fasta
+
+
+def test_d1_sortjoin_engine_on_mixed_lengths(tmp_path):
+    """Mixed lengths: swarm_tpu's width-bucketed engine against the
+    port's engine over ragged rows, every d=1 output byte for byte."""
+    from swarm_tpu.ops.neighbors_sortjoin import BucketedSortJoinEngine
+
+    fasta = mixed_lengths_fasta()
+    lengths = [len(x) for x in fasta.split("\n")[1::2]]
+    assert BucketedSortJoinEngine.worthwhile(np.array(lengths))
+    flags = ["-d", "1", "-o", "out.txt", "-s", "stats.txt", "-u",
+             "uclust.txt", "-i", "structure.txt", "-w", "seeds.fasta", "-l",
+             "log.txt"]
+    got = compare(tmp_path, flags, fasta, extra_env=D1_ENGINE_ENV)
+    assert got.returncode == 0, got.stderr
+    assert (tmp_path / "torch" / "seeds.fasta").read_bytes().count(b">") \
+        < len(lengths)
 
 
 def test_d1_sortjoin_engine_runs_in_process(tmp_path, monkeypatch):

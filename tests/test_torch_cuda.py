@@ -21,6 +21,8 @@ from swarm_tpu_torch.corpora import (
     gen_corpus,
     insertion_run,
     make_db,
+    mixed_length_corpus,
+    ragged_edge_rows,
     ragged_rows,
     read_db,
     rows_records,
@@ -287,40 +289,59 @@ def test_device_aligner_on_card_matches_cpu(cloud_aligner):
 
 # ---- the d=1 sort-join kernels (csrc/d1_join.cu) -------------------------
 
-D1_CASES = ["edge_rows", "insertion_run", "one_row", "gen_corpus"]
+D1_CASES = ["edge_rows", "insertion_run", "ragged_edge_rows", "one_row",
+            "gen_corpus", "mixed_corpus"]
 
 
 def _d1_db(tmp_path, case):
-    if case == "gen_corpus":
-        gen_corpus(tmp_path / "c.fasta", n=3000, length=150, seed=5)
+    if case in ("gen_corpus", "mixed_corpus"):
+        if case == "gen_corpus":
+            gen_corpus(tmp_path / "c.fasta", n=3000, length=150, seed=5)
+        else:
+            mixed_length_corpus(tmp_path / "c.fasta", n=3000, seed=5)
         return read_db(tmp_path / "c.fasta")
     rows = {"edge_rows": d1_edge_rows, "insertion_run": insertion_run,
+            "ragged_edge_rows": ragged_edge_rows,
             "one_row": lambda: [np.array([1, 1, 0, 3], np.uint8)]}[case]()
     return make_db(tmp_path, rows_records(rows))
 
 
 def _d1_rows(db, device):
-    """(packed, lengths) as SortJoinNeighborEngine puts them on the device."""
-    width = sj._round_up(max(int(db.longest), 1), 64)
-    padded = pad_codes(db.codes, db.offsets, db.lengths, width)
-    packed = torch.from_numpy(sj.pack2bit(padded).view(np.int32))
-    lengths = torch.from_numpy(db.lengths.astype(np.int32))
-    return packed.to(device), lengths.to(device)
+    """(codes, offsets, lengths, row_word, n_words): the code arena and
+    its ragged layout as SortJoinNeighborEngine puts them on the device."""
+    return sj.SortJoinNeighborEngine(db, device).arena()
+
+
+@pytest.mark.parametrize("case", D1_CASES)
+def test_d1_count_and_pack_match_reference(tmp_path, cuda_device, case):
+    """The count pass's packed words and counts, word for word."""
+    codes, offsets, lengths, row_word, n_words = _d1_rows(
+        _d1_db(tmp_path, case), cuda_device)
+    before = sj.launches["d1_keygen"]
+    counts, words = sj.keygen_count(codes, offsets, lengths, row_word,
+                                    n_words)
+    torch.cuda.synchronize()
+    want_words, layout = sj.pack_ragged(codes, offsets, lengths)
+    assert torch.equal(layout, row_word)
+    assert torch.equal(words, want_words)
+    _, _, want_counts = sj.ragged_keys_reference(want_words, row_word, lengths)
+    assert torch.equal(counts, want_counts)
+    assert sj.launches["d1_keygen"] == before + 1
 
 
 @pytest.mark.parametrize("case", D1_CASES)
 def test_d1_kernels_match_reference(tmp_path, cuda_device, case):
     """keygen and verify element for element, the join in the kernel's
     order, each against its plain version on the same card tensors."""
-    packed, lengths = _d1_rows(_d1_db(tmp_path, case), cuda_device)
+    codes, offsets, lengths, row_word, n_words = _d1_rows(
+        _d1_db(tmp_path, case), cuda_device)
     before = dict(sj.launches)
-    counts = sj.keygen_count(packed, lengths)
-    keys, owners = sj.deletion_keys(packed, lengths)
+    keys, owners, words = sj.deletion_keys(codes, offsets, lengths,
+                                           row_word, n_words)
     torch.cuda.synchronize()
-    (h0, h1), valid = sj.deletion_keys_poly(sj.unpack2bit(packed), lengths)
-    want_owners = torch.nonzero(valid)[:, 0].to(torch.int32)
-    assert torch.equal(counts, valid.sum(dim=1, dtype=torch.int32))
-    assert torch.equal(keys, sj.make_keys(h0, h1)[valid])
+    want_keys, want_owners, _ = sj.ragged_keys_reference(
+        words, row_word, lengths)
+    assert torch.equal(keys, want_keys)
     assert torch.equal(owners, want_owners)
 
     skeys, order = torch.sort(keys)
@@ -333,35 +354,34 @@ def test_d1_kernels_match_reference(tmp_path, cuda_device, case):
     assert torch.equal(pairs, sj.join_pairs_reference(skeys, sowners))
 
     uniq = torch.unique(pairs)
-    ok = sj.verify_pairs(packed, lengths, uniq)
-    a, b = sj.pair_ids(uniq)
-    want = sj.verify_dist1_packed(packed[a], packed[b], lengths[a],
-                                  lengths[b])
+    ok = sj.verify_pairs(words, row_word, lengths, uniq)
+    want = sj.verify_ragged_reference(words, row_word, lengths, uniq)
     assert torch.equal(ok, want)
-    assert sj.launches["d1_keygen"] == before["d1_keygen"] + 3
+    assert sj.launches["d1_keygen"] == before["d1_keygen"] + 2
     assert sj.launches["d1_join"] == before["d1_join"] + 2 + int(
         pairs.numel() > 0)
     if case != "one_row":
         assert want.any()
 
 
-@pytest.mark.parametrize("case", ["word_edges", "edge_rows"])
+@pytest.mark.parametrize("case", ["word_edges", "edge_rows",
+                                  "ragged_edge_rows"])
 def test_d1_verify_kernel_on_every_pair(tmp_path, cuda_device, case):
     """Every pair of rows, whatever their keys: equal lengths, lengths
-    one apart, prefixes, others."""
-    rows = d1_edge_rows() if case == "edge_rows" else [
-        np.random.default_rng(L).integers(0, 4, L).astype(np.uint8)
-        for L in (15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129)]
+    one apart (one uint4 apart too), prefixes, others."""
+    rows = {"edge_rows": d1_edge_rows,
+            "ragged_edge_rows": ragged_edge_rows}.get(case, lambda: [
+                np.random.default_rng(L).integers(0, 4, L).astype(np.uint8)
+                for L in (15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129)])()
     if case == "word_edges":  # each row less its last base, and plus one
         rows = rows + [r[:-1] for r in rows] + [np.append(r, 2) for r in rows]
-    packed, lengths = _d1_rows(make_db(tmp_path, rows_records(rows)),
-                               cuda_device)
+    codes, offsets, lengths, row_word, n_words = _d1_rows(
+        make_db(tmp_path, rows_records(rows)), cuda_device)
+    words, _ = sj.pack_ragged(codes, offsets, lengths)
     a, b = np.triu_indices(len(rows), k=1)
     pairs = torch.from_numpy(a.astype(np.int64) << 32 | b).to(cuda_device)
-    got = sj.verify_pairs(packed, lengths, pairs)
-    ta, tb = sj.pair_ids(pairs)
-    want = sj.verify_dist1_packed(packed[ta], packed[tb], lengths[ta],
-                                  lengths[tb])
+    got = sj.verify_pairs(words, row_word, lengths, pairs)
+    want = sj.verify_ragged_reference(words, row_word, lengths, pairs)
     assert torch.equal(got, want)
     assert want.any()
 
@@ -382,12 +402,53 @@ def test_d1_engine_on_card_matches_native(tmp_path, cuda_device, case,
 
 
 def test_d1_wrappers_refuse_what_the_kernels_cannot_read(cuda_device):
-    packed = torch.zeros((4, 6), dtype=torch.int32, device=cuda_device)
-    lengths = torch.full((4,), 10, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="multiple of 4 words"):
-        sj.keygen_count(packed, lengths)  # rows of 6 words
+    codes = torch.zeros(200, dtype=torch.uint8, device=cuda_device)
+    offsets = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    lengths = torch.full((2,), 100, dtype=torch.int32, device=cuda_device)
+    row_word = torch.tensor([0, 8], device=cuda_device)
+    words = torch.zeros(17, dtype=torch.int32, device=cuda_device)
+    pairs = torch.zeros(1, dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError, match="int32"):
-        sj.keygen_count(packed.long(), lengths)
+        sj.keygen_count(codes, offsets, lengths.long(), row_word, 16)
+    with pytest.raises(ValueError, match="int64"):
+        sj.keygen_count(codes, offsets, lengths, row_word.int(), 16)
+    with pytest.raises(ValueError, match="uint8"):
+        sj.keygen_count(codes.int(), offsets, lengths, row_word, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sj.verify_pairs(words[1:], row_word, lengths, pairs)
     with pytest.raises(ValueError, match="beside the rows"):
-        sj.verify_pairs(packed[:, :4].contiguous(), lengths,
-                        torch.zeros(1, dtype=torch.int64))
+        sj.verify_pairs(words[:16], row_word, lengths, pairs.cpu())
+
+
+#: a row_word that starts row 1 inside row 0's words (not a multiple of 4)
+TRAP_PROBE = """import torch
+from swarm_tpu_torch.ops import neighbors_sortjoin as sj
+dev = torch.device("cuda", 0)
+codes = torch.zeros(200, dtype=torch.uint8, device=dev)
+offsets = torch.zeros(2, dtype=torch.int64, device=dev)
+lengths = torch.full((2,), 100, dtype=torch.int32, device=dev)
+row_word = torch.tensor([0, {start}], device=dev)
+sj.keygen_count(codes, offsets, lengths, row_word, {n_words})
+torch.cuda.synchronize()
+"""
+
+
+@pytest.mark.parametrize("start,n_words", [(6, 14), (8, 12), (8, 20)],
+                         ids=["misaligned", "past_the_words", "short"])
+def test_d1_kernels_trap_on_a_layout_that_does_not_fit(cuda_device, start,
+                                                        n_words):
+    """A layout the kernels cannot read fails its launch (in a process of
+    its own: the trap ends the CUDA context), and the next synchronisation
+    raises."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    r = subprocess.run(
+        [sys.executable, "-c", TRAP_PROBE.format(start=start,
+                                                 n_words=n_words)],
+        capture_output=True, timeout=300,
+        env={**__import__("os").environ,
+             "PYTHONPATH": str(Path(__file__).resolve().parent.parent)})
+    assert r.returncode != 0
+    assert b"CUDA error" in r.stderr or b"AcceleratorError" in r.stderr

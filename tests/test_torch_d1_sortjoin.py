@@ -2,9 +2,11 @@
 swarm_tpu's, on the CPU, exactly (integers throughout):
 
 - keygen: the port's deletion_keys_poly against swarm_tpu's, both
-  halves and the valid slots, and the compacted keys of the wrapper;
+  halves and the valid slots, and the compacted keys of the wrappers on
+  the ragged rows of the code arena;
 - verify: verify_dist1_packed against swarm_tpu's _verify_dist1_packed,
-  the numpy oracle verify_dist1 and the port's native verify_dist1_pairs;
+  the numpy oracle verify_dist1 and the port's native verify_dist1_pairs,
+  and the wrapper on ragged rows;
 - join: the candidates against a brute-force set of equal-key pairs;
 - the engine: SortJoinNeighborEngine(db, "cpu").build_network against
   swarm_tpu's engine and against the port's native d1_network;
@@ -12,11 +14,15 @@ swarm_tpu's, on the CPU, exactly (integers throughout):
   engine.
 
 The CUDA kernels (csrc/d1_join.cu) cannot run here, so numpy
-emulations of their arithmetic (the keygen's warp schedule with its lane
-powers, shuffle scans and ballots, the join's walk back, the verify's
-single pass with its funnel shift) are held against the plain versions
-on the same cases; tests/test_torch_cuda.py holds the kernels
-themselves against the plain versions on the card.
+emulations of their arithmetic (the count pass's trips of four chunks
+with its ballots and OR-reductions that pack the words, the keygen's
+warp schedule with its lane powers, shuffle scans and ballots, the
+join's walk back, the verify's single pass with its funnel shift and
+its look-ahead bound to the row's own words) are held against the plain
+versions on the same cases; tests/test_torch_cuda.py holds the kernels
+themselves against the plain versions on the card. The ragged rows of
+mixed lengths, and the engine against swarm_tpu's width-bucketed
+engine: tests/test_torch_d1_ragged.py.
 """
 
 import functools
@@ -98,9 +104,15 @@ DB_CASES = ["seed0", "seed1", "seed2", "seed3", "edge_rows",
 
 
 def _padded(db):
-    width = sj._round_up(max(int(db.longest), 1), 64)
+    width = -(-max(int(db.longest), 1) // 64) * 64
     padded = pad_codes(db.codes, db.offsets, db.lengths, width)
     return padded, db.lengths.astype(np.int32)
+
+
+def _arena(db):
+    """(codes, offsets, lengths, row_word, n_words) as the engine makes
+    them, on the CPU."""
+    return sj.SortJoinNeighborEngine(db, "cpu").arena()
 
 
 # ---- numpy emulations of the kernels' arithmetic ------------------------
@@ -123,22 +135,63 @@ def _lane_power(r, lane):
     return p, r
 
 
-def emulate_keygen(packed, lengths):
+def emulate_count_pack(codes, offsets, lengths, row_word, n_words):
+    """(counts, words) as d1_count_pack_kernel computes them: one warp a
+    row, trips of four chunks of 32 positions with the trip's codes read
+    first (4 past the row), run starts by a ballot against the lane
+    before (lane 0: the last code of the chunk before), a chunk's two
+    words by OR-reductions over each half warp, held by lanes 2k and
+    2k + 1 and stored by lanes 0..7 at the trip's end."""
+    lanes = np.arange(32)
+    words = np.zeros(n_words, dtype=np.int64)
+    counts = []
+    for row, L in enumerate(int(x) for x in lengths):
+        start, span = int(row_word[row]), int(sj.row_sizes(L)) * 16
+        arena = np.zeros(span + 128, dtype=np.int64)  # the row, then room
+        arena[:L] = codes[int(offsets[row]):int(offsets[row]) + L]
+        count, before_chunk = int(L > 0), 4
+        for base in range(0, span, 128):
+            code = [np.where(base + 32 * k + lanes < L,
+                             arena[base + 32 * k + lanes] & 3, 4)
+                    for k in range(4)]
+            trip = np.zeros(32, dtype=np.int64)
+            for k in range(4):
+                if base + 32 * k >= span:
+                    break
+                c = code[k]
+                before = np.concatenate([[before_chunk], c[:31]])
+                count += int(((c < 4) & (c != before)).sum())
+                before_chunk = int(c[31])
+                bits = np.where(c < 4, c << (2 * (lanes & 15)), 0)
+                trip[2 * k] = np.bitwise_or.reduce(np.where(lanes < 16, bits, 0))
+                trip[2 * k + 1] = np.bitwise_or.reduce(
+                    np.where(lanes < 16, 0, bits))
+            for lane in range(8):
+                if 16 * (base // 16 + lane) < span:
+                    words[start + base // 16 + lane] = trip[lane]
+        counts.append(count)
+    return np.array(counts), words
+
+
+def emulate_keygen(words, row_word, lengths):
     """(counts, keys, owners) as d1_keygen_kernel computes them: one warp
-    a row, lane l on position base + l of each chunk of 32, with its power
-    r^l and the chunk's r^base; the row's sums by a warp reduction, the
-    prefix by a warp scan plus the chunks before, run starts against the
-    lane before (lane 0: the last code of the chunk before), keys placed
-    by a ballot; all mod 2^32."""
+    a row, reading its words from row_word[row], lane l on position
+    base + l of each chunk of 32, with its power r^l and the chunk's
+    r^base; the row's sums by a warp reduction, the prefix by a warp scan
+    plus the chunks before, run starts against the lane before (lane 0:
+    the last code of the chunk before), keys placed by a ballot; all mod
+    2^32."""
     counts, keys, owners = [], [], []
     lanes = range(32)
     powers = [[_lane_power(r, lane) for lane in lanes] for r in sj._POLY_R]
     r32 = [pw[0][1] for pw in powers]
     for row, L in enumerate(int(x) for x in lengths):
-        words = [int(w) for w in packed[row]]
+        start = int(row_word[row])
+        row_words = [int(w) & M32
+                     for w in words[start:start + int(sj.row_sizes(L))]]
 
         def code(p):
-            return (words[p >> 4] >> (2 * (p & 15))) & 3 if p < L else 4
+            return (row_words[p >> 4] >> (2 * (p & 15))) & 3 if p < L else 4
 
         tot = [0, 0]
         c = [[pw[lane][0] for lane in lanes] for pw in powers]
@@ -196,14 +249,17 @@ def emulate_join(keys, owners):
     return np.array(counts), np.array(pairs, dtype=np.int64)
 
 
-def emulate_verify(packed, lengths, a, b):
-    """The flags of d1_verify_kernel: the single pass with f (first
-    unshifted difference) and g (last shifted difference)."""
+def emulate_verify(words, row_word, lengths, a, b):
+    """The flags of d1_verify_kernel: each row read from its own start,
+    the single pass with f (first unshifted difference) and g (last
+    shifted difference), the shift's look-ahead word zero past the
+    longer row's own words."""
     out = []
-    n_words = packed.shape[1]
     for ia, ib in zip(a, b):
         la, lb = int(lengths[ia]), int(lengths[ib])
-        xa, xb = [int(w) for w in packed[ia]], [int(w) for w in packed[ib]]
+        xa, xb = ([int(w) & M32 for w in words[int(row_word[i]):int(
+            row_word[i]) + int(sj.row_sizes(int(lengths[i])))]]
+                  for i in (ia, ib))
         if la == lb:
             mis = sum(bin(_nonzero_fields(p ^ q)).count("1")
                       for p, q in zip(xa, xb))
@@ -221,7 +277,7 @@ def emulate_verify(packed, lengths, a, b):
             md = _nonzero_fields(x[w] ^ y[w]) & below
             if md and f == ly:
                 f = base + ((md & -md).bit_length() - 1) // 2
-            nxt = x[w + 1] if w + 1 < n_words else 0
+            nxt = x[w + 1] if w + 1 < len(x) else 0
             xs = ((x[w] >> 2) | (nxt << 30)) & M32
             ms = _nonzero_fields(xs ^ y[w]) & below
             if ms:
@@ -247,45 +303,54 @@ def test_deletion_keys_poly_equals_jax(case):
 
 @pytest.mark.parametrize("case", DB_CASES)
 def test_keygen_wrappers_and_kernel_emulation(case):
-    """deletion_keys on packed rows == swarm_tpu's halves compacted in row
-    and slot order == the emulated kernel, counts included."""
-    padded, lengths = _padded(_case_db(case))
+    """deletion_keys on the ragged rows of the arena == swarm_tpu's halves
+    compacted in row and slot order == the emulated kernels, counts and
+    packed words included."""
+    db = _case_db(case)
+    padded, lengths = _padded(db)
     j0, j1, jvalid = _jax_keys(case)
     want = (np.asarray(j0).astype(np.uint64) << np.uint64(32)
             | np.asarray(j1).astype(np.uint64)).view(np.int64)[jvalid]
     want_owners = np.nonzero(jvalid)[0]
 
-    packed_np = sj.pack2bit(padded)
-    np.testing.assert_array_equal(packed_np, jax_sj.pack2bit(padded))
-    packed = torch.from_numpy(packed_np.view(np.int32))
-    lens = torch.from_numpy(lengths)
-    np.testing.assert_array_equal(sj.unpack2bit(packed).numpy(), padded)
-    counts = sj.keygen_count(packed, lens)
-    keys, owners = sj.deletion_keys(packed, lens)
+    codes, offsets, lens, row_word, n_words = _arena(db)
+    counts, words = sj.keygen_count(codes, offsets, lens, row_word, n_words)
+    keys, owners, words2 = sj.deletion_keys(codes, offsets, lens, row_word,
+                                            n_words)
+    assert torch.equal(words, words2)
     np.testing.assert_array_equal(keys.numpy(), want)
     np.testing.assert_array_equal(owners.numpy(), want_owners)
     np.testing.assert_array_equal(counts.numpy(), jvalid.sum(axis=1))
     np.testing.assert_array_equal(
         torch.stack(sj.split_keys(keys)).numpy(),
         np.stack([np.asarray(j0)[jvalid], np.asarray(j1)[jvalid]]))
+    for i in range(len(db)):  # each row's words are its padded row's
+        start, size = int(row_word[i]), int(sj.row_sizes(int(lens[i])))
+        np.testing.assert_array_equal(
+            sj.unpack2bit(words[None, start:start + size]).numpy()[0],
+            padded[i, :16 * size])
 
-    e_counts, e_keys, e_owners = emulate_keygen(packed_np, lengths)
+    e_counts, e_words = emulate_count_pack(db.codes, db.offsets, lengths,
+                                           row_word.numpy(), n_words)
+    np.testing.assert_array_equal(e_counts, counts.numpy())
+    np.testing.assert_array_equal(e_words.astype(np.uint32).view(np.int32),
+                                  words.numpy())
+    e_counts, e_keys, e_owners = emulate_keygen(words.numpy(),
+                                                row_word.numpy(), lengths)
     np.testing.assert_array_equal(e_counts, counts.numpy())
     np.testing.assert_array_equal(e_keys, want)
     np.testing.assert_array_equal(e_owners, want_owners)
 
 
-def test_keygen_of_no_rows_and_one_row():
+def test_keygen_of_no_rows_and_one_row(tmp_path):
     # [2, 2, 1]: the row's own key and deletions at run starts 0 and 2
-    for rows, n_keys in (([], 0), ([np.array([2, 2, 1], np.uint8)], 3)):
-        padded = np.zeros((len(rows), 64), dtype=np.uint8)
-        for i, r in enumerate(rows):
-            padded[i, :len(r)] = r
-        lengths = torch.tensor([len(r) for r in rows], dtype=torch.int32)
-        packed = torch.from_numpy(sj.pack2bit(padded).view(np.int32))
-        keys, owners = sj.deletion_keys(packed, lengths)
+    empty = _random_db(n=0, min_len=5, max_len=9, seed=1)
+    one = make_db(tmp_path, rows_records([np.array([2, 2, 1], np.uint8)]))
+    for db, n_keys in ((empty, 0), (one, 3)):
+        keys, owners, words = sj.deletion_keys(*_arena(db))
         assert keys.numel() == n_keys
         assert owners.tolist() == [0] * n_keys
+        assert words.numel() == 4 * len(db)
 
 
 # ---- verify ---------------------------------------------------------------
@@ -327,7 +392,7 @@ def _verify_case(name):
             i, j = rng.integers(0, len(seqs), size=2)
             pairs.append((int(i), int(j)))
         a, b = (np.array(x) for x in zip(*pairs))
-    width = sj._round_up(max(len(s) for s in seqs) + 1, 64)
+    width = -(-(max(len(s) for s in seqs) + 1) // 64) * 64
     padded = np.zeros((len(seqs), width), dtype=np.uint8)
     for i, s in enumerate(seqs):
         padded[i, :len(s)] = s
@@ -339,7 +404,7 @@ def _verify_case(name):
                                   "edge_rows"])
 def test_verify_dist1_packed_equals_jax_and_oracles(case):
     padded, lengths, a, b = _verify_case(case)
-    packed_np = sj.pack2bit(padded)
+    packed_np = jax_sj.pack2bit(padded)
     want = jax_sj.verify_dist1(padded, lengths, a, b)
     jp = jnp.asarray(packed_np)
     got_jax = np.asarray(jax.jit(jax_sj._verify_dist1_packed)(
@@ -355,14 +420,16 @@ def test_verify_dist1_packed_equals_jax_and_oracles(case):
     offsets = np.arange(len(padded), dtype=np.int64) * padded.shape[1]
     np.testing.assert_array_equal(
         got.numpy(), _native.verify_dist1_pairs(codes, offsets, lengths, a, b))
-    # the wrapper on packed pairs, and the kernel's single pass
+    # the wrapper on the ragged rows, and the kernel's single pass
+    words, row_word = sj.pack_ragged(torch.from_numpy(codes),
+                                     torch.from_numpy(offsets), lens)
     lo, hi = np.minimum(a, b), np.maximum(a, b)
     keep = lo != hi
     pairs = torch.from_numpy(lo[keep] << 32 | hi[keep])
     np.testing.assert_array_equal(
-        sj.verify_pairs(packed, lens, pairs).numpy(), want[keep])
+        sj.verify_pairs(words, row_word, lens, pairs).numpy(), want[keep])
     np.testing.assert_array_equal(
-        emulate_verify(packed_np, lengths, a, b), want)
+        emulate_verify(words.numpy(), row_word.numpy(), lengths, a, b), want)
     assert want.any() and not want.all()
     if case == "verify_dist1_cases":
         assert want.tolist() == [True, True, True, False, False, False, True]
@@ -484,34 +551,27 @@ def test_native_below_native_max_engine_above(monkeypatch):
     assert NeighborIndex(db, device="cpu").uses_native()
 
 
-def _mixed_lengths(seed):
-    rng = np.random.default_rng(seed)
-    return np.concatenate([rng.integers(40, 60, size=200),
-                           rng.integers(60, 70, size=3),
-                           rng.integers(800, 950, size=seed)])
-
-
-@pytest.mark.parametrize("seed", [0, 1, 2, 6, 40])
-def test_bucket_rule_equals_jax(seed):
-    lengths = _mixed_lengths(seed)
-    assert sj.buckets_worthwhile(lengths) == \
-        jax_sj.BucketedSortJoinEngine.worthwhile(lengths)
-    assert sj.bucket_widths(lengths) == \
-        jax_sj.BucketedSortJoinEngine.widths_for(lengths)
-
-
-def test_mixed_lengths_stay_native(monkeypatch, tmp_path):
+def test_mixed_lengths_take_the_engine(monkeypatch, tmp_path):
+    """A mixed-length corpus (one that swarm_tpu would give its
+    width-bucketed engine) takes the torch engine once n reaches
+    SWARM_TPU_D1_NATIVE_MAX, and its edges are the native builder's."""
     rng = np.random.default_rng(71)
     short = rng.integers(0, 4, size=50).astype(np.uint8)
     rows = [short, np.insert(short, 7, 1), rng.integers(0, 4, 900)]
     rows.append(np.delete(rows[-1], 450))
     db = make_db(tmp_path, rows_records([r.astype(np.uint8) for r in rows]))
-    assert sj.buckets_worthwhile(db.lengths.astype(np.int64))
+    assert jax_sj.BucketedSortJoinEngine.worthwhile(db.lengths)
     monkeypatch.setenv("SWARM_TPU_D1_NATIVE_MAX", "0")
     index = NeighborIndex(db, device="cpu")
-    assert index.uses_native()
-    ef, _ = index.build_network(True, db.abundances)
+    assert not index.uses_native()
+    index.start_network()
+    assert isinstance(index._engine, sj.SortJoinNeighborEngine)
+    ef, et = index.build_network(True, db.abundances)
     assert len(ef) == 4
+    nf, nt = _native.d1_network(db.codes, db.offsets, db.lengths,
+                                db.abundances.astype(np.int64), True)
+    np.testing.assert_array_equal(ef, nf)
+    np.testing.assert_array_equal(et, nt)
 
 
 def test_engine_without_a_device_request_needs_cuda(monkeypatch):

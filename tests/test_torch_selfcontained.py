@@ -6,7 +6,8 @@ not drifted from swarm_tpu's.
     or a tests/ module;
 (b) in a running process: bin/swarm-torch for d = 0, 1, 2 on the CPU
     ends with neither jax nor swarm_tpu in sys.modules, d = 1 also with
-    its sort-join engine forced (SWARM_TPU_D1_NATIVE_MAX=0);
+    its sort-join engine forced (SWARM_TPU_D1_NATIVE_MAX=0), on a
+    uniform and on a mixed-length corpus;
 (c) the copies against the originals on seeded corpora: db_read and the
     native wrappers give the same arrays, the corpus generators the same
     records (the CLI cases of tests/test_torch_cli.py hold the outputs
@@ -126,6 +127,30 @@ def test_launcher_d1_sortjoin_engine_holds_no_jax(tmp_path):
     assert r.returncode == 0, r.stderr.decode()
     assert b"[timing] d1 join (cpu) verify+dedup" in r.stderr
     assert (tmp_path / "out.txt").stat().st_size > 0
+
+
+def test_launcher_d1_engine_on_mixed_lengths_holds_no_jax(tmp_path):
+    """-d 1 -o -s -u -i -w on a mixed-length corpus with the torch engine
+    forced: the engine packs its ragged rows (its [timing] lines show
+    the count and pack pass) and imports nothing of the JAX side."""
+    from test_torch_cli import mixed_lengths_fasta
+
+    (tmp_path / "in.fasta").write_text(mixed_lengths_fasta())
+    probe = LAUNCHER_PROBE.format(
+        launcher=str(REPO_ROOT / "bin" / "swarm-torch"))
+    r = subprocess.run(
+        [sys.executable, "-c", probe, "-d", "1", "-o", "out.txt", "-s",
+         "stats.txt", "-u", "uclust.txt", "-i", "structure.txt", "-w",
+         "seeds.fasta", "-l", "log.txt", "in.fasta"],
+        cwd=tmp_path, capture_output=True, timeout=300,
+        env={**os.environ, "SWARM_TORCH_DEVICE": "cpu",
+             "SWARM_TPU_D1_NATIVE_MAX": "0", "SWARM_TPU_TIMING": "1",
+             "PYTHONPATH": str(REPO_ROOT)})
+    assert r.returncode == 0, r.stderr.decode()
+    assert b"[timing] d1 join (cpu) count+pack" in r.stderr
+    for name in ("out.txt", "stats.txt", "uclust.txt", "structure.txt",
+                 "seeds.fasta"):
+        assert (tmp_path / name).stat().st_size > 0
 
 
 # ---- (c) the copies against the originals -------------------------------
