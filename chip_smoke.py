@@ -28,17 +28,21 @@ final line:
    empty row, a one-element list), banded_scores on every band B =
    1..20, 21, 40, 63 over ragged lengths and on lengths at the edges of
    the band;
-4. the d=1 sort-join kernels d1_keygen (its count and pack pass, which
-   packs the code arena into ragged rows, and its emit pass), d1_join
-   and d1_verify against their plain versions on the card, exactly
-   (packed words, keys and flags element for element, candidate pairs
-   in the kernel's order), on rows at the edges of the kernels, on one
-   run of 125 rows sharing a key, on rows of mixed lengths at the edges
-   of the ragged layout (1 to 5,003 nt), and on the d1_1m and
-   d1_mixed_1m corpora, which are also timed: each kernel's passes, the
-   pack with its bound, torch.sort of the keys (the sort phase), the
-   plain versions, and the arena's copy to the card from pageable and
-   from pinned memory;
+4. the d=1 kernels d1_keygen (its count and pack pass, which packs the
+   code arena into ragged rows, and its emit pass), d1_partition,
+   d1_join and d1_verify against their plain versions on the card,
+   exactly (packed words, keys, the partitioned keys and owners and
+   bucket ends, and flags element for element; candidate pairs in the
+   kernel's order, and as a sorted multiset against the pairs of the
+   sorted keys), on rows at the edges of the kernels, on one run of 125
+   rows sharing a key, on a run of 4,504 (a bucket beyond the join's
+   shared-memory tile: its oversized variant), on rows of mixed lengths
+   at the edges of the ragged layout (1 to 5,003 nt), and on the d1_1m
+   and d1_mixed_1m corpora, which are also timed: each kernel's passes,
+   the pack with its bound, torch.sort + torch.take of the keys (the
+   parent's grouping step, d1_partition's library call) with both peaks
+   of device memory, the plain versions, and the arena's copy to the
+   card from pageable and from pinned memory;
 5. main paths through swarm_tpu_torch.main.run, each with a warm-up
    run, then one timed run with every kernel's launch count set to 0
    before it and read after it, then the port's native C engine
@@ -54,8 +58,8 @@ final line:
      -o -s`, d1_full_100k (the d2_100k corpus) with `-d 1 -o -s -u -i
      -w` and d1_mixed_1m (mixed_length_corpus of 1,000,000 amplicons of
      ~60 to ~5,000 nt, ~187 nt a row) with `-d 1 -o -s -i`: the d=1
-     sort-join engine on ragged rows, kernels d1_keygen, d1_join and
-     d1_verify.
+     partitioned-join engine on ragged rows, kernels d1_keygen,
+     d1_partition, d1_join and d1_verify.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and a C
@@ -112,6 +116,9 @@ OPS_PER_DIFF_CELL = 8
 OPS_PER_KEYGEN_BASE = 16
 OPS_PER_KEY = 6
 OPS_PER_JOIN_ELEMENT = 4
+#: the partition: a key's bucket (two multiplies, a xor, a shift) and
+#: digit, and its rank, once in each of two passes' two kernels
+OPS_PER_PARTITION_KEY = 16
 OPS_PER_VERIFY_WORD = 12
 
 
@@ -546,9 +553,10 @@ def _dedup(cand):
 
 
 def d1_check(name, rows):
-    """d1_keygen (its count and pack pass, then its emit pass), d1_join
-    and d1_verify against their plain versions on the same card tensors;
-    returns the max_abs_err of each and the pipeline's tensors."""
+    """d1_keygen (its count and pack pass, then its emit pass),
+    d1_partition, d1_join and d1_verify against their plain versions on
+    the same card tensors; returns the max_abs_err of each and the
+    pipeline's tensors."""
     import torch
 
     from swarm_tpu_torch.ops import neighbors_sortjoin as sj
@@ -573,12 +581,27 @@ def d1_check(name, rows):
                    *(err(a, b) for a, b in zip(sj.split_keys(keys),
                                                sj.split_keys(want_keys))))
     del want_keys, want_owners, want_counts, want_words
+    bits = sj.bucket_bits(keys.numel())
+    want = sj.partition_reference(keys, owners, bits)
+    part = sj.partition(keys.clone(), owners.clone(), bits)
+    e_part = max(err(part[0], want[0]), err(part[1], want[1]),
+                 err(part[2], want[2]),
+                 *(err(a, b) for a, b in zip(sj.split_keys(part[0]),
+                                             sj.split_keys(want[0]))))
+    del want
+    pkeys, powners, bucket_ends = part
+    sizes = torch.diff(bucket_ends, prepend=bucket_ends.new_zeros(1))
+    cand = sj.join_pairs(pkeys, powners, bucket_ends)
     skeys, sowners = _sorted_keys(keys, owners)
-    cand = sj.join_pairs(skeys, sowners)
-    e_join = max(err(cand, sj.join_pairs_reference(skeys, sowners)),
-                 err(sj.join_count(skeys, sowners), torch.bincount(
-                     sj._join_links(skeys, sowners)[0],
-                     minlength=skeys.numel())))
+    e_join = max(
+        err(cand, sj.join_buckets_reference(pkeys, powners, bucket_ends)),
+        err(torch.sort(cand).values, torch.sort(
+            sj.join_pairs_reference(skeys, sowners)).values),
+        err(sj.join_count(pkeys, powners, bucket_ends)[0], torch.bincount(
+            torch.searchsorted(bucket_ends,
+                               sj._join_links(pkeys, powners)[0],
+                               right=True), minlength=bucket_ends.numel())))
+    del skeys, sowners
     uniq = _dedup(cand)
     ok = sj.verify_pairs(words, row_word, lengths, uniq)
     e_verify = err(ok, sj.verify_ragged_reference(words, row_word, lengths,
@@ -586,16 +609,22 @@ def d1_check(name, rows):
     torch.cuda.synchronize()
     say(f"kernels d1 {name}: rows={lengths.numel()} lengths="
         f"{int(lengths.min())}..{int(lengths.max())} words={n_words} "
-        f"keys={keys.numel()} candidates={cand.numel()} "
+        f"keys={keys.numel()} bucket_bits={bits} largest_bucket="
+        f"{int(sizes.max())} oversized_buckets="
+        f"{int((sizes > sj.join_cap()).sum())} empty_buckets="
+        f"{int((sizes == 0).sum())} candidates={cand.numel()} "
         f"unique={uniq.numel()} at_distance_1={int(ok.sum())} "
-        f"max_abs_err keygen={e_keygen} join={e_join} verify={e_verify}")
-    if e_keygen or e_join or e_verify:
+        f"max_abs_err keygen={e_keygen} partition={e_part} join={e_join} "
+        f"verify={e_verify}")
+    if e_keygen or e_part or e_join or e_verify:
         raise AssertionError(f"a d=1 kernel disagrees with its plain version "
                              f"on {name}")
     if not ok.any():
         raise AssertionError(f"{name}: no pair at distance 1 to verify")
-    return {"d1_keygen": e_keygen, "d1_join": e_join, "d1_verify": e_verify}, \
-        (words, ends, keys, owners, skeys, sowners, cand, uniq, ok)
+    return {"d1_keygen": e_keygen, "d1_partition": e_part,
+            "d1_join": e_join, "d1_verify": e_verify}, \
+        (words, ends, keys, owners, pkeys, powners, bucket_ends, cand, uniq,
+         ok)
 
 
 def _h2d_ms(db, dev):
@@ -618,6 +647,71 @@ def _h2d_ms(db, dev):
     return tuple(float(np.median(times[how])) for how in times)
 
 
+def _partition_ms(keys, owners, bits, reps):
+    """Milliseconds of d1_partition's launches on fresh copies of the keys
+    (it partitions in place), as the wrapper makes them: each pass's
+    count kernel, torch.cumsum and scatter kernel, then the bounds
+    kernel, by a CUDA event after each, the mean of `reps` runs after a
+    warm-up; returns {"count", "cumsum", "scatter", "bounds", "total"},
+    count, cumsum and scatter summed over the passes."""
+    import torch
+
+    from swarm_tpu_torch._build import load
+    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
+
+    lib = load()
+    m = keys.numel()
+    n_tiles = -(-m // lib.swarm_d1_partition_tile())
+    stream = torch.cuda.current_stream().cuda_stream
+    work = (torch.empty_like(keys), torch.empty_like(owners))
+    spare = (torch.empty_like(keys), torch.empty_like(owners))
+    out = dict.fromkeys(("count", "cumsum", "scatter", "bounds"), 0.0)
+
+    def check(err):
+        if err:
+            raise AssertionError(f"d1_partition launch failed: CUDA error "
+                                 f"{err}")
+
+    for rep in range(reps + 1):
+        work[0].copy_(keys)
+        work[1].copy_(owners)
+        stamps = []
+
+        def mark(what):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            stamps.append((what, ev))
+
+        mark(None)
+        src, dst = work, spare
+        for shift, width in sj.digit_passes(bits):
+            counts = torch.empty((1 << width) * n_tiles, dtype=torch.int32,
+                                 device=keys.device)
+            check(lib.swarm_d1_partition_count(
+                src[0].data_ptr(), m, bits, shift, width, counts.data_ptr(),
+                stream))
+            mark("count")
+            ends = torch.cumsum(counts, dim=0, dtype=torch.int32)
+            mark("cumsum")
+            check(lib.swarm_d1_partition_scatter(
+                src[0].data_ptr(), src[1].data_ptr(), m, bits, shift, width,
+                ends.data_ptr(), dst[0].data_ptr(), dst[1].data_ptr(),
+                stream))
+            mark("scatter")
+            src, dst = dst, src
+        bucket_ends = torch.empty(1 << bits, dtype=torch.int64,
+                                  device=keys.device)
+        check(lib.swarm_d1_partition_bounds(
+            src[0].data_ptr(), m, bits, bucket_ends.data_ptr(), stream))
+        mark("bounds")
+        torch.cuda.synchronize()
+        if rep:
+            for (_, a), (what, b) in zip(stamps, stamps[1:]):
+                out[what] += a.elapsed_time(b) / reps
+    out["total"] = sum(out.values())
+    return out
+
+
 def d1_timed(name, fasta, dev):
     """The d=1 kernels against their plain versions on a corpus and
     timed there; returns (the three kernels' rows of numbers, the
@@ -636,13 +730,46 @@ def d1_timed(name, fasta, dev):
     say(f"kernels d1 {name}: read {n} rows ({codes.numel()} bases) in "
         f"{time.perf_counter() - t0:.1f}s; H2D of the arena: "
         f"pageable_ms={pageable_ms:.3f} pinned_ms={pinned_ms:.3f}")
-    errs, (words, ends, keys, owners, skeys, sowners, cand, uniq, ok) = \
-        d1_check(name, rows)
+    errs, (words, ends, keys, owners, pkeys, powners, bucket_ends, cand,
+           uniq, ok) = d1_check(name, rows)
 
     n_keys = keys.numel()
+    bits = sj.bucket_bits(n_keys)
+    # the yardstick of the grouping step: what the parent's engine ran
     sort_ms = cuda_ms(lambda: _sorted_keys(keys, owners), 3)
-    say(f"sort phase {name}: torch.sort of {n_keys} int64 keys and the "
-        f"owners taken through its indices: sort_ms={sort_ms:.3f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    _sorted_keys(keys, owners)
+    torch.cuda.synchronize()
+    sort_peak = torch.cuda.max_memory_allocated() - base_bytes
+    torch.cuda.reset_peak_memory_stats()
+    sj.partition(keys.clone(), owners.clone(), bits)
+    torch.cuda.synchronize()
+    part_peak = torch.cuda.max_memory_allocated() - base_bytes
+    part = _partition_ms(keys, owners, bits, 5)
+    part_plain_ms = cuda_ms(lambda: sj.partition_reference(keys, owners,
+                                                           bits), 1)
+    n_buckets = bucket_ends.numel()
+    n_bytes = n_keys * 24 + n_buckets * 8  # the pairs in and out, the ends
+    bound_ms, bound_by = bound(n_bytes, OPS_PER_PARTITION_KEY * n_keys)
+    passes = sj.digit_passes(bits)
+    say(f"kernel d1_partition timed {name}: keys={n_keys} bucket_bits={bits} "
+        f"passes={passes} count_ms={part['count']:.4f} "
+        f"cumsum_ms={part['cumsum']:.4f} scatter_ms={part['scatter']:.4f} "
+        f"bounds_ms={part['bounds']:.4f} kernel_ms={part['total']:.4f} "
+        f"plain_ms={part_plain_ms:.3f} library_ms={sort_ms:.3f} (torch.sort "
+        f"of the int64 keys and torch.take of the owners) bytes={n_bytes} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}) peak_bytes_above_the_keys: "
+        f"partition={part_peak} sort={sort_peak}")
+    result = {"d1_partition": {
+        "max_abs_err": errs["d1_partition"], "ms": part["total"],
+        "plain_ms": part_plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": sort_ms,
+        "count_ms": part["count"], "cumsum_ms": part["cumsum"],
+        "scatter_ms": part["scatter"], "bounds_ms": part["bounds"],
+        "passes": len(passes), "bucket_bits": bits,
+        "peak_bytes": part_peak, "library_peak_bytes": sort_peak}}
     del keys, owners
     count_ms = cuda_ms(lambda: sj.keygen_count(
         codes, offsets, lengths, row_word, n_words), 10)
@@ -665,31 +792,34 @@ def d1_timed(name, fasta, dev):
         f"emit_ms={emit_ms:.4f} kernel_ms={count_ms + emit_ms:.4f} "
         f"plain_ms={plain_ms:.3f} (pack {pack_plain_ms:.3f}) "
         f"bytes={n_bytes} ops={n_ops} bound_ms={bound_ms:.4f} ({bound_by})")
-    result = {"d1_keygen": {
+    result["d1_keygen"] = {
         "max_abs_err": errs["d1_keygen"], "ms": count_ms + emit_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "count_pack_ms": count_ms, "emit_ms": emit_ms,
-        "pack_bound_ms": pack_bound_ms, "pack_plain_ms": pack_plain_ms}}
+        "pack_bound_ms": pack_bound_ms, "pack_plain_ms": pack_plain_ms}
 
-    jcounts = sj.join_count(skeys, sowners)
+    jcounts, record = sj.join_count(pkeys, powners, bucket_ends)
     jends = torch.cumsum(jcounts, dim=0, dtype=torch.int64)
     n_cand = cand.numel()
-    count_ms = cuda_ms(lambda: sj.join_count(skeys, sowners), 10)
-    emit_ms = cuda_ms(lambda: sj.join_emit(skeys, sowners, jends, n_cand), 10)
-    plain_ms = cuda_ms(lambda: sj.join_pairs_reference(skeys, sowners), 1)
-    n_bytes = n_keys * 12 + n_cand * 8
+    count_ms = cuda_ms(lambda: sj.join_count(pkeys, powners, bucket_ends), 10)
+    emit_ms = cuda_ms(lambda: sj.join_emit(pkeys, powners, bucket_ends,
+                                           record, jends, n_cand), 10)
+    plain_ms = cuda_ms(lambda: sj.join_buckets_reference(
+        pkeys, powners, bucket_ends), 1)
+    n_bytes = n_keys * 12 + n_buckets * 8 + n_cand * 8
     n_ops = OPS_PER_JOIN_ELEMENT * n_keys
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    say(f"kernel d1_join timed {name}: keys={n_keys} candidates={n_cand} "
+    sizes = torch.diff(bucket_ends, prepend=bucket_ends.new_zeros(1))
+    say(f"kernel d1_join timed {name}: keys={n_keys} buckets={n_buckets} "
+        f"largest_bucket={int(sizes.max())} candidates={n_cand} "
         f"count_ms={count_ms:.4f} emit_ms={emit_ms:.4f} "
         f"kernel_ms={count_ms + emit_ms:.4f} plain_ms={plain_ms:.3f} "
         f"bytes={n_bytes} ops={n_ops} bound_ms={bound_ms:.4f} ({bound_by})")
     result["d1_join"] = {
         "max_abs_err": errs["d1_join"], "ms": count_ms + emit_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "count_ms": count_ms, "emit_ms": emit_ms,
-        "sort_ms": sort_ms}
-    del skeys, sowners
+        "library_ms": None, "count_ms": count_ms, "emit_ms": emit_ms}
+    del pkeys, powners, bucket_ends
 
     dedup_ms = cuda_ms(lambda: _dedup(cand), 5)
     ms = cuda_ms(lambda: sj.verify_pairs(words, row_word, lengths, uniq), 10)
@@ -731,6 +861,8 @@ def phase_d1_kernels(dev, corpus, edges):
         with tempfile.TemporaryDirectory(prefix="d1_edges_") as tmp:
             for case, rows in (("edge_rows", d1_edge_rows()),
                                ("insertion_run", insertion_run()),
+                               ("long_insertion_run",
+                                insertion_run(length=LONG_RUN)),
                                ("ragged_edge_rows", ragged_edge_rows())):
                 (Path(tmp) / case).mkdir()
                 db = make_db(Path(tmp) / case, rows_records(rows))
@@ -916,7 +1048,10 @@ def main():
 
 D2_NATIVE = {"SWARM_TPU_D2_ENGINE": "native"}
 D1_NATIVE = {"SWARM_TPU_D1_NATIVE_MAX": str(1 << 40)}
-D1_KERNELS = ("d1_keygen", "d1_join", "d1_verify")
+#: insertion_run(length=LONG_RUN): 4,504 rows sharing one key, a bucket
+#: beyond the join kernel's shared-memory tile (its oversized variant)
+LONG_RUN = 1500
+D1_KERNELS = ("d1_keygen", "d1_partition", "d1_join", "d1_verify")
 
 #: name -> (corpus maker, its arguments, CLI flags, environment, kernels,
 #: environment of the native engine)
@@ -1021,6 +1156,7 @@ def run_phases(dev, work):
                         "swarm_tpu/ops/pallas_nw.py:240"),
         # the d=1 path's device work was XLA programs, not Pallas kernels
         "d1_keygen": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:142"),
+        "d1_partition": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:484"),
         "d1_join": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:416"),
         "d1_verify": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:337"),
     }

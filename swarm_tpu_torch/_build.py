@@ -120,12 +120,22 @@ def load() -> ctypes.CDLL:
                 vp, i64, vp, vp, vp, i64, vp, i64, vp, vp]
             lib.swarm_d1_keygen_emit.argtypes = [
                 vp, i64, vp, vp, i64, vp, vp, vp, vp]
-            lib.swarm_d1_join_count.argtypes = [vp, vp, i64, vp, vp]
-            lib.swarm_d1_join_emit.argtypes = [vp, vp, i64, vp, vp, vp]
+            lib.swarm_d1_partition_count.argtypes = [
+                vp, i64, i32, i32, i32, vp, vp]
+            lib.swarm_d1_partition_scatter.argtypes = [
+                vp, vp, i64, i32, i32, i32, vp, vp, vp, vp]
+            lib.swarm_d1_partition_bounds.argtypes = [vp, i64, i32, vp, vp]
+            lib.swarm_d1_join_count.argtypes = [
+                vp, vp, vp, i64, vp, vp, vp, vp]
+            lib.swarm_d1_join_emit.argtypes = [
+                vp, vp, vp, i64, vp, vp, vp, vp, vp]
             lib.swarm_d1_verify.argtypes = [
                 vp, i64, vp, vp, i64, vp, i64, vp, vp]
-            for fn in ("keygen_count", "keygen_emit", "join_count",
-                       "join_emit", "verify"):
+            lib.swarm_d1_partition_tile.argtypes = []
+            lib.swarm_d1_join_cap.argtypes = []
+            for fn in ("keygen_count", "keygen_emit", "partition_count",
+                       "partition_scatter", "partition_bounds", "join_count",
+                       "join_emit", "verify", "partition_tile", "join_cap"):
                 getattr(lib, f"swarm_d1_{fn}").restype = i32
             scores = [vp, i64, i64, vp, i64, vp, i32, i64, i32, i32, i32]
             lib.swarm_nw_banded_scores.argtypes = [*scores, i32, vp, vp]

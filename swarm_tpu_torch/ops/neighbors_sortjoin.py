@@ -1,4 +1,4 @@
-"""d=1 network by one global sort-join on the torch device.
+"""d=1 network by a radix-partitioned join on the torch device.
 
 Counterpart of swarm_tpu/ops/neighbors_sortjoin.py: its
 SortJoinNeighborEngine (deletion_keys_poly, join_pairs,
@@ -15,7 +15,7 @@ run starts suffice because del_p(x) == del_{run start of p}(x)). h is a
 pair of polynomial hashes mod 2^32, held as one 64-bit key; rows that
 share a key by a collision, or at distance 2, are removed by the exact
 check. The key set of a row does not depend on any width, so rows of
-any mix of lengths meet in one sort.
+any mix of lengths meet in one partition.
 
 Ragged rows: the database's code arena (one byte a base, rows at their
 own offsets, in parse order) goes to the device as it is. Row i takes
@@ -25,7 +25,7 @@ row_word[i], the exclusive cumsum of those sizes (ragged_layout), so
 every row starts on a 16-byte boundary and no row is padded to the
 longest.
 
-Three steps, each with a plain PyTorch version and a CUDA kernel
+Four steps, each with a plain PyTorch version and a CUDA kernel
 (csrc/d1_join.cu). A wrapper runs the plain version only for tensors on
 the CPU; on a CUDA tensor it launches its kernel or raises.
 
@@ -35,10 +35,19 @@ the CPU; on a CUDA tensor it launches its kernel or raises.
   (the count pass, which also packs the rows), keygen_emit and
   deletion_keys: the valid keys of every row and their owners,
   compacted in row order and slot order;
-- join: after one torch.sort of the keys, join_pairs_reference (plain)
-  and the wrappers join_count, join_emit and join_pairs: one candidate
-  (min << 32) | max for every two slots with equal keys and different
-  owners;
+- partition: bucket_of, partition_reference (plain) and the wrapper
+  partition: the (key, owner) pairs stably partitioned, in place, into
+  buckets of ~1,000 keys by the top bits of a mix of the key (the raw
+  key bits are weak: see bucket_of). The keys are never sorted: the
+  join needs equal keys together, not in order, and a bucket is a
+  function of the key, so equal keys share one;
+- join: join_pairs_reference (plain, keys in any order),
+  join_buckets_reference (plain, the kernel's order) and the wrappers
+  join_count, join_emit and join_pairs, one thread block a bucket: one
+  candidate (min << 32) | max for every two slots with equal keys and
+  different owners. A run of equal keys is never split, so a bucket
+  can outgrow the kernel's shared-memory tile; such a bucket takes the
+  kernel's other variant, which walks it from global memory;
 - verify: verify_dist1_packed (plain, the JAX function's layout) and
   verify_ragged_reference (plain, rows gathered and zero-padded to each
   pair's width), and the wrapper verify_pairs: the exact distance-1
@@ -78,8 +87,17 @@ _ODD = 0x55555555  # the low bit of every 2-bit field
 
 #: kernel launches made by the wrappers (CUDA tensors only); each of the
 #: two passes of keygen (count and pack, emit) and of join counts as one
-#: launch of its kernel
-launches = {"d1_keygen": 0, "d1_join": 0, "d1_verify": 0}
+#: launch of its kernel, and so does each of the partition's count,
+#: scatter and bounds launches
+launches = {"d1_keygen": 0, "d1_partition": 0, "d1_join": 0,
+            "d1_verify": 0}
+
+#: keys a bucket holds on average at most (bucket_bits)
+BUCKET_KEYS = 1024
+#: bits of a partition pass at most: a pass's histogram is a tile's
+#: shared memory (csrc/d1_join.cu: kMaxRadix)
+MAX_DIGIT_BITS = 9
+_MIX_A, _MIX_B = 0x9E3779B1, 0x85EBCA6B  # key_mix
 
 #: elements of the [rows, width] temporaries of one step of the plain
 #: versions of ragged rows (rows of one width are taken in steps)
@@ -388,103 +406,256 @@ def deletion_keys(codes, offsets, lengths, row_word, n_words: int):
     return (*keygen_emit(words, row_word, lengths, ends, total), words)
 
 
-def _join_links(keys, owners):
-    """(element, predecessor) index pairs of the sorted keys: every two
-    elements of one run of equal keys with different owners, ordered by
-    element, then by predecessor from the nearest back."""
-    elem, pred = [], []
-    d = 1
-    while d < keys.numel():
-        eq = keys[d:] == keys[:-d]
-        if not bool(eq.any()):
-            break  # sorted: no run is longer than d
-        i = torch.nonzero(eq).flatten() + d
-        i = i[owners[i] != owners[i - d]]
-        elem.append(i)
-        pred.append(i - d)
-        d += 1
-    if not elem:
-        empty = torch.zeros(0, dtype=torch.int64, device=keys.device)
-        return empty, empty
-    elem, pred = torch.cat(elem), torch.cat(pred)
-    order = torch.argsort(elem, stable=True)  # d ascending within elements
-    return elem[order], pred[order]
+def bucket_bits(m: int) -> int:
+    """Bits of the bucket index for m keys: 0 (one bucket) up to
+    BUCKET_KEYS keys, else the fewest bits, at least 2, that leave at
+    most BUCKET_KEYS keys a bucket on average (17 at 113.6 M keys)."""
+    if m <= BUCKET_KEYS:
+        return 0
+    bits = 2
+    while (m - 1) >> bits >= BUCKET_KEYS:
+        bits += 1
+    return bits
 
 
-def join_pairs_reference(keys, owners) -> torch.Tensor:
-    """[P] int64 candidate pairs (a << 32) | b, a < b, of keys sorted in
-    ascending order: one for every two slots of a run of equal keys whose
-    owners differ, ordered by slot, then by the other slot from the
-    nearest back (the kernel's order). A pair of rows that share several
-    keys comes once for each. Counterpart of swarm_tpu's join_pairs
-    without its caps and window."""
-    elem, pred = _join_links(keys, owners)
-    a, b = owners[elem].long(), owners[pred].long()
-    return torch.minimum(a, b) * (1 << 32) + torch.maximum(a, b)
+def digit_passes(bits: int):
+    """[(shift, width)] of the partition's passes over a bucket index of
+    `bits` bits: an even number of passes (the result lands in the
+    input's buffers) of at most MAX_DIGIT_BITS bits, the low digit
+    first."""
+    if bits == 1:
+        raise ValueError("a bucket index has 0 or at least 2 bits")
+    n = 2 * -(-bits // (2 * MAX_DIGIT_BITS)) if bits else 0
+    widths = [bits // n + (i < bits % n) for i in range(n)]
+    return [(sum(widths[:i]), w) for i, w in enumerate(widths)]
 
 
-def _check_sorted_keys(keys, owners):
+def key_mix(keys: torch.Tensor) -> torch.Tensor:
+    """((h1 * 0x9E3779B1) ^ h0) * 0x85EBCA6B mod 2^32 of keys (h0 << 32)
+    | h1, as int64 values in [0, 2^32)."""
+    h0, h1 = split_keys(keys)
+    return _mulmod32(_mulmod32(h1, _MIX_A) ^ h0, _MIX_B)
+
+
+def bucket_of(keys: torch.Tensor, bits: int) -> torch.Tensor:
+    """The bucket of each key: the top `bits` bits of key_mix. The raw
+    key bits would not do: bit 0 of h_r is the parity of the row's sum
+    of (code + 1), and short rows have small hashes (a 1-nt row's keys
+    are 1..4 and 0), so raw top bits put them all in bucket 0. Equal keys
+    share a bucket."""
+    if bits == 0:
+        return torch.zeros_like(keys)
+    return key_mix(keys) >> (32 - bits)
+
+
+def partition_reference(keys, owners, bits: int):
+    """(keys, owners, bucket_ends): the (key, owner) pairs stably
+    partitioned by bucket_of(keys, bits), and each bucket's inclusive
+    end ([2^bits] int64). The plain version of partition."""
+    bucket = bucket_of(keys, bits)
+    order = torch.argsort(bucket, stable=True)
+    ends = torch.cumsum(torch.bincount(bucket, minlength=1 << bits), dim=0)
+    return keys[order], owners[order], ends
+
+
+def _check_keys(keys, owners):
     if keys.dim() != 1 or keys.dtype != torch.int64:
         raise ValueError("keys must be an [m] int64 tensor")
     if owners.dtype != torch.int32 or owners.shape != keys.shape:
         raise ValueError("owners must be an [m] int32 tensor")
     if keys.device != owners.device:
         raise ValueError("keys and owners must share a device")
+    if keys.device.type == "cuda" and not (keys.is_contiguous()
+                                           and owners.is_contiguous()):
+        raise ValueError("the kernels take contiguous keys and owners")
 
 
-def join_count(keys, owners) -> torch.Tensor:
-    """[m] int32 pairs each element of the sorted keys makes with the
-    earlier elements of its run."""
-    _check_sorted_keys(keys, owners)
+def partition(keys, owners, bits: int):
+    """(keys, owners, bucket_ends) as partition_reference gives them,
+    in place: the input tensors are rewritten and returned (on the card
+    one scratch pair of their size is the other buffer of each pass).
+    On the card: per pass a count kernel, torch.cumsum, a scatter
+    kernel; then the bounds kernel."""
+    _check_keys(keys, owners)
     m = keys.numel()
     if keys.device.type == "cpu":
-        elem, _ = _join_links(keys, owners)
-        return torch.bincount(elem, minlength=m).to(torch.int32)
+        pkeys, powners, ends = partition_reference(keys, owners, bits)
+        keys.copy_(pkeys)
+        owners.copy_(powners)
+        return keys, owners, ends
+    if m >= 1 << 31:
+        raise ValueError("the partition takes fewer than 2^31 keys")
+    if bits == 0 or m == 0:
+        return keys, owners, torch.full((1 << bits,), m, dtype=torch.int64,
+                                        device=keys.device)
     from .._build import load
 
-    keys, owners = keys.contiguous(), owners.contiguous()
-    counts = torch.empty(m, dtype=torch.int32, device=keys.device)
+    lib = load()
+    n_tiles = -(-m // lib.swarm_d1_partition_tile())
+    src, dst = (keys, owners), (torch.empty_like(keys),
+                                torch.empty_like(owners))
+    stream = _stream(keys)
     with torch.cuda.device(keys.device):
-        err = load().swarm_d1_join_count(
-            keys.data_ptr(), owners.data_ptr(), m, counts.data_ptr(),
-            _stream(keys))
-    if m:
-        _raise_on(err, "d1_join")
-    return counts
+        for shift, width in digit_passes(bits):
+            counts = torch.empty((1 << width) * n_tiles, dtype=torch.int32,
+                                 device=keys.device)
+            _raise_on(lib.swarm_d1_partition_count(
+                src[0].data_ptr(), m, bits, shift, width, counts.data_ptr(),
+                stream), "d1_partition")
+            ends = torch.cumsum(counts, dim=0, dtype=torch.int32)
+            del counts
+            _raise_on(lib.swarm_d1_partition_scatter(
+                src[0].data_ptr(), src[1].data_ptr(), m, bits, shift, width,
+                ends.data_ptr(), dst[0].data_ptr(), dst[1].data_ptr(),
+                stream), "d1_partition")
+            src, dst = dst, src
+        del dst, ends
+        bucket_ends = torch.empty(1 << bits, dtype=torch.int64,
+                                  device=keys.device)
+        _raise_on(lib.swarm_d1_partition_bounds(
+            keys.data_ptr(), m, bits, bucket_ends.data_ptr(), stream),
+            "d1_partition")
+    return keys, owners, bucket_ends
 
 
-def join_emit(keys, owners, ends, total: int) -> torch.Tensor:
-    """[total] int64 candidate pairs of the sorted keys in the kernel's
-    order (join_pairs_reference); `ends` is the inclusive int64 cumsum of
-    join_count, `total` its last value."""
-    _check_sorted_keys(keys, owners)
+def _join_links(keys, owners):
+    """(element, predecessor) index pairs of keys in any order: every two
+    elements with equal keys and different owners, ordered by element,
+    then by predecessor from the nearest back."""
     m = keys.numel()
-    if ends.dtype != torch.int64 or ends.shape != (m,):
-        raise ValueError("ends must be an [m] int64 tensor")
+    dev = keys.device
+    if m == 0:
+        empty = torch.zeros(0, dtype=torch.int64, device=dev)
+        return empty, empty
+    skeys, perm = torch.sort(keys, stable=True)
+    pos = torch.arange(m, device=dev)
+    new = torch.ones(m, dtype=torch.bool, device=dev)
+    new[1:] = skeys[1:] != skeys[:-1]
+    depth = pos - torch.cummax(torch.where(new, pos, 0), dim=0).values
+    at = torch.repeat_interleave(pos, depth)  # once a predecessor
+    back = torch.arange(at.numel(), device=dev) - (
+        torch.cumsum(depth, dim=0) - depth)[at] + 1
+    elem, pred = perm[at], perm[at - back]
+    keep = owners[elem] != owners[pred]
+    elem, pred = elem[keep], pred[keep]
+    order = torch.argsort(elem, stable=True)  # nearest back first within
+    return elem[order], pred[order]
+
+
+def join_pairs_reference(keys, owners) -> torch.Tensor:
+    """[P] int64 candidate pairs (a << 32) | b, a < b, of keys in any
+    order: one for every two slots with equal keys whose owners differ,
+    ordered by slot, then by the other slot from the nearest back. A pair
+    of rows that share several keys comes once for each. Counterpart of
+    swarm_tpu's join_pairs without its caps and window."""
+    elem, pred = _join_links(keys, owners)
+    a, b = owners[elem].long(), owners[pred].long()
+    return torch.minimum(a, b) * (1 << 32) + torch.maximum(a, b)
+
+
+def _check_partitioned(keys, owners, bucket_ends):
+    """partition's output: on the CPU also its values (every key in the
+    bucket whose span holds it)."""
+    _check_keys(keys, owners)
+    nb = bucket_ends.numel()
+    if bucket_ends.dim() != 1 or bucket_ends.dtype != torch.int64 or \
+            nb & (nb - 1) or bucket_ends.device != keys.device:
+        raise ValueError("bucket_ends must be a [2^bits] int64 tensor "
+                         "beside the keys")
+    if keys.device.type == "cpu":
+        at = torch.searchsorted(bucket_ends, torch.arange(keys.numel()),
+                                right=True)
+        if int(bucket_ends[-1]) != keys.numel() or not torch.equal(
+                bucket_of(keys, nb.bit_length() - 1), at):
+            raise ValueError("the keys are not partitioned by bucket_ends")
+
+
+def join_buckets_reference(keys, owners, bucket_ends) -> torch.Tensor:
+    """[P] int64 candidate pairs of partitioned keys in the kernel's
+    order: within each bucket, each element in partition order pairs
+    with every earlier element of its key and another owner, nearest back
+    first. A bucket holds every element of its keys, so that is the
+    order of join_pairs_reference over the whole partition. The plain
+    version of join_pairs."""
+    _check_partitioned(keys, owners, bucket_ends)
+    return join_pairs_reference(keys, owners)
+
+
+def join_cap() -> int:
+    """Elements of a bucket that the join kernel holds in shared memory
+    (csrc/d1_join.cu: kJoinCap); a bigger bucket takes the kernel's
+    oversized variant. Builds the kernels."""
+    from .._build import load
+
+    return load().swarm_d1_join_cap()
+
+
+def join_count(keys, owners, bucket_ends):
+    """(counts, record): counts [2^bits] int64, the pairs of each bucket
+    of partitioned keys; record, what the emit pass reads of the count
+    pass on the card (the elements of repeated keys and their links,
+    [m] int32, and their number a bucket, [2^bits] int32), None on the
+    CPU."""
+    _check_partitioned(keys, owners, bucket_ends)
+    nb = bucket_ends.numel()
+    if keys.device.type == "cpu":
+        elem, _ = _join_links(keys, owners)
+        return torch.bincount(torch.searchsorted(bucket_ends, elem,
+                                                 right=True),
+                              minlength=nb), None
+    from .._build import load
+
+    dev = keys.device
+    counts = torch.empty(nb, dtype=torch.int64, device=dev)
+    record = (torch.empty(keys.numel(), dtype=torch.int32, device=dev),
+              torch.empty(nb, dtype=torch.int32, device=dev))
+    with torch.cuda.device(dev):
+        err = load().swarm_d1_join_count(
+            keys.data_ptr(), owners.data_ptr(), bucket_ends.data_ptr(), nb,
+            counts.data_ptr(), record[0].data_ptr(), record[1].data_ptr(),
+            _stream(keys))
+    _raise_on(err, "d1_join")
+    return counts, record
+
+
+def join_emit(keys, owners, bucket_ends, record, ends,
+              total: int) -> torch.Tensor:
+    """[total] int64 candidate pairs of partitioned keys in the kernel's
+    order (join_buckets_reference); `record` is join_count's, `ends` the
+    inclusive cumsum of its counts, `total` their last value."""
+    _check_partitioned(keys, owners, bucket_ends)
+    nb = bucket_ends.numel()
+    if ends.dtype != torch.int64 or ends.shape != (nb,):
+        raise ValueError("ends must be a [2^bits] int64 tensor")
     if keys.device.type == "cpu":
         pairs = join_pairs_reference(keys, owners)
         if pairs.numel() != total:
-            raise ValueError(f"total {total} is not the run's {pairs.numel()}")
+            raise ValueError(f"total {total} is not the keys' {pairs.numel()}")
         return pairs
+    links, n_listed = record
+    if links.shape != keys.shape or n_listed.shape != (nb,) or \
+            links.dtype != torch.int32 or n_listed.dtype != torch.int32:
+        raise ValueError("record must be join_count's of these keys")
     from .._build import load
 
-    keys, owners = keys.contiguous(), owners.contiguous()
     pairs = torch.empty(total, dtype=torch.int64, device=keys.device)
     if total == 0:
         return pairs
     with torch.cuda.device(keys.device):
         err = load().swarm_d1_join_emit(
-            keys.data_ptr(), owners.data_ptr(), m,
+            keys.data_ptr(), owners.data_ptr(), bucket_ends.data_ptr(), nb,
+            links.data_ptr(), n_listed.data_ptr(),
             ends.contiguous().data_ptr(), pairs.data_ptr(), _stream(keys))
     _raise_on(err, "d1_join")
     return pairs
 
 
-def join_pairs(keys, owners) -> torch.Tensor:
-    """Candidate pairs of sorted keys: join_count, torch.cumsum, one
+def join_pairs(keys, owners, bucket_ends) -> torch.Tensor:
+    """Candidate pairs of partitioned keys: join_count, torch.cumsum, one
     readback of the total, join_emit."""
-    ends, total = _cumsum_total(join_count(keys, owners))
-    return join_emit(keys, owners, ends, total)
+    counts, record = join_count(keys, owners, bucket_ends)
+    ends, total = _cumsum_total(counts)
+    return join_emit(keys, owners, bucket_ends, record, ends, total)
 
 
 def _popcount32(v):
@@ -590,12 +761,12 @@ def verify_pairs(words, row_word, lengths, pairs) -> torch.Tensor:
 
 
 class SortJoinNeighborEngine:
-    """Whole-database d=1 network by one global sort-join on `device`
+    """Whole-database d=1 network by a partitioned join on `device`
     (None: cuda:0, raising without it), for rows of any mix of lengths.
 
     start() copies the code arena to the device as it is and enqueues
     the keygen's count pass, which packs the rows in the ragged layout;
-    build_network() reads the key count back and runs keygen, sort,
+    build_network() reads the key count back and runs keygen, partition,
     join, dedup and verify on the device, then the host finish. With
     SWARM_TPU_TIMING set it writes a `[timing] d1 join` line a phase,
     the device synchronised between phases.
@@ -665,12 +836,11 @@ class SortJoinNeighborEngine:
         keys, owners = keygen_emit(words, row_word, lengths, ends,
                                    int(ends[-1]))
         t0 = self._phase("keygen emit", t0)
-        keys, order = torch.sort(keys)
-        owners = torch.take(owners, order)
-        del order
-        t0 = self._phase("sort", t0)
-        cand = join_pairs(keys, owners)
-        del keys, owners
+        keys, owners, bucket_ends = partition(keys, owners,
+                                              bucket_bits(keys.numel()))
+        t0 = self._phase("partition", t0)
+        cand = join_pairs(keys, owners, bucket_ends)
+        del keys, owners, bucket_ends
         t0 = self._phase("join", t0)
         uniq = torch.unique_consecutive(torch.sort(cand).values)
         good = uniq[verify_pairs(words, row_word, lengths, uniq)]

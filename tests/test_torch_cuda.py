@@ -290,7 +290,12 @@ def test_device_aligner_on_card_matches_cpu(cloud_aligner):
 # ---- the d=1 sort-join kernels (csrc/d1_join.cu) -------------------------
 
 D1_CASES = ["edge_rows", "insertion_run", "ragged_edge_rows", "one_row",
-            "gen_corpus", "mixed_corpus"]
+            "gen_corpus", "mixed_corpus", "long_insertion_run"]
+
+#: an insertion run whose 2,105 equal keys outgrow the join's
+#: shared-memory tile (kJoinCap = 2,048): its bucket takes the kernel's
+#: oversized variant
+LONG_RUN = 700
 
 
 def _d1_db(tmp_path, case):
@@ -302,6 +307,7 @@ def _d1_db(tmp_path, case):
         return read_db(tmp_path / "c.fasta")
     rows = {"edge_rows": d1_edge_rows, "insertion_run": insertion_run,
             "ragged_edge_rows": ragged_edge_rows,
+            "long_insertion_run": lambda: insertion_run(length=LONG_RUN),
             "one_row": lambda: [np.array([1, 1, 0, 3], np.uint8)]}[case]()
     return make_db(tmp_path, rows_records(rows))
 
@@ -344,20 +350,26 @@ def test_d1_kernels_match_reference(tmp_path, cuda_device, case):
     assert torch.equal(keys, want_keys)
     assert torch.equal(owners, want_owners)
 
-    skeys, order = torch.sort(keys)
-    sowners = torch.take(owners, order)
-    pairs = sj.join_pairs(skeys, sowners)
+    bits = sj.bucket_bits(keys.numel())
+    want_keys, want_owners, want_ends = sj.partition_reference(
+        keys, owners, bits)
+    pkeys, powners, ends = sj.partition(keys, owners, bits)
+    pairs = sj.join_pairs(pkeys, powners, ends)
     torch.cuda.synchronize()
-    assert torch.equal(sj.join_count(skeys, sowners),
-                       torch.bincount(sj._join_links(skeys, sowners)[0],
-                                      minlength=skeys.numel()).int())
-    assert torch.equal(pairs, sj.join_pairs_reference(skeys, sowners))
+    assert torch.equal(pkeys, want_keys) and torch.equal(powners, want_owners)
+    assert torch.equal(ends, want_ends)
+    assert torch.equal(pairs, sj.join_buckets_reference(pkeys, powners, ends))
+    assert torch.equal(sj.join_count(pkeys, powners, ends)[0], torch.bincount(
+        torch.searchsorted(ends, sj._join_links(pkeys, powners)[0],
+                           right=True), minlength=ends.numel()))
 
     uniq = torch.unique(pairs)
     ok = sj.verify_pairs(words, row_word, lengths, uniq)
     want = sj.verify_ragged_reference(words, row_word, lengths, uniq)
     assert torch.equal(ok, want)
     assert sj.launches["d1_keygen"] == before["d1_keygen"] + 2
+    assert sj.launches["d1_partition"] == before["d1_partition"] + (
+        5 if bits else 0)
     assert sj.launches["d1_join"] == before["d1_join"] + 2 + int(
         pairs.numel() > 0)
     if case != "one_row":
@@ -418,6 +430,75 @@ def test_d1_wrappers_refuse_what_the_kernels_cannot_read(cuda_device):
         sj.verify_pairs(words[1:], row_word, lengths, pairs)
     with pytest.raises(ValueError, match="beside the rows"):
         sj.verify_pairs(words[:16], row_word, lengths, pairs.cpu())
+
+
+def _partition_input(case, device):
+    """(keys, owners, bits) on the card: random keys with many equal ones
+    (empty buckets at 2^12 buckets), or one run of 5,000 equal keys
+    among 40,000 others (a bucket over the join's tile)."""
+    rng = np.random.default_rng(31)
+    if case == "random":
+        keys = rng.integers(-300, 300, 20_000) * (1 << 40) + rng.integers(
+            0, 4, 20_000)
+        owners = rng.integers(0, 5_000, 20_000)
+        bits = 12
+    else:
+        keys = np.concatenate([np.full(5_000, 12345), rng.integers(
+            0, 1 << 62, 40_000)])
+        owners = np.concatenate([np.arange(5_000), rng.integers(
+            0, 40_000, 40_000)])
+        order = rng.permutation(keys.size)
+        keys, owners = keys[order], owners[order]
+        bits = sj.bucket_bits(keys.size)
+    return (torch.from_numpy(keys.astype(np.int64)).to(device),
+            torch.from_numpy(owners.astype(np.int32)).to(device), bits)
+
+
+@pytest.mark.parametrize("case", ["random", "oversized"])
+def test_d1_partition_and_join_match_reference(cuda_device, case):
+    """The partition element for element and the join in its order,
+    against the plain versions; the same order on a second run."""
+    keys, owners, bits = _partition_input(case, cuda_device)
+    want = sj.partition_reference(keys, owners, bits)
+    got = sj.partition(keys.clone(), owners.clone(), bits)
+    again = sj.partition(keys.clone(), owners.clone(), bits)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, w)
+    sizes = torch.diff(want[2], prepend=want[2].new_zeros(1))
+    if case == "random":
+        assert int((sizes == 0).sum()) > 0
+    else:
+        assert int(sizes.max()) > sj.join_cap()
+    pairs = sj.join_pairs(*got)
+    assert torch.equal(pairs, sj.join_buckets_reference(*want))
+    assert torch.equal(pairs, sj.join_pairs(*again))
+    skeys, order = torch.sort(keys)
+    assert torch.equal(torch.sort(pairs).values, torch.sort(
+        sj.join_pairs_reference(skeys, owners[order])).values)
+
+
+def test_d1_partition_and_join_refuse_what_the_kernels_cannot_read(
+        cuda_device):
+    keys, owners, bits = _partition_input("random", cuda_device)
+    with pytest.raises(ValueError, match="int64"):
+        sj.partition(keys.int(), owners, bits)
+    with pytest.raises(ValueError, match="int32"):
+        sj.partition(keys, owners.long(), bits)
+    with pytest.raises(ValueError, match="share a device"):
+        sj.partition(keys, owners.cpu(), bits)
+    with pytest.raises(ValueError, match="contiguous"):
+        sj.partition(keys[::2], owners[::2], bits)
+    pkeys, powners, ends = sj.partition(keys, owners, bits)
+    with pytest.raises(ValueError, match="2\\^bits"):
+        sj.join_count(pkeys, powners, ends[:-1])
+    with pytest.raises(ValueError, match="2\\^bits"):
+        sj.join_count(pkeys, powners, ends.cpu())
+    with pytest.raises(ValueError, match="int64"):
+        sj.join_emit(pkeys, powners, ends, None, ends.int(), 0)
+    counts, record = sj.join_count(pkeys, powners, ends)
+    with pytest.raises(ValueError, match="record"):
+        sj.join_emit(pkeys, powners, ends, (record[0][1:], record[1]),
+                     torch.cumsum(counts, 0), int(counts.sum()))
 
 
 #: a row_word that starts row 1 inside row 0's words (not a multiple of 4)

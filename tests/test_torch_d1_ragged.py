@@ -224,8 +224,8 @@ def _verify_pairs(case, db):
     extra = rng.choice(len(a), size=min(300, len(a)), replace=False)
     if case == "mixed_corpus":
         keys, owners, _ = sj.deletion_keys(*_arena(db))
-        keys, order = torch.sort(keys)
-        cand = torch.unique(sj.join_pairs(keys, owners[order])).numpy()
+        cand = torch.unique(sj.join_pairs(*sj.partition(
+            keys, owners, sj.bucket_bits(keys.numel())))).numpy()
         pairs = np.unique(np.concatenate([cand, a[extra] << 32 | b[extra]]))
         return pairs >> 32, pairs & 0xFFFFFFFF
     L = db.lengths

@@ -7,7 +7,9 @@ swarm_tpu's, on the CPU, exactly (integers throughout):
 - verify: verify_dist1_packed against swarm_tpu's _verify_dist1_packed,
   the numpy oracle verify_dist1 and the port's native verify_dist1_pairs,
   and the wrapper on ragged rows;
-- join: the candidates against a brute-force set of equal-key pairs;
+- partition and join: the candidates against a brute-force set of
+  equal-key pairs (the kernels' emulations and swarm_tpu's join_pairs:
+  tests/test_torch_d1_partition.py);
 - the engine: SortJoinNeighborEngine(db, "cpu").build_network against
   swarm_tpu's engine and against the port's native d1_network;
 - the dispatch of NeighborIndex between the native builder and the
@@ -17,7 +19,7 @@ The CUDA kernels (csrc/d1_join.cu) cannot run here, so numpy
 emulations of their arithmetic (the count pass's trips of four chunks
 with its ballots and OR-reductions that pack the words, the keygen's
 warp schedule with its lane powers, shuffle scans and ballots, the
-join's walk back, the verify's single pass with its funnel shift and
+verify's single pass with its funnel shift and
 its look-ahead bound to the row's own words) are held against the plain
 versions on the same cases; tests/test_torch_cuda.py holds the kernels
 themselves against the plain versions on the card. The ragged rows of
@@ -233,22 +235,6 @@ def emulate_keygen(words, row_word, lengths):
             np.array(owners))
 
 
-def emulate_join(keys, owners):
-    """(counts, pairs) as d1_join_kernel computes them on sorted keys."""
-    counts, pairs = [], []
-    for i in range(len(keys)):
-        cnt = 0
-        j = i - 1
-        while j >= 0 and keys[j] == keys[i]:
-            if owners[j] != owners[i]:
-                a, b = sorted((int(owners[i]), int(owners[j])))
-                pairs.append(a << 32 | b)
-                cnt += 1
-            j -= 1
-        counts.append(cnt)
-    return np.array(counts), np.array(pairs, dtype=np.int64)
-
-
 def emulate_verify(words, row_word, lengths, a, b):
     """The flags of d1_verify_kernel: each row read from its own start,
     the single pass with f (first unshifted difference) and g (last
@@ -438,23 +424,28 @@ def test_verify_dist1_packed_equals_jax_and_oracles(case):
 # ---- join -----------------------------------------------------------------
 
 def _join_input(case):
-    """Sorted (keys, owners): random keys from a small set of values
-    (negative ones too), runs with repeated owners, or one long run."""
+    """(keys, owners) in keygen order: random keys from a small set of
+    values (negative ones too), runs with repeated owners, or one long
+    run."""
     rng = np.random.default_rng(int(case[-1]) if case[-1].isdigit() else 9)
     if case == "long_run":
         keys = np.concatenate([np.full(125, -5), rng.integers(0, 9, 40)])
         owners = np.concatenate([np.arange(125), rng.integers(0, 160, 40)])
+        order = rng.permutation(len(keys))
+        keys, owners = keys[order], owners[order]
     else:
         m = 400
         keys = rng.integers(-30, 30, size=m) * (1 << 40) + rng.integers(
             0, 3, size=m)
         owners = rng.integers(0, 150, size=m)
-    order = np.argsort(keys, kind="stable")
-    return keys[order].astype(np.int64), owners[order].astype(np.int32)
+    return keys.astype(np.int64), owners.astype(np.int32)
 
 
 @pytest.mark.parametrize("case", ["seed0", "seed1", "seed2", "long_run"])
 def test_join_pairs_equal_brute_force(case):
+    """partition, then join_pairs: the candidates are the equal-key pairs
+    of brute force, in the kernel's order (test_torch_d1_partition.py
+    emulates the kernels), with every bucket count."""
     keys, owners = _join_input(case)
     want = sorted(
         min(int(owners[i]), int(owners[j])) << 32
@@ -462,13 +453,13 @@ def test_join_pairs_equal_brute_force(case):
         for i in range(len(keys)) for j in range(i)
         if keys[i] == keys[j] and owners[i] != owners[j])
     tk, to = torch.from_numpy(keys), torch.from_numpy(owners)
-    got = sj.join_pairs(tk, to)
-    assert sorted(got.tolist()) == want
-    e_counts, e_pairs = emulate_join(keys, owners)
-    np.testing.assert_array_equal(got.numpy(), e_pairs)  # the kernel's order
-    np.testing.assert_array_equal(sj.join_count(tk, to).numpy(), e_counts)
-    np.testing.assert_array_equal(
-        sj.join_pairs_reference(tk, to).numpy(), e_pairs)
+    for bits in (0, 2, 6):
+        pk, po, ends = sj.partition(tk.clone(), to.clone(), bits)
+        got = sj.join_pairs(pk, po, ends)
+        assert sorted(got.tolist()) == want
+        assert torch.equal(got, sj.join_buckets_reference(pk, po, ends))
+        assert int(sj.join_count(pk, po, ends)[0].sum()) == len(want)
+    assert sorted(sj.join_pairs_reference(tk, to).tolist()) == want
     if case == "long_run":
         assert len(want) >= 125 * 124 // 2
 
