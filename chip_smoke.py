@@ -43,7 +43,21 @@ final line:
    parent's grouping step, d1_partition's library call) with both peaks
    of device memory, the plain versions, and the arena's copy to the
    card from pageable and from pinned memory;
-5. main paths through swarm_tpu_torch.main.run, each with a warm-up
+5. the graft kernels graft_keygen (count and emit), graft_join and
+   graft_verify against their plain versions on the card, exactly (keys
+   and payloads, pairs in the kernel's order and counts a bucket, flags
+   and each light row's smallest heavy one, the small side's tiles as
+   graft_join's count pass sorts them), with the sides partitioned by
+   d1_partition, and the engine against the native host join: on ragged
+   edge rows (1 to 5,003 nt), a run of 4,204 rows sharing a variant (a
+   light bucket over the join's 2,048-element tile), an empty side, and
+   the sides that a `-d 1 -f` run of each fastidious corpus hands the
+   engine, which are also timed (each kernel's passes, the plain
+   versions, d1_partition of both sides, and torch.sort + torch.take of
+   both sides' keys as the join's library yardstick); graft_join also on
+   skewed buckets (small ones of ~3 tiles against big ones of ~50,000
+   keys), timed;
+6. main paths through swarm_tpu_torch.main.run, each with a warm-up
    run, then one timed run with every kernel's launch count set to 0
    before it and read after it, then the port's native C engine
    (SWARM_TPU_D2_ENGINE=native at d >= 2, SWARM_TPU_D1_NATIVE_MAX above
@@ -59,7 +73,17 @@ final line:
      -w` and d1_mixed_1m (mixed_length_corpus of 1,000,000 amplicons of
      ~60 to ~5,000 nt, ~187 nt a row) with `-d 1 -o -s -i`: the d=1
      partitioned-join engine on ragged rows, kernels d1_keygen,
-     d1_partition, d1_join and d1_verify.
+     d1_partition, d1_join and d1_verify;
+   - d1_fastidious_200k (fastidious_corpus of 200,000 amplicons of
+     ~150 nt, a quarter of them light satellites) and
+     d1_fastidious_asym_200k (the same clouds with ~4,000 light
+     satellites) with `-d 1 -f -y 12 -o -s -i` (bench.py's config 4 and
+     writers): the d=1 engine, then the device graft, kernels
+     graft_keygen, graft_join and graft_verify; the native oracle runs
+     the host graft join (SWARM_TPU_GRAFT_PROBE_MAX above its keys), and
+     so does one more run of the port, its d=1 engine on the card (the
+     -f path before the device graft), whose files must also equal the
+     oracle's.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and a C
@@ -69,9 +93,9 @@ To compare two versions of the port on one card, run each in turns:
 
     python3 chip_smoke.py --quick [--tree OTHER_CHECKOUT]
 
-runs only the timed kernel phases (2, 3 and 4 at their timed shapes) and
-the d2_100k, d2_device, d2_wide, d1_1m and d1_mixed_1m main paths of the
-package under OTHER_CHECKOUT
+runs only the timed kernel phases (2 to 5 at their timed shapes) and
+the d2_100k, d2_device, d2_wide, d1_1m, d1_mixed_1m and
+d1_fastidious_200k main paths of the package under OTHER_CHECKOUT
 (default: this checkout), and ends with one JSON line
 {"quick": {card, tree, kernels, main_paths}} instead of the two above.
 """
@@ -120,6 +144,12 @@ OPS_PER_JOIN_ELEMENT = 4
 #: digit, and its rank, once in each of two passes' two kernels
 OPS_PER_PARTITION_KEY = 16
 OPS_PER_VERIFY_WORD = 12
+#: the graft keygen (csrc/graft.cu) as written: a position costs ~100
+#: integer operations over its row's two walks (three table reads and
+#: three XOR scans of 64 bits, then six keys), ~15 a key; the verify a
+#: few a base compared
+OPS_PER_GRAFT_KEY = 15
+OPS_PER_GRAFT_BASE = 4
 
 
 def say(msg):
@@ -880,6 +910,364 @@ def phase_d1_kernels(dev, corpus, edges):
     return result
 
 
+def _graft_rows(db, dev):
+    """(words, row_word, lengths): the ragged rows as the graft engine
+    packs them on `dev` (the arena through d1_keygen's count pass)."""
+    from swarm_tpu_torch.ops import fastidious_torch as ft
+
+    return ft.GraftEngine(db, dev).packed_rows()
+
+
+def graft_check(name, db, heavy, light, dev, small_is_heavy=None):
+    """graft_keygen (count and emit, both sides), graft_join (the sides
+    partitioned by d1_partition into the same buckets; the small one's
+    tiles as its count pass sorts them) and graft_verify
+    (flags, each light row's smallest heavy one) against their plain
+    versions on the same card tensors, and the engine against the native
+    host join; returns the max_abs_err of each and the tensors. The
+    kernels take the side of fewer keys as the small one, as the engine
+    does, unless `small_is_heavy` says which."""
+    import numpy as np
+    import torch
+
+    from swarm_tpu_torch import _native
+    from swarm_tpu_torch.ops import fastidious_torch as ft
+    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
+
+    def err(got, want):
+        if got.shape != want.shape:
+            return float("inf")
+        return int((got.long() - want.long()).abs().max()) if got.numel() \
+            else 0
+
+    def key_err(got, want):  # the halves, each within int64's range
+        return max(err(a, b) for a, b in zip(sj.split_keys(got),
+                                             sj.split_keys(want)))
+
+    words, row_word, lengths = _graft_rows(db, dev)
+    zob_np = ft.make_zobrist_pair(int(db.lengths.max()))
+    zob = ft.zobrist_tensor(zob_np, dev)
+    zob_plain = ft.zobrist_tensor(zob_np, "cpu").to(dev)
+    lens = db.lengths.astype(np.int64)
+    if small_is_heavy is None:
+        small_is_heavy = (7 * lens[heavy] + 4).sum() <= \
+            (7 * lens[light] + 4).sum()
+    sides = []
+    e_keygen = 0
+    for amps in ((heavy, light) if small_is_heavy else (light, heavy)):
+        ids = torch.from_numpy(np.asarray(amps, dtype=np.int64)).to(dev)
+        counts = ft.keygen_count(words, row_word, lengths, ids)
+        ends, total = sj._cumsum_total(counts)
+        keys, pays = ft.keygen_emit(words, row_word, lengths, ids, zob, ends,
+                                    total)
+        want_keys, want_counts = ft.variant_keys_reference(
+            words, row_word, lengths, ids, zob_plain)
+        e_keygen = max(e_keygen, err(counts, want_counts),
+                       err(counts, ft.variant_counts_reference(
+                           words, row_word, lengths, ids)),
+                       key_err(keys, want_keys),
+                       err(pays, torch.arange(total, device=dev)))
+        del want_keys
+        sides.append([ids, ends, keys, pays])
+    (s_ids, s_ends, skeys, spays), (b_ids, b_ends, bkeys, bpays) = sides
+    bits = sj.bucket_bits(skeys.numel() + bkeys.numel())
+    skeys, spays, s_buckets = sj.partition(skeys, spays, bits)
+    bkeys, bpays, b_buckets = sj.partition(bkeys, bpays, bits)
+    unsorted = (skeys.clone(), spays.clone())
+    want_keys, want_pays = ft.sort_tiles_reference(skeys, spays, s_buckets)
+    pairs = ft.join_pairs(skeys, spays, s_buckets, bkeys, bpays, b_buckets)
+    e_join = max(key_err(skeys, want_keys), err(spays, want_pays),
+                 err(pairs, ft.join_reference(*unsorted, bkeys, bpays)),
+                 err(ft.join_count(skeys, spays, s_buckets, bkeys, b_buckets),
+                     ft.join_count_reference(skeys, bkeys, b_buckets)))
+    del want_keys, want_pays
+    best = torch.full((len(db),), 2**31 - 1, dtype=torch.int32, device=dev)
+    want_best = best.clone()
+    ok = ft.verify(words, row_word, lengths, s_ids, s_ends, b_ids, b_ends,
+                   pairs, small_is_heavy, best)
+    want_ok = ft.verify_reference(words, row_word, lengths, s_ids, s_ends,
+                                  b_ids, b_ends, pairs)
+    ft.best_reference(s_ids, s_ends, b_ids, b_ends, pairs[want_ok],
+                      small_is_heavy, want_best)
+    e_verify = max(err(ok, want_ok), err(best, want_best))
+    count, cand = ft.GraftEngine(db, dev).graft_candidates(heavy, light)
+    native = _native.graft_join(db.codes, db.offsets, db.lengths, len(db),
+                                heavy, light)
+    n_count, n_cand = native if native is not None else (
+        0, np.full(len(db), -1))
+    torch.cuda.synchronize()
+    sizes = torch.diff(s_buckets, prepend=s_buckets.new_zeros(1))
+    say(f"kernels graft {name}: rows={len(db)} heavy={len(heavy)} "
+        f"light={len(light)} small_side={'heavy' if small_is_heavy else 'light'}"
+        f" keys={skeys.numel()}+{bkeys.numel()} bucket_bits={bits} "
+        f"largest_small_bucket={int(sizes.max()) if sizes.numel() else 0} "
+        f"empty_small_buckets={int((sizes == 0).sum())} "
+        f"pairs={pairs.numel()} verified={int(ok.sum())} engine_count="
+        f"{count} native_count={n_count} max_abs_err keygen={e_keygen} "
+        f"join={e_join} verify={e_verify}")
+    if e_keygen or e_join or e_verify:
+        raise AssertionError(f"a graft kernel disagrees with its plain "
+                             f"version on {name}")
+    if count != n_count or not np.array_equal(cand, n_cand):
+        raise AssertionError(f"{name}: the graft engine disagrees with the "
+                             f"native join")
+    return {"graft_keygen": e_keygen, "graft_join": e_join,
+            "graft_verify": e_verify}, (words, row_word, lengths, zob,
+                                        small_is_heavy, sides, unsorted,
+                                        skeys, spays, s_buckets, bkeys,
+                                        bpays, b_buckets, pairs, ok)
+
+
+def _graft_sides(name, fasta, work):
+    """(db, heavy, light) that a `-d 1 -f` run of the port hands its graft
+    engine, by one run of the main path's flags."""
+    from swarm_tpu_torch.ops import fastidious_torch as ft
+
+    seen = []
+    real = ft.GraftEngine.graft_candidates
+
+    def capture(self, heavy, light):
+        seen.append((self.db, heavy, light))
+        return real(self, heavy, light)
+
+    ft.GraftEngine.graft_candidates = capture
+    try:
+        run_cli(MAIN_PATHS[name][2] + ["-l", "log.txt", str(fasta)],
+                work / f"{name}_sides")
+    finally:
+        ft.GraftEngine.graft_candidates = real
+    if len(seen) != 1:
+        raise AssertionError(f"{name}: the graft engine ran {len(seen)} "
+                             f"times")
+    return seen[0]
+
+
+def join_timed(name, max_abs_err, unsorted, s_buckets, bkeys, bpays,
+               b_buckets, extra=None, note=""):
+    """graft_join timed on partitioned sides, the small one as the
+    partition left it (`unsorted`): the count pass (which sorts the small
+    side's tiles: on fresh copies), the emit pass, the plain versions, and
+    the bound; returns the kernel's row of numbers (with `extra`)."""
+    import torch
+
+    from swarm_tpu_torch.ops import fastidious_torch as ft
+    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
+
+    copies = [tuple(x.clone() for x in unsorted) for _ in range(4)]
+    fresh = iter(copies)  # one for cuda_ms' warm-up call, three timed
+    jcount_ms = cuda_ms(lambda: ft.join_count(*next(fresh), s_buckets, bkeys,
+                                              b_buckets), 3)
+    skeys, spays = copies[-1]
+    del copies, fresh
+    resort_ms = cuda_ms(lambda: ft.join_count(skeys, spays, s_buckets, bkeys,
+                                              b_buckets), 10)
+    jends, n_pairs = sj._cumsum_total(ft.join_count(skeys, spays, s_buckets,
+                                                    bkeys, b_buckets))
+    jemit_ms = cuda_ms(lambda: ft.join_emit(skeys, spays, s_buckets, bkeys,
+                                            bpays, b_buckets, jends, n_pairs),
+                       10)
+    pairs = ft.join_emit(skeys, spays, s_buckets, bkeys, bpays, b_buckets,
+                         jends, n_pairs)
+    jplain_ms = cuda_ms(lambda: ft.join_reference(*unsorted, bkeys, bpays),
+                        1)
+    n_keys = skeys.numel() + bkeys.numel()
+    n_buckets = s_buckets.numel()
+    # each key of both sides and each bucket end read once; the payload of
+    # each key that pairs read once; each pair written once
+    paired = torch.unique(pairs >> 32).numel() + \
+        torch.unique(pairs & sj.MASK32).numel()
+    n_bytes = n_keys * 8 + 2 * n_buckets * 8 + paired * 4 + n_pairs * 8
+    bound_ms, bound_by = bound(n_bytes, OPS_PER_JOIN_ELEMENT * n_keys)
+    sizes = torch.diff(s_buckets, prepend=s_buckets.new_zeros(1))
+    b_sizes = torch.diff(b_buckets, prepend=b_buckets.new_zeros(1))
+    ms = jcount_ms + jemit_ms
+    library = (extra or {}).get("library_ms")
+    say(f"kernel graft_join timed {name}: keys={skeys.numel()}+"
+        f"{bkeys.numel()} buckets={n_buckets} largest_buckets="
+        f"{int(sizes.max())}+{int(b_sizes.max())} empty_small_buckets="
+        f"{int((sizes == 0).sum())} pairs={n_pairs} paired_keys={paired} "
+        f"count_ms={jcount_ms:.4f} (sorted tiles: {resort_ms:.4f}) "
+        f"emit_ms={jemit_ms:.4f} kernel_ms={ms:.4f} plain_ms={jplain_ms:.3f} "
+        + (f"library_ms={library:.3f} (torch.sort of both sides' int64 "
+           f"keys and torch.take of their payloads) " if library else "")
+        + f"{note + ' ' if note else ''}bytes={n_bytes} "
+        f"bound_ms={bound_ms:.4f} ({bound_by})")
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": jplain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "count_ms": jcount_ms, "count_sorted_ms": resort_ms,
+            "emit_ms": jemit_ms, "pairs": n_pairs, **(extra or {})}
+
+
+def graft_join_skewed(dev):
+    """graft_join on skewed buckets (SKEWED_JOIN): four buckets, each
+    small one several tiles, each big one tens of thousands of keys,
+    against its plain versions and timed; returns its row."""
+    import numpy as np
+    import torch
+
+    from swarm_tpu_torch.ops import fastidious_torch as ft
+    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
+
+    rng = np.random.default_rng(SKEWED_JOIN["seed"])
+    values = rng.integers(-(1 << 62), 1 << 62, SKEWED_JOIN["distinct"])
+    sides = []
+    for n in (SKEWED_JOIN["small"], SKEWED_JOIN["big"]):
+        keys = torch.from_numpy(values[rng.integers(0, values.size, n)])
+        sides.append(sj.partition(keys.to(dev), torch.arange(
+            n, dtype=torch.int32, device=dev), SKEWED_JOIN["bits"]))
+    (skeys, spays, s_buckets), (bkeys, bpays, b_buckets) = sides
+    unsorted = (skeys.clone(), spays.clone())
+    want_keys, want_pays = ft.sort_tiles_reference(skeys, spays, s_buckets)
+    pairs = ft.join_pairs(skeys, spays, s_buckets, bkeys, bpays, b_buckets)
+    want = ft.join_reference(*unsorted, bkeys, bpays)
+    torch.cuda.synchronize()
+    sizes = torch.diff(s_buckets, prepend=s_buckets.new_zeros(1))
+    ok = torch.equal(skeys, want_keys) and torch.equal(spays, want_pays) \
+        and torch.equal(pairs, want) and int(sizes.min()) > ft.JOIN_TILE
+    if not ok:
+        raise AssertionError("graft_join disagrees with its plain version "
+                             "on skewed buckets")
+    return join_timed("skewed_buckets", 0, unsorted, s_buckets, bkeys, bpays,
+                      b_buckets)
+
+
+def graft_timed(name, fasta, dev, work):
+    """The graft kernels against their plain versions on the sides a
+    main path's run gives them, and timed there; returns the three
+    kernels' rows of numbers."""
+    import torch
+
+    from swarm_tpu_torch.ops import fastidious_torch as ft
+    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
+
+    db, heavy, light = _graft_sides(name, fasta, work)
+    errs, (words, row_word, lengths, zob, small_is_heavy, sides, unsorted,
+           skeys, spays, s_buckets, bkeys, bpays, b_buckets, pairs, ok) = \
+        graft_check(name, db, heavy, light, dev)
+    (s_ids, s_ends, _, _), (b_ids, b_ends, _, _) = sides
+    n_keys = skeys.numel() + bkeys.numel()
+    bases = int(lengths[s_ids].long().sum() + lengths[b_ids].long().sum())
+    rows = s_ids.numel() + b_ids.numel()
+    row_words = int(sj.row_sizes(lengths[s_ids].long()).sum()
+                    + sj.row_sizes(lengths[b_ids].long()).sum())
+
+    def counts():
+        for ids in (s_ids, b_ids):
+            ft.keygen_count(words, row_word, lengths, ids)
+
+    def emits():
+        for ids, ends in ((s_ids, s_ends), (b_ids, b_ends)):
+            ft.keygen_emit(words, row_word, lengths, ids, zob, ends,
+                           int(ends[-1]))
+
+    zob_plain = ft.zobrist_tensor(ft.make_zobrist_pair(int(db.lengths.max())),
+                                  "cpu").to(dev)
+    count_ms = cuda_ms(counts, 10)
+    emit_ms = cuda_ms(emits, 5)
+    plain_ms = cuda_ms(lambda: [ft.variant_keys_reference(
+        words, row_word, lengths, ids, zob_plain) for ids in (s_ids, b_ids)],
+        1)
+    # each row's words, id, start, length and key end once; the table;
+    # each key and its payload written once
+    n_bytes = 4 * row_words + rows * (8 + 8 + 4 + 8) + zob.numel() * 4 + \
+        n_keys * 12
+    bound_ms, bound_by = bound(n_bytes, OPS_PER_GRAFT_KEY * n_keys)
+    say(f"kernel graft_keygen timed {name}: rows={rows} bases={bases} "
+        f"keys={n_keys} count_ms={count_ms:.4f} emit_ms={emit_ms:.4f} "
+        f"kernel_ms={count_ms + emit_ms:.4f} plain_ms={plain_ms:.3f} "
+        f"bytes={n_bytes} bound_ms={bound_ms:.4f} ({bound_by})")
+    result = {"graft_keygen": {
+        "max_abs_err": errs["graft_keygen"], "ms": count_ms + emit_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "count_ms": count_ms, "emit_ms": emit_ms,
+        "keys": n_keys}}
+
+    part_ms = cuda_ms(lambda: [sj.partition(k.clone(), p.clone(),
+                                            s_buckets.numel().bit_length() - 1)
+                               for k, p in ((skeys, spays), (bkeys, bpays))],
+                      3)
+    all_keys, all_pays = torch.cat([skeys, bkeys]), torch.cat([spays, bpays])
+    sort_ms = cuda_ms(lambda: _sorted_keys(all_keys, all_pays), 3)
+    del all_keys, all_pays
+    result["graft_join"] = join_timed(
+        name, errs["graft_join"], unsorted, s_buckets, bkeys, bpays,
+        b_buckets, {"library_ms": sort_ms, "partition_ms": part_ms},
+        f"partition_ms={part_ms:.4f} (d1_partition of both sides)")
+    del unsorted
+
+    best = torch.empty(lengths.numel(), dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: ft.verify(words, row_word, lengths, s_ids, s_ends,
+                                   b_ids, b_ends, pairs, small_is_heavy,
+                                   best.fill_(2**31 - 1)), 10)
+    plain_ms = cuda_ms(lambda: ft.verify_reference(
+        words, row_word, lengths, s_ids, s_ends, b_ids, b_ends, pairs), 1)
+    s_amp, _ = ft.decode_payloads(s_ids, s_ends, pairs >> 32)
+    b_amp, _ = ft.decode_payloads(b_ids, b_ends, pairs & sj.MASK32)
+    read = torch.unique(torch.cat([s_amp, b_amp]))
+    compared = int(torch.minimum(lengths[s_amp], lengths[b_amp]).long().sum())
+    lights = torch.unique((b_amp if small_is_heavy else s_amp)[ok]).numel()
+    # each pair read and its flag written; each row a pair touches: its
+    # words, length, id and the two key ends around it; each light row's
+    # best written once
+    n_bytes = pairs.numel() * 9 + 4 * int(sj.row_sizes(
+        lengths[read].long()).sum()) + read.numel() * (4 + 8 + 16) + \
+        4 * lights
+    bound_ms, bound_by = bound(n_bytes, OPS_PER_GRAFT_BASE * compared)
+    say(f"kernel graft_verify timed {name}: pairs={pairs.numel()} "
+        f"rows_read={read.numel()} bases_compared={compared} "
+        f"verified={int(ok.sum())} kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+        f"bytes={n_bytes} bound_ms={bound_ms:.4f} ({bound_by})")
+    result["graft_verify"] = {
+        "max_abs_err": errs["graft_verify"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return result
+
+
+def phase_graft_kernels(dev, corpus, work, edges):
+    """The graft kernels against their plain versions (with `edges`, also
+    on the ragged edge rows, a long insertion run whose light bucket
+    outgrows the join's tile, and an empty side) and timed on the
+    fastidious corpora of `corpus`; returns the three kernels' rows
+    (d1_fastidious_200k's, with the asymmetric corpus' beside them)."""
+    import numpy as np
+
+    from swarm_tpu_torch.corpora import (
+        insertion_run, make_db, ragged_edge_rows, rows_records)
+
+    worst = dict.fromkeys(GRAFT_KERNELS, 0)
+    if edges:
+        with tempfile.TemporaryDirectory(prefix="graft_edges_") as tmp:
+            for case, rows, every in (
+                    ("ragged_edge_rows", ragged_edge_rows(), 2),
+                    ("long_insertion_run",
+                     insertion_run(length=LONG_GRAFT_RUN), 500),
+                    ("empty_side", insertion_run(), None)):
+                (Path(tmp) / case).mkdir()
+                db = make_db(Path(tmp) / case, rows_records(rows))
+                light = np.arange(len(db)) % every != 0 if every else \
+                    np.zeros(len(db), dtype=bool)
+                # the long run's light side as the small one: its bucket
+                # of 4,196 equal keys is walked over three tiles
+                errs, _ = graft_check(
+                    case, db, np.nonzero(~light)[0], np.nonzero(light)[0],
+                    dev, False if case == "long_insertion_run" else None)
+                worst = {k: max(worst[k], errs[k]) for k in worst}
+    result = graft_timed("d1_fastidious_200k", corpus["d1_fastidious_200k"],
+                         dev, work)
+    for kernel, row in result.items():
+        row["max_abs_err"] = max(row["max_abs_err"], worst[kernel])
+    if edges:
+        result["graft_join"]["skewed_buckets"] = graft_join_skewed(dev)
+    if "d1_fastidious_asym_200k" in corpus:
+        asym = graft_timed("d1_fastidious_asym_200k",
+                           corpus["d1_fastidious_asym_200k"], dev, work)
+        for kernel, row in result.items():
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     asym[kernel]["max_abs_err"])
+            row["d1_fastidious_asym_200k"] = asym[kernel]
+    return result
+
+
 def run_cli(argv, workdir, env=None):
     """One CLI run of the port in `workdir` with the variables of `env`
     set; returns (seconds, [timing] lines)."""
@@ -909,17 +1297,20 @@ def run_cli(argv, workdir, env=None):
 
 
 def kernel_counts():
-    from swarm_tpu_torch.ops import d2_diffs, neighbors_sortjoin, nw_scores
+    from swarm_tpu_torch.ops import (
+        d2_diffs, fastidious_torch, neighbors_sortjoin, nw_scores)
 
     return {"d2_diffs": d2_diffs.launches, **nw_scores.launches,
-            **neighbors_sortjoin.launches}
+            **neighbors_sortjoin.launches, **fastidious_torch.launches}
 
 
 def reset_kernel_counts():
-    from swarm_tpu_torch.ops import d2_diffs, neighbors_sortjoin, nw_scores
+    from swarm_tpu_torch.ops import (
+        d2_diffs, fastidious_torch, neighbors_sortjoin, nw_scores)
 
     d2_diffs.launches = 0
-    for counts in (nw_scores.launches, neighbors_sortjoin.launches):
+    for counts in (nw_scores.launches, neighbors_sortjoin.launches,
+                   fastidious_torch.launches):
         for name in counts:
             counts[name] = 0
 
@@ -928,9 +1319,10 @@ def phase_main_path(name, fasta, flags, work, env, kernels, native_env):
     """Warm-up run, then one timed run through the port with the
     variables of `env` set and every kernel's launch count set to 0
     before it and read after it; then the native engine's run (under
-    `native_env`), whose files the port's must equal byte for byte.
-    Returns the timed run's launch counts of `kernels`, its seconds, the
-    native engine's, and its [timing] lines."""
+    `native_env`), whose files the port's must equal byte for byte; for
+    a `-f` path also a run with the graft on the host join, whose files
+    must too. Returns the timed run's launch counts of `kernels`, its
+    seconds, the native engine's, and its [timing] lines."""
     import torch
 
     from swarm_tpu_torch import metrics
@@ -956,14 +1348,26 @@ def phase_main_path(name, fasta, flags, work, env, kernels, native_env):
     if flags[:2] == ["-d", "1"] and not any(
             ln.startswith("[timing] d1 join (cuda)") for ln in timing):
         raise AssertionError(f"{name}: the d=1 sort-join engine did not run")
+    if "-f" in flags and not any(ln.startswith("[timing] graft (cuda)")
+                                 for ln in timing):
+        raise AssertionError(f"{name}: the device graft did not run")
     for kernel in kernels:
         if counts[kernel] < 1:
             raise AssertionError(f"{name}: kernel {kernel} never launched")
     native_s, _ = run_cli(argv, work / f"{name}_native", native_env)
+    runs = [f"{name}_torch"]
+    host_graft = ""
+    if "-f" in flags:
+        # the same run with the graft on the host join (the port's -f
+        # path before the device graft), the d=1 engine on the card
+        host_graft_s, _ = run_cli(argv, work / f"{name}_host_graft", {
+            **env, "SWARM_TPU_GRAFT_PROBE_MAX": str(1 << 40)})
+        runs.append(f"{name}_host_graft")
+        host_graft = f"host_graft_s={host_graft_s:.3f} "
 
     say(f"main path {name}: n={n} engine={engine or 'auto'} "
         f"flags={' '.join(flags)} warmup_s={warm_s:.3f} warm_s={sec:.3f} "
-        f"native_engine_s={native_s:.3f} launches={counts} "
+        f"native_engine_s={native_s:.3f} {host_graft}launches={counts} "
         f"comparisons={comparisons} device_peak_bytes={peak}")
     if engine == "device":
         say(f"main path {name}: target lists that took the device="
@@ -971,14 +1375,15 @@ def phase_main_path(name, fasta, flags, work, env, kernels, native_env):
             f"MIN_DEVICE_BATCH={comparisons.get('d2_host_batches')}")
     for ln in timing:
         say(f"  {name} {ln}")
-    for out in outputs:
-        a = (work / f"{name}_torch" / out).read_bytes()
-        b = (work / f"{name}_native" / out).read_bytes()
-        if a != b or not a:
-            raise AssertionError(f"{name}: {out} differs from the native "
-                                 f"engine's ({len(a)} vs {len(b)} bytes)")
+    for run in runs:
+        for out in outputs:
+            a = (work / run / out).read_bytes()
+            b = (work / f"{name}_native" / out).read_bytes()
+            if a != b or not a:
+                raise AssertionError(f"{run}: {out} differs from the native "
+                                     f"engine's ({len(a)} vs {len(b)} bytes)")
     say(f"main path {name}: {len(outputs)} output files byte-identical "
-        f"to the native engine")
+        f"to the native engine's ({', '.join(runs)})")
     return {"launches": {k: counts[k] for k in kernels}, "warm_s": sec,
             "native_s": native_s, "device_peak_bytes": peak,
             "timing": timing}
@@ -1052,6 +1457,22 @@ D1_NATIVE = {"SWARM_TPU_D1_NATIVE_MAX": str(1 << 40)}
 #: beyond the join kernel's shared-memory tile (its oversized variant)
 LONG_RUN = 1500
 D1_KERNELS = ("d1_keygen", "d1_partition", "d1_join", "d1_verify")
+GRAFT_KERNELS = ("graft_keygen", "graft_join", "graft_verify")
+#: the native engines of -d 1 -f: the d=1 network and the host graft join
+GRAFT_NATIVE = {**D1_NATIVE, "SWARM_TPU_GRAFT_PROBE_MAX": str(1 << 40)}
+#: insertion_run(length=LONG_GRAFT_RUN): 4,204 rows that share a variant,
+#: all but every 500th light: a light bucket beyond the graft join's
+#: 2,048-element tile (its walk over several tiles)
+LONG_GRAFT_RUN = 1400
+#: graft_join's skewed buckets: random keys from `distinct` values in
+#: 2^bits buckets, each small bucket ~3 tiles of 2,048, each big one
+#: ~50,000 keys (a big-side bucket of homopolymer-rich reads against a
+#: small-side bucket beyond one tile)
+SKEWED_JOIN = {"seed": 20261017, "distinct": 6_000, "small": 24_000,
+               "big": 200_000, "bits": 2}
+#: bench.py's config 4 (d1_fastidious) and the writers
+FASTIDIOUS_FLAGS = ["-d", "1", "-f", "-y", "12", "-o", "out.txt", "-s",
+                    "stats.txt", "-i", "structure.txt"]
 
 #: name -> (corpus maker, its arguments, CLI flags, environment, kernels,
 #: environment of the native engine)
@@ -1084,6 +1505,13 @@ MAIN_PATHS = {
     "d1_mixed_1m": ("mixed_length_corpus", {"n": 1_000_000},
                     ["-d", "1", "-o", "out.txt", "-s", "stats.txt", "-i",
                      "structure.txt"], {}, D1_KERNELS, D1_NATIVE),
+    "d1_fastidious_200k": ("fastidious_corpus", {"n": 200_000},
+                           FASTIDIOUS_FLAGS, {}, D1_KERNELS + GRAFT_KERNELS,
+                           GRAFT_NATIVE),
+    "d1_fastidious_asym_200k": ("fastidious_corpus",
+                                {"n": 200_000, "satellites": 0.3},
+                                FASTIDIOUS_FLAGS, {},
+                                D1_KERNELS + GRAFT_KERNELS, GRAFT_NATIVE),
 }
 
 
@@ -1111,7 +1539,8 @@ def run_main_path(name, corpus, work):
                            native_env)
 
 
-QUICK_PATHS = ("d2_100k", "d2_device", "d2_wide", "d1_1m", "d1_mixed_1m")
+QUICK_PATHS = ("d2_100k", "d2_device", "d2_wide", "d1_1m", "d1_mixed_1m",
+               "d1_fastidious_200k")
 
 
 def run_quick(dev, work):
@@ -1120,6 +1549,7 @@ def run_quick(dev, work):
     rows = {"d2_diffs": phase_d2_diffs_at_scale(dev, corpus["d2_100k"])}
     rows.update(phase_nw_scores(dev, corpus["d2_device"]))
     rows.update(phase_d1_kernels(dev, corpus, edges=False))
+    rows.update(phase_graft_kernels(dev, corpus, work, edges=False))
     paths = {name: run_main_path(name, corpus, work) for name in QUICK_PATHS}
     return {"kernels": rows, "main_paths": paths}
 
@@ -1139,6 +1569,7 @@ def run_phases(dev, work):
     rows["banded_scores"]["max_abs_err"] = max(
         rows["banded_scores"]["max_abs_err"], phase_banded_scores_edges(dev))
     rows.update(phase_d1_kernels(dev, corpus, edges=True))
+    rows.update(phase_graft_kernels(dev, corpus, work, edges=True))
 
     launches = {}
     for name in MAIN_PATHS:
@@ -1147,6 +1578,7 @@ def run_phases(dev, work):
             launches.setdefault(kernel, count)  # the first path's count
 
     d1 = "swarm_tpu_torch/csrc/d1_join.cu"
+    graft = "swarm_tpu_torch/csrc/graft.cu"
     static = {
         "d2_diffs": ("swarm_tpu_torch/csrc/d2_diffs.cu",
                      "swarm_tpu/ops/pallas_d2_diffs.py:191"),
@@ -1159,6 +1591,11 @@ def run_phases(dev, work):
         "d1_partition": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:484"),
         "d1_join": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:416"),
         "d1_verify": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:337"),
+        # so were the graft's: keygen, the sort-join and the probe (both
+        # served by graft_join), the midpoint rebuild
+        "graft_keygen": (graft, "swarm_tpu/ops/fastidious_jax.py:582"),
+        "graft_join": (graft, "swarm_tpu/ops/fastidious_jax.py:626"),
+        "graft_verify": (graft, "swarm_tpu/ops/fastidious_jax.py:79"),
     }
     return [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches[name], **rows[name]}

@@ -1037,13 +1037,14 @@ def _graft_join_once(codes, offsets, lengths, n, heavy_ids, light_ids):
     return int(cnt), graft_cand
 
 
-#: table-side key ceiling for the asymmetric probe join: keeps the
-#: open-addressing table (2 x keys x 8 B) and bitset inside the cache
-#: hierarchy, where a probe costs nanoseconds; past it the radix
-#: sort-join's sequential passes win. Env override for tuning.
-GRAFT_PROBE_MAX_TABLE_KEYS = int(
-    os.environ.get("SWARM_TPU_GRAFT_PROBE_MAX", str(2 << 20))
-)
+def graft_probe_max_table_keys() -> int:
+    """Table-side key ceiling for the asymmetric probe join: keeps the
+    open-addressing table (2 x keys x 8 B) and bitset inside the cache
+    hierarchy, where a probe costs nanoseconds; past it the radix
+    sort-join's sequential passes win. SWARM_TPU_GRAFT_PROBE_MAX
+    overrides it, read at each call. models/d1.py gives the graft to the
+    device engine above it."""
+    return int(os.environ.get("SWARM_TPU_GRAFT_PROBE_MAX", str(2 << 20)))
 
 
 def _graft_probe_once(codes, offsets, lengths, n, heavy_ids, light_ids):
@@ -1084,7 +1085,7 @@ def graft_join(codes, offsets, lengths, n, heavy_ids, light_ids):
     lengths_arr = np.asarray(lengths)
     hk = int((7 * lengths_arr[np.asarray(heavy_ids, dtype=np.int64)] + 4).sum())
     lk = int((7 * lengths_arr[np.asarray(light_ids, dtype=np.int64)] + 4).sum())
-    if 0 < min(hk, lk) <= GRAFT_PROBE_MAX_TABLE_KEYS:
+    if 0 < min(hk, lk) <= graft_probe_max_table_keys():
         res = _graft_probe_once(codes, offsets, lengths, n, heavy_ids, light_ids)
         if res is not None:
             return res

@@ -26,6 +26,10 @@ run on the card and a run on the CPU see the same sequences.
 - ``mixed_length_corpus``: gen_corpus' clouds around centres of mixed
   lengths (V4, V3-V4, full-length 16S, long reads, and centres on JAX's
   width-bucket edges): the d1_mixed_1m corpus.
+- ``fastidious_corpus``: gen_corpus' clouds (15 a centre) and
+  low-abundance satellites 2 and 3 edits from a cloud member, the light
+  swarms of a `-f` run: the d1_fastidious_200k (balanced) and
+  d1_fastidious_asym_200k (a few thousand light amplicons) corpora.
 - ``read_db``, ``make_db``: a corpus as a Db, read back through db_read.
 """
 
@@ -308,6 +312,95 @@ def mixed_length_corpus(path: Path, n: int, seed: int = 20260824) -> int:
             seen.add(key)
             records.append(b">m%d_%d\n%s\n" % (
                 len(records), abundance[len(records)], _ACGT[v].tobytes()))
+            if len(records) >= n:
+                break
+        if len(records) >= n:
+            break
+    order = rng.permutation(len(records))
+    with open(path, "wb") as fh:
+        fh.writelines(records[i] for i in order)
+    return len(records)
+
+
+def _apply_edits(v, count, pos, op, new, shift, min_len=10):
+    """v after `count` edits, the e-th at the fraction pos[e] of its
+    length: a substitution by shift[e] (op 0), a deletion (op 1, above
+    min_len) or an insertion of new[e]."""
+    for e in range(count):
+        p = int(pos[e] * len(v))
+        if op[e] == 0:
+            v = v.copy()
+            v[p] = (v[p] + shift[e]) % 4
+        elif op[e] == 1 and len(v) > min_len:
+            v = np.delete(v, p)
+        else:
+            v = np.insert(v, p, new[e])
+    return v
+
+
+#: members of a fastidious_corpus cloud, centre included
+FASTIDIOUS_CLOUD = 15
+
+
+def fastidious_corpus(path: Path, n: int, length: int = 150,
+                      satellites: float = 5.0,
+                      seed: int = 20260826) -> int:
+    """Amplicon clouds with light satellites; returns the count.
+
+    gen_corpus' clouds (a centre of length +- 8, each member 1-2 edits
+    from an earlier one, abundances 1..999), FASTIDIOUS_CLOUD members
+    each, and `satellites` satellites a cloud on average (the fraction
+    by a seeded draw a cloud): reads of abundance 1-2, 2 edits (3 in
+    5) or 3 edits (2 in 5) from a random member of their cloud. After
+    `-d 1` most satellites are light swarms of one read a few edits from
+    a heavy one: 5 a cloud make a quarter of the reads light (balanced
+    sides), 0.3 a cloud about 4,000 of 200,000 (a small light side).
+    Every random number is drawn in bulk; records are written in a
+    seeded random order.
+    """
+    rng = np.random.Generator(np.random.Philox(seed))
+    cloud = FASTIDIOUS_CLOUD
+    n_centers = int(n / (cloud + satellites)) + n // 1000 + 2
+    lengths = rng.integers(length - 8, length + 9, size=n_centers)
+    codes = rng.integers(0, 4, size=int(lengths.sum())).astype(np.uint8)
+    n_sat = (int(satellites) + (rng.random(n_centers) < satellites % 1)
+             ).astype(np.int64)
+    n_var = n_centers * (cloud - 1) + int(n_sat.sum())
+    parent, pos = rng.random(n_var), rng.random((n_var, 3))
+    n_edits = np.concatenate([
+        rng.integers(1, 3, size=n_centers * (cloud - 1)),
+        np.where(rng.random(int(n_sat.sum())) < 0.6, 2, 3)])
+    op = rng.integers(0, 3, size=(n_var, 3))
+    new = rng.integers(0, 4, size=(n_var, 3)).astype(np.uint8)
+    shift = rng.integers(1, 4, size=(n_var, 3)).astype(np.uint8)
+    abundance = rng.integers(1, 1000, size=n_centers * cloud)
+    sat_abundance = rng.integers(1, 3, size=int(n_sat.sum()))
+
+    seen, records = set(), []
+    t, s = 0, n_centers * (cloud - 1)  # next member's and satellite's draws
+    a = sa = 0
+    for centre, k in zip(np.split(codes, np.cumsum(lengths)[:-1]), n_sat):
+        members = [centre]
+        for _ in range(cloud - 1):
+            members.append(_apply_edits(
+                members[int(parent[t] * len(members))], n_edits[t], pos[t],
+                op[t], new[t], shift[t]))
+            t += 1
+        group = [(v, abundance[a + i]) for i, v in enumerate(members)]
+        a += cloud
+        for _ in range(k):
+            group.append((_apply_edits(
+                members[int(parent[s] * cloud)], n_edits[s], pos[s], op[s],
+                new[s], shift[s]), sat_abundance[sa]))
+            s += 1
+            sa += 1
+        for v, ab in group:
+            key = v.tobytes()
+            if key in seen:
+                continue
+            seen.add(key)
+            records.append(b">f%d_%d\n%s\n" % (len(records), ab,
+                                                _ACGT[v].tobytes()))
             if len(records) >= n:
                 break
         if len(records) >= n:

@@ -148,6 +148,8 @@
 
 #include <cstdint>
 
+#include "ragged_rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -155,7 +157,6 @@ constexpr uint32_t kR0 = 0x9E3779B1u;     // _POLY_R
 constexpr uint32_t kR1 = 0x85EBCA77u;
 constexpr uint32_t kRinv0 = 0x0E8B2F51u;  // kR0 * kRinv0 == 1 mod 2^32
 constexpr uint32_t kRinv1 = 0xB6C92F47u;
-constexpr uint32_t kOdd = 0x55555555u;    // low bit of every 2-bit field
 constexpr unsigned kFull = 0xFFFFFFFFu;   // every lane of a warp
 constexpr int kTrip = 128;                // bases of a count-and-pack trip
 
@@ -180,35 +181,8 @@ constexpr int kJoinSlots = 1 << kJoinSlotBits;  // 3/4 full at most
 constexpr size_t kJoinSmem = (size_t)kJoinCap * (8 + 4 + 4 + 4) +
                              (size_t)kJoinSlots * 4 + kJoinWarps * (8 + 4);
 
-// fields [0, k) of a word, for k of any sign
-__device__ __forceinline__ uint32_t field_mask(int k) {
-  return k >= 16 ? 0xFFFFFFFFu : k <= 0 ? 0u : (1u << (2 * k)) - 1u;
-}
-
-// one bit (the field's low bit) for every 2-bit field that is not zero
-__device__ __forceinline__ uint32_t nonzero_fields(uint32_t x) {
-  return (x | (x >> 1)) & kOdd;
-}
-
 __device__ __forceinline__ int64_t make_key(uint32_t h0, uint32_t h1) {
   return (int64_t)(((uint64_t)h0 << 32) | h1);
-}
-
-// words of a row of len bases: whole uint4s of 64 bases
-__device__ __forceinline__ int64_t row_size(int len) {
-  return 4 * (((int64_t)len + 63) / 64);
-}
-
-// row_word[row], after the layout's checks (see the note above)
-__device__ __forceinline__ int64_t row_start(const int64_t *row_word,
-                                             int64_t row, int64_t n, int len,
-                                             int64_t n_words) {
-  const int64_t start = row_word[row];
-  const int64_t end = start + row_size(len);
-  if (len < 0 || start < 0 || (start & 3) || end > n_words ||
-      (row == n - 1 && end != n_words))
-    __trap();
-  return start;
 }
 
 // r^lane for this lane, and r^32 (five squarings of r)

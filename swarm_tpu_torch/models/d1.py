@@ -208,7 +208,7 @@ def algo_d1_run(p: Parameters, db: Db, progress: Progress, device) -> None:
     # --- network phase: batched variant hashing + join ---
     progress.init("Building network: ", n)
     edges_from, edges_to = index.build_network(
-        p.opt_no_cluster_breaking, abundances
+        p.opt_no_cluster_breaking, abundances, keep_rows=p.opt_fastidious
     )
     link_count = np.bincount(edges_from, minlength=n).astype(np.int64) if n else np.zeros(0, dtype=np.int64)
     link_start = np.zeros(n, dtype=np.int64)
@@ -419,10 +419,27 @@ def _diff_cumsum(db: Db):
     return c
 
 
+def _device_graft(device, min_side_keys: int) -> bool:
+    """Whether -f's graft runs on the device engine. On a CUDA device it
+    does unless SWARM_TPU_GRAFT_PROBE_MAX is set: the H100 beat the host
+    join on every corpus measured, from 11 light reads up
+    (scripts/graft_dispatch.py). On the CPU, or with the variable set, it
+    does when the smaller side has more variant keys than that threshold
+    (default 2<<20, JAX's), and the host join serves below it."""
+    from .. import _native
+
+    if device.type == "cuda" and \
+            "SWARM_TPU_GRAFT_PROBE_MAX" not in os.environ:
+        return True
+    return min_side_keys > _native.graft_probe_max_table_keys()
+
+
 def _fastidious(p, db, progress, st, index, swarmcount, largest):
     log = p.logfile
     n = len(db)
     boundary = p.opt_boundary
+    # the d=1 engine's rows on the device, for the graft and no longer
+    rows, index.packed_rows = index.packed_rows, None
 
     log.write("\n")
     log.write("Results before fastidious processing:\n")
@@ -529,16 +546,30 @@ def _fastidious(p, db, progress, st, index, swarmcount, largest):
     # hashes; exact verification by comparing reconstructed midpoints.
     from .. import _native
 
-    # host paths (asymmetric probe / radix sort-join, see
-    # _native.graft_join); the python join below serves when the native
-    # join declines
-    native_res = _native.graft_join(
-        db.codes, db.offsets, db.lengths, n,
-        np.asarray(heavy_amps, dtype=np.int64),
-        np.asarray(light_amps, dtype=np.int64),
+    lengths_i64 = db.lengths.astype(np.int64)
+    min_side_keys = min(
+        int((7 * lengths_i64[heavy_amps] + 4).sum()),
+        int((7 * lengths_i64[light_amps] + 4).sum()),
     )
-    if native_res is not None:
-        graft_candidates, graft_cand = native_res
+    if _device_graft(index.device, min_side_keys):
+        # the device engine (ops/fastidious_torch.py) on the d=1
+        # engine's packed rows when it ran; it raises on any failure
+        from ..ops.fastidious_torch import GraftEngine
+
+        res = GraftEngine(db, index.device, rows).graft_candidates(
+            heavy_amps, light_amps
+        )
+    else:
+        # host paths (asymmetric probe / radix sort-join, see
+        # _native.graft_join); the python join below serves when the
+        # native join declines
+        res = _native.graft_join(
+            db.codes, db.offsets, db.lengths, n,
+            np.asarray(heavy_amps, dtype=np.int64),
+            np.asarray(light_amps, dtype=np.int64),
+        )
+    if res is not None:
+        graft_candidates, graft_cand = res
         graft_cand = np.where(graft_cand < 0, NO_SWARM, graft_cand)
     else:
         graft_candidates, graft_cand = _graft_join(

@@ -204,6 +204,10 @@ class NeighborIndex:
         self._engine = None
         self._padded = None
         self._zob = None
+        #: the d=1 engine's ragged rows on the device (words, row_word,
+        #: lengths) when build_network was asked to keep them (for -f's
+        #: graft, which takes them); else None
+        self.packed_rows = None
 
     # only the fastidious python join needs these; keep them lazy
     @property
@@ -243,11 +247,13 @@ class NeighborIndex:
         self._engine = SortJoinNeighborEngine(self.db, self.device)
         self._engine.start()
 
-    def build_network(self, no_break: bool, abundances: np.ndarray):
+    def build_network(self, no_break: bool, abundances: np.ndarray,
+                      keep_rows: bool = False):
         """Return (edges_from, edges_to): all pairs dist(a,b)==1 with the
         abundance rule applied (ab[a] >= ab[b] unless no_break), a != b.
 
-        Edge lists are returned sorted by (from, to).
+        Edge lists are returned sorted by (from, to). With keep_rows the
+        device engine's packed rows stay in self.packed_rows.
         """
         from .. import _native, metrics
 
@@ -265,7 +271,10 @@ class NeighborIndex:
 
         engine = self._engine or SortJoinNeighborEngine(self.db, self.device)
         self._engine = None
-        return engine.build_network(no_break, abundances)
+        edges = engine.build_network(no_break, abundances)
+        if keep_rows:
+            self.packed_rows = engine.packed_rows
+        return edges
 
 
 def _join(hashes, valid, sorted_hashes, order):

@@ -779,6 +779,8 @@ class SortJoinNeighborEngine:
             else torch.device(device)
         self._timing = bool(os.environ.get("SWARM_TPU_TIMING"))
         self._rows = None  # (words, row_word, lengths, ends of key counts)
+        #: (words, row_word, lengths) once build_network ran
+        self.packed_rows = None
 
     def _phase(self, name, t0):
         if not self._timing:
@@ -832,6 +834,7 @@ class SortJoinNeighborEngine:
         self.start()
         words, row_word, lengths, ends = self._rows
         self._rows = None
+        self.packed_rows = (words, row_word, lengths)
         t0 = time.perf_counter()
         keys, owners = keygen_emit(words, row_word, lengths, ends,
                                    int(ends[-1]))

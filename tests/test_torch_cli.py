@@ -268,6 +268,34 @@ def test_d1_sortjoin_engine(tmp_path, case):
         assert (tmp_path / "torch" / "network.txt").stat().st_size > 0
 
 
+#: both sides on their device graft, whatever the smaller side's keys:
+#: swarm_tpu's GraftEngine (JAX on the CPU here) and the port's
+#: GraftEngine; both read SWARM_TPU_GRAFT_PROBE_MAX, and only swarm_tpu
+#: reads SWARM_TPU_GRAFT (its sort or probe mode)
+GRAFT_ENGINE_ENV = {**D1_ENGINE_ENV, "SWARM_TPU_GRAFT_PROBE_MAX": "0"}
+
+
+def graft_fasta():
+    """Clouds of low abundance: 79 light swarms, 23 of them grafted."""
+    return amplicon_cloud(seed=777, n_centers=12, cloud_size=35, length=70,
+                          max_edits=4, max_abundance=8)
+
+
+@pytest.mark.parametrize("mode", ["sorted", "chunked"])
+def test_d1_fastidious_device_graft(tmp_path, mode):
+    """-d 1 -f with the device graft on both sides (JAX's in its sort
+    and its probe mode): every output and the log byte for byte, the
+    "Got N graft candidates" line included."""
+    flags = ["-d", "1", "-f", "-o", "out.txt", "-s", "stats.txt", "-i",
+             "structure.txt", "-l", "log.txt"]
+    got = compare(tmp_path, flags, graft_fasta(),
+                  extra_env={**GRAFT_ENGINE_ENV, "SWARM_TPU_GRAFT": mode})
+    assert got.returncode == 0, got.stderr
+    log = (tmp_path / "torch" / "log.txt").read_bytes()
+    assert int(re.search(rb"Made (\d+) grafts", log).group(1)) > 0
+    assert int(re.search(rb"Got (\d+) graft candidates", log).group(1)) > 0
+
+
 def mixed_lengths_fasta():
     """Amplicon clouds of 60-80 nt and two reads of 900 and 960 nt with
     three single edits each: a corpus that swarm_tpu gives its

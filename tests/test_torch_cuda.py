@@ -18,6 +18,7 @@ from swarm_tpu_torch.corpora import (
     chain_corpus,
     d1_edge_rows,
     dense_cloud_corpus,
+    fastidious_corpus,
     gen_corpus,
     insertion_run,
     make_db,
@@ -29,6 +30,7 @@ from swarm_tpu_torch.corpora import (
     score_edge_cases,
 )
 from swarm_tpu_torch.ops import d2_diffs as torch_diffs
+from swarm_tpu_torch.ops import fastidious_torch as ft
 from swarm_tpu_torch.ops import neighbors_sortjoin as sj
 from swarm_tpu_torch.ops import nw_scores
 from swarm_tpu_torch.ops.d2_diffs import (
@@ -533,3 +535,250 @@ def test_d1_kernels_trap_on_a_layout_that_does_not_fit(cuda_device, start,
              "PYTHONPATH": str(Path(__file__).resolve().parent.parent)})
     assert r.returncode != 0
     assert b"CUDA error" in r.stderr or b"AcceleratorError" in r.stderr
+
+
+# ---- the fastidious graft kernels (csrc/graft.cu) -------------------------
+
+GRAFT_CASES = ["ragged_edge_rows", "insertion_run", "fastidious_corpus",
+               "empty_side", "long_insertion_run"]
+
+#: an insertion run of 4,204 rows sharing one variant (the row they are
+#: insertions of): all but every 500th row light, a light bucket beyond
+#: the join's shared-memory tile (ft.JOIN_TILE = 2,048) against 9 heavy
+#: rows
+LONG_GRAFT_RUN = 1400
+
+
+def _graft_case(tmp_path, case):
+    """(db, heavy, light) of a case: every other row light on the short
+    rows cases, all but every 500th on long_insertion_run, a quarter
+    light at random on the corpus, no light row on empty_side."""
+    if case == "fastidious_corpus":
+        fastidious_corpus(tmp_path / "c.fasta", n=3000, seed=7)
+        db = read_db(tmp_path / "c.fasta")
+        light = np.random.default_rng(7).random(len(db)) < 0.25
+    else:
+        rows = {"ragged_edge_rows": ragged_edge_rows,
+                "insertion_run": insertion_run, "empty_side": insertion_run,
+                "long_insertion_run": lambda: insertion_run(
+                    length=LONG_GRAFT_RUN)}[case]()
+        db = make_db(tmp_path, rows_records(rows))
+        light = np.arange(len(db)) % (
+            500 if case == "long_insertion_run" else 2) != 0
+        if case == "empty_side":
+            light[:] = False
+    return db, np.nonzero(~light)[0], np.nonzero(light)[0]
+
+
+def _graft_rows(db, device):
+    """(words, row_word, lengths): the ragged rows on the device, packed
+    by d1_keygen's count pass, as GraftEngine packs them."""
+    return ft.GraftEngine(db, device).packed_rows()
+
+
+@pytest.mark.parametrize("case", GRAFT_CASES)
+def test_graft_kernels_match_reference(tmp_path, cuda_device, case):
+    """graft_keygen (counts, keys, payloads), graft_join (the small
+    side's tiles as the count pass sorts them, pairs in the kernel's
+    order, counts a bucket)
+    and graft_verify (flags, each light row's smallest heavy one) against
+    their plain versions on the same card tensors; the partition between
+    them is d1_partition."""
+    db, heavy, light = _graft_case(tmp_path, case)
+    words, row_word, lengths = _graft_rows(db, cuda_device)
+    zob_np = ft.make_zobrist_pair(int(db.longest))
+    zob = ft.zobrist_tensor(zob_np, cuda_device)
+    zob_plain = ft.zobrist_tensor(zob_np, "cpu").to(cuda_device)
+    before = dict(ft.launches)
+    sides = []
+    for amps in (light, heavy):  # the light side as the small one
+        ids = torch.from_numpy(amps.astype(np.int64)).to(cuda_device)
+        counts = ft.keygen_count(words, row_word, lengths, ids)
+        ends, total = sj._cumsum_total(counts)
+        keys, pays = ft.keygen_emit(words, row_word, lengths, ids, zob, ends,
+                                    total)
+        torch.cuda.synchronize()
+        want_keys, want_counts = ft.variant_keys_reference(
+            words, row_word, lengths, ids, zob_plain)
+        assert torch.equal(counts.long(), want_counts)
+        assert torch.equal(counts, ft.variant_counts_reference(
+            words, row_word, lengths, ids))
+        assert torch.equal(keys, want_keys)
+        assert torch.equal(pays.long(), torch.arange(total,
+                                                     device=cuda_device))
+        sides.append((ids, ends, keys, pays))
+    (s_ids, s_ends, skeys, spays), (b_ids, b_ends, bkeys, bpays) = sides
+    bits = sj.bucket_bits(skeys.numel() + bkeys.numel())
+    skeys, spays, s_buckets = sj.partition(skeys, spays, bits)
+    bkeys, bpays, b_buckets = sj.partition(bkeys, bpays, bits)
+    want_pairs = ft.join_reference(skeys, spays, bkeys, bpays)
+    want_keys, want_pays = ft.sort_tiles_reference(skeys, spays, s_buckets)
+    pairs = ft.join_pairs(skeys, spays, s_buckets, bkeys, bpays, b_buckets)
+    torch.cuda.synchronize()
+    join_launches = ft.launches["graft_join"] - before["graft_join"]
+    assert torch.equal(skeys, want_keys) and torch.equal(spays, want_pays)
+    assert torch.equal(pairs, want_pairs)
+    assert torch.equal(ft.join_count(skeys, spays, s_buckets, bkeys,
+                                     b_buckets),
+                       ft.join_count_reference(skeys, bkeys, b_buckets))
+    best = torch.full((len(db),), 2**31 - 1, dtype=torch.int32,
+                      device=cuda_device)
+    want_best = best.clone()
+    ok = ft.verify(words, row_word, lengths, s_ids, s_ends, b_ids, b_ends,
+                   pairs, False, best)
+    torch.cuda.synchronize()
+    want = ft.verify_reference(words, row_word, lengths, s_ids, s_ends,
+                               b_ids, b_ends, pairs)
+    ft.best_reference(s_ids, s_ends, b_ids, b_ends, pairs[want], False,
+                      want_best)
+    assert torch.equal(ok, want)
+    assert torch.equal(best, want_best)
+    sizes = torch.diff(s_buckets, prepend=s_buckets.new_zeros(1))
+    if case == "long_insertion_run":
+        assert int(sizes.max()) > ft.JOIN_TILE
+    n_keygen = 2 * sum(int(x.numel() > 0) for x in (s_ids, b_ids))
+    assert ft.launches["graft_keygen"] == before["graft_keygen"] + n_keygen
+    assert join_launches == 1 + int(pairs.numel() > 0)
+    assert ft.launches["graft_verify"] == before["graft_verify"] + int(
+        pairs.numel() > 0)
+    assert bool(want.any()) == (case != "empty_side")
+
+
+def test_graft_join_tile_is_the_kernels(cuda_device):
+    from swarm_tpu_torch._build import load
+
+    assert load().swarm_graft_join_tile() == ft.JOIN_TILE
+
+
+@pytest.mark.parametrize("strip_keys", [None, 5_000])
+@pytest.mark.parametrize("case", GRAFT_CASES[:4])
+def test_graft_engine_on_card_matches_native(tmp_path, cuda_device, case,
+                                             strip_keys):
+    """GraftEngine on the card against the native host join: count and
+    candidates, in one pass and in strips of the bigger side."""
+    db, heavy, light = _graft_case(tmp_path, case)
+    eng = ft.GraftEngine(db, cuda_device)
+    eng.MAX_STRIP_KEYS = strip_keys
+    count, cand = eng.graft_candidates(heavy, light)
+    want = _native.graft_join(db.codes, db.offsets, db.lengths, len(db),
+                              heavy, light)
+    want_count, want_cand = want if want is not None else (0, np.full(
+        len(db), -1))
+    assert count == want_count
+    np.testing.assert_array_equal(cand, want_cand)
+    assert (count > 0) == (case != "empty_side")
+
+
+def test_graft_dispatch_on_card_takes_the_device(tmp_path, cuda_device,
+                                                monkeypatch):
+    """-d 1 -f through main.run on the card: the device graft serves a
+    corpus whose smaller side is far under 2<<20 keys unless
+    SWARM_TPU_GRAFT_PROBE_MAX is set; the host join then serves; same
+    bytes."""
+    from swarm_tpu_torch.main import run
+
+    fastidious_corpus(tmp_path / "in.fasta", n=3000, seed=7)
+    calls = []
+    real = ft.GraftEngine.graft_candidates
+
+    def spy(self, heavy, light):
+        calls.append(self.device.type)
+        return real(self, heavy, light)
+
+    monkeypatch.setattr(ft.GraftEngine, "graft_candidates", spy)
+    out = {}
+    for probe_max in (None, str(1 << 40)):
+        if probe_max is None:
+            monkeypatch.delenv("SWARM_TPU_GRAFT_PROBE_MAX", raising=False)
+        else:
+            monkeypatch.setenv("SWARM_TPU_GRAFT_PROBE_MAX", probe_max)
+        work = tmp_path / str(probe_max)
+        work.mkdir()
+        monkeypatch.chdir(work)
+        assert run(["-d", "1", "-f", "-o", "out.txt", "-s", "stats.txt",
+                    "-l", "log.txt", "../in.fasta"], "swarm",
+                   device=cuda_device) == 0
+        out[probe_max] = [(work / f).read_bytes()
+                          for f in ("out.txt", "stats.txt", "log.txt")]
+    assert calls == ["cuda"]
+    assert out[None] == out[str(1 << 40)]
+    assert b"Made 0 grafts" not in out[None][2]
+
+
+def test_graft_wrappers_refuse_what_the_kernels_cannot_read(tmp_path,
+                                                            cuda_device):
+    db, heavy, light = _graft_case(tmp_path, "insertion_run")
+    words, row_word, lengths = _graft_rows(db, cuda_device)
+    ids = torch.from_numpy(light.astype(np.int64)).to(cuda_device)
+    zob_np = ft.make_zobrist_pair(int(db.longest))
+    zob = ft.zobrist_tensor(zob_np, cuda_device)
+    ends, total = sj._cumsum_total(ft.keygen_count(words, row_word, lengths,
+                                                   ids))
+    with pytest.raises(ValueError, match="int64"):
+        ft.keygen_count(words, row_word, lengths, ids.int())
+    with pytest.raises(ValueError, match="beside the rows"):
+        ft.keygen_count(words, row_word, lengths, ids.cpu())
+    with pytest.raises(ValueError, match="int32 table"):
+        ft.keygen_emit(words, row_word, lengths, ids,
+                       ft.zobrist_tensor(zob_np, "cpu").to(cuda_device),
+                       ends, total)
+    with pytest.raises(ValueError, match="2\\^31"):
+        ft.keygen_emit(words, row_word, lengths, ids, zob, ends, 1 << 31)
+    keys, pays = ft.keygen_emit(words, row_word, lengths, ids, zob, ends,
+                                total)
+    keys, pays, buckets = sj.partition(keys, pays, 2)
+    with pytest.raises(ValueError, match="same buckets"):
+        ft.join_pairs(keys, pays, buckets, keys, pays,
+                      torch.cat([buckets, buckets]))
+    best = torch.zeros(len(db), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="best"):
+        ft.verify(words, row_word, lengths, ids, ends, ids, ends,
+                  torch.zeros(1, dtype=torch.int64, device=cuda_device),
+                  True, best)
+
+
+#: a row_word whose row 1 lies past the words: the graft keygen traps
+GRAFT_TRAP_PROBE = """import torch
+from swarm_tpu_torch.ops import fastidious_torch as ft
+dev = torch.device("cuda", 0)
+words = torch.zeros(12, dtype=torch.int32, device=dev)
+lengths = torch.full((2,), 100, dtype=torch.int32, device=dev)
+row_word = torch.tensor([0, 8], device=dev)
+ids = torch.tensor([0, 1], device=dev)
+ft.keygen_count(words, row_word, lengths, ids)
+torch.cuda.synchronize()
+"""
+
+
+#: an emit pass given fewer pairs than the bucket holds (3): it traps
+GRAFT_JOIN_TRAP_PROBE = """import torch
+from swarm_tpu_torch.ops import fastidious_torch as ft
+dev = torch.device("cuda", 0)
+one = torch.tensor([1], device=dev)
+ft.join_emit(torch.ones(3, dtype=torch.int64, device=dev),
+             torch.arange(3, dtype=torch.int32, device=dev),
+             torch.tensor([3], device=dev), one, one.int(), one, one, 1)
+torch.cuda.synchronize()
+"""
+
+
+def _traps(probe):
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    r = subprocess.run(
+        [sys.executable, "-c", probe], capture_output=True,
+        timeout=300,
+        env={**__import__("os").environ,
+             "PYTHONPATH": str(Path(__file__).resolve().parent.parent)})
+    return r.returncode != 0 and (b"CUDA error" in r.stderr
+                                  or b"AcceleratorError" in r.stderr)
+
+
+def test_graft_kernels_trap_on_a_layout_that_does_not_fit(cuda_device):
+    assert _traps(GRAFT_TRAP_PROBE)
+
+
+def test_graft_join_traps_on_more_pairs_than_counted(cuda_device):
+    assert _traps(GRAFT_JOIN_TRAP_PROBE)

@@ -7,7 +7,8 @@ not drifted from swarm_tpu's.
 (b) in a running process: bin/swarm-torch for d = 0, 1, 2 on the CPU
     ends with neither jax nor swarm_tpu in sys.modules, d = 1 also with
     its sort-join engine forced (SWARM_TPU_D1_NATIVE_MAX=0), on a
-    uniform and on a mixed-length corpus;
+    uniform and on a mixed-length corpus, and -f with its device graft
+    forced (SWARM_TPU_GRAFT_PROBE_MAX=0);
 (c) the copies against the originals on seeded corpora: db_read and the
     native wrappers give the same arrays, the corpus generators the same
     records (the CLI cases of tests/test_torch_cli.py hold the outputs
@@ -151,6 +152,27 @@ def test_launcher_d1_engine_on_mixed_lengths_holds_no_jax(tmp_path):
     for name in ("out.txt", "stats.txt", "uclust.txt", "structure.txt",
                  "seeds.fasta"):
         assert (tmp_path / name).stat().st_size > 0
+
+
+def test_launcher_fastidious_device_graft_holds_no_jax(tmp_path):
+    """-d 1 -f with the device graft forced (SWARM_TPU_GRAFT_PROBE_MAX=0):
+    the graft engine runs (its [timing] lines show it) and imports
+    nothing of the JAX side."""
+    from test_torch_cli import graft_fasta
+
+    (tmp_path / "in.fasta").write_text(graft_fasta())
+    probe = LAUNCHER_PROBE.format(
+        launcher=str(REPO_ROOT / "bin" / "swarm-torch"))
+    r = subprocess.run(
+        [sys.executable, "-c", probe, "-d", "1", "-f", "-o", "out.txt", "-l",
+         "log.txt", "in.fasta"],
+        cwd=tmp_path, capture_output=True, timeout=300,
+        env={**os.environ, "SWARM_TORCH_DEVICE": "cpu",
+             "SWARM_TPU_D1_NATIVE_MAX": "0", "SWARM_TPU_GRAFT_PROBE_MAX": "0",
+             "SWARM_TPU_TIMING": "1", "PYTHONPATH": str(REPO_ROOT)})
+    assert r.returncode == 0, r.stderr.decode()
+    assert b"[timing] graft (cpu) verify" in r.stderr
+    assert b"Made 0 grafts" not in (tmp_path / "log.txt").read_bytes()
 
 
 # ---- (c) the copies against the originals -------------------------------
