@@ -45,18 +45,20 @@ final line:
    card from pageable and from pinned memory;
 5. the graft kernels graft_keygen (count and emit), graft_join and
    graft_verify against their plain versions on the card, exactly (keys
-   and payloads, pairs in the kernel's order and counts a bucket, flags
-   and each light row's smallest heavy one, the small side's tiles as
-   graft_join's count pass sorts them), with the sides partitioned by
-   d1_partition, and the engine against the native host join: on ragged
-   edge rows (1 to 5,003 nt), a run of 4,204 rows sharing a variant (a
-   light bucket over the join's 2,048-element tile), an empty side, and
+   and payloads; the join's counts and records a chunk, its pairs in the
+   kernel's order, both sides unwritten; flags and each light row's
+   smallest heavy one), with the sides partitioned by d1_partition, and
+   the engine against the native host join: on ragged edge rows (1 to
+   5,003 nt), a run of 4,204 rows sharing a variant (a light bucket
+   beyond the join's 1,024-element table, so tiled), an empty side, and
    the sides that a `-d 1 -f` run of each fastidious corpus hands the
-   engine, which are also timed (each kernel's passes, the plain
-   versions, d1_partition of both sides, and torch.sort + torch.take of
-   both sides' keys as the join's library yardstick); graft_join also on
-   skewed buckets (small ones of ~3 tiles against big ones of ~50,000
-   keys), timed;
+   engine, which are also timed (each kernel's passes, keygen's emit a
+   side, also with its total read back in each call, the plain versions,
+   d1_partition of both sides, and torch.sort + torch.take of both
+   sides' keys as the join's library yardstick); graft_join also on
+   skewed buckets (small ones of ~6 tables against big ones of ~50
+   chunks) and on random sides at the asymmetric corpus' scale (its
+   199 M big keys against 1 small key and against its 4.1 M), timed;
 6. main paths through swarm_tpu_torch.main.run, each with a warm-up
    run, then one timed run with every kernel's launch count set to 0
    before it and read after it, then the port's native C engine
@@ -918,10 +920,46 @@ def _graft_rows(db, dev):
     return ft.GraftEngine(db, dev).packed_rows()
 
 
+def join_check(skeys, spays, s_buckets, bkeys, bpays, b_buckets):
+    """(max_abs_err, pairs): graft_join's count pass (counts and records a
+    chunk) against join_record_reference, its pairs element for element
+    against join_reference, and neither side written."""
+    import torch
+
+    from swarm_tpu_torch.ops import fastidious_torch as ft
+    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
+
+    def err(got, want):
+        if got.shape != want.shape:
+            return float("inf")
+        return int((got - want).abs().max()) if got.numel() else 0
+
+    before = [x.clone() for x in (skeys, spays, bkeys, bpays)]
+    counts, record = ft.join_count(skeys, s_buckets, bkeys, b_buckets)
+    ends, total = sj._cumsum_total(counts)
+    pairs = ft.join_emit(spays, bpays, record, ends, total)
+    want_counts, want = ft.join_record_reference(skeys, s_buckets, bkeys,
+                                                 b_buckets)
+    e = torch.arange(bkeys.numel(), device=bkeys.device)
+    valid = e % ft.JOIN_CHUNK < want.n_rec.long()[e // ft.JOIN_CHUNK]
+    worst = max(err(counts, want_counts),
+                err(record.n_rec.long(), want.n_rec.long()),
+                max((err(a, b) for a, b in zip(
+                    sj.split_keys(record.rec[valid]),
+                    sj.split_keys(want.rec[valid]))), default=0),
+                max((err(a, b) for a, b in zip(
+                    sj.split_keys(pairs),
+                    sj.split_keys(ft.join_reference(skeys, spays, bkeys,
+                                                    bpays)))), default=0),
+                max(int(not torch.equal(x, y)) for x, y in zip(
+                    before, (skeys, spays, bkeys, bpays))))
+    return worst, pairs
+
+
 def graft_check(name, db, heavy, light, dev, small_is_heavy=None):
     """graft_keygen (count and emit, both sides), graft_join (the sides
-    partitioned by d1_partition into the same buckets; the small one's
-    tiles as its count pass sorts them) and graft_verify
+    partitioned by d1_partition into the same buckets; counts, records,
+    pairs, both sides unwritten) and graft_verify
     (flags, each light row's smallest heavy one) against their plain
     versions on the same card tensors, and the engine against the native
     host join; returns the max_abs_err of each and the tensors. The
@@ -973,14 +1011,8 @@ def graft_check(name, db, heavy, light, dev, small_is_heavy=None):
     bits = sj.bucket_bits(skeys.numel() + bkeys.numel())
     skeys, spays, s_buckets = sj.partition(skeys, spays, bits)
     bkeys, bpays, b_buckets = sj.partition(bkeys, bpays, bits)
-    unsorted = (skeys.clone(), spays.clone())
-    want_keys, want_pays = ft.sort_tiles_reference(skeys, spays, s_buckets)
-    pairs = ft.join_pairs(skeys, spays, s_buckets, bkeys, bpays, b_buckets)
-    e_join = max(key_err(skeys, want_keys), err(spays, want_pays),
-                 err(pairs, ft.join_reference(*unsorted, bkeys, bpays)),
-                 err(ft.join_count(skeys, spays, s_buckets, bkeys, b_buckets),
-                     ft.join_count_reference(skeys, bkeys, b_buckets)))
-    del want_keys, want_pays
+    e_join, pairs = join_check(skeys, spays, s_buckets, bkeys, bpays,
+                               b_buckets)
     best = torch.full((len(db),), 2**31 - 1, dtype=torch.int32, device=dev)
     want_best = best.clone()
     ok = ft.verify(words, row_word, lengths, s_ids, s_ends, b_ids, b_ends,
@@ -1013,9 +1045,9 @@ def graft_check(name, db, heavy, light, dev, small_is_heavy=None):
                              f"native join")
     return {"graft_keygen": e_keygen, "graft_join": e_join,
             "graft_verify": e_verify}, (words, row_word, lengths, zob,
-                                        small_is_heavy, sides, unsorted,
-                                        skeys, spays, s_buckets, bkeys,
-                                        bpays, b_buckets, pairs, ok)
+                                        small_is_heavy, sides, skeys, spays,
+                                        s_buckets, bkeys, bpays, b_buckets,
+                                        pairs, ok)
 
 
 def _graft_sides(name, fasta, work):
@@ -1042,51 +1074,55 @@ def _graft_sides(name, fasta, work):
     return seen[0]
 
 
-def join_timed(name, max_abs_err, unsorted, s_buckets, bkeys, bpays,
+def join_timed(name, max_abs_err, skeys, spays, s_buckets, bkeys, bpays,
                b_buckets, extra=None, note=""):
-    """graft_join timed on partitioned sides, the small one as the
-    partition left it (`unsorted`): the count pass (which sorts the small
-    side's tiles: on fresh copies), the emit pass, the plain versions, and
-    the bound; returns the kernel's row of numbers (with `extra`)."""
+    """graft_join timed on partitioned sides: the count pass, the emit
+    pass, the plain version, and the bound, with the items (chunks of the
+    big side) and the largest; returns the kernel's row of numbers (with
+    `extra`)."""
     import torch
 
     from swarm_tpu_torch.ops import fastidious_torch as ft
     from swarm_tpu_torch.ops import neighbors_sortjoin as sj
 
-    copies = [tuple(x.clone() for x in unsorted) for _ in range(4)]
-    fresh = iter(copies)  # one for cuda_ms' warm-up call, three timed
-    jcount_ms = cuda_ms(lambda: ft.join_count(*next(fresh), s_buckets, bkeys,
-                                              b_buckets), 3)
-    skeys, spays = copies[-1]
-    del copies, fresh
-    resort_ms = cuda_ms(lambda: ft.join_count(skeys, spays, s_buckets, bkeys,
+    jcount_ms = cuda_ms(lambda: ft.join_count(skeys, s_buckets, bkeys,
                                               b_buckets), 10)
-    jends, n_pairs = sj._cumsum_total(ft.join_count(skeys, spays, s_buckets,
-                                                    bkeys, b_buckets))
-    jemit_ms = cuda_ms(lambda: ft.join_emit(skeys, spays, s_buckets, bkeys,
-                                            bpays, b_buckets, jends, n_pairs),
-                       10)
-    pairs = ft.join_emit(skeys, spays, s_buckets, bkeys, bpays, b_buckets,
-                         jends, n_pairs)
-    jplain_ms = cuda_ms(lambda: ft.join_reference(*unsorted, bkeys, bpays),
-                        1)
-    n_keys = skeys.numel() + bkeys.numel()
+    counts, record = ft.join_count(skeys, s_buckets, bkeys, b_buckets)
+    jends, n_pairs = sj._cumsum_total(counts)
+    jemit_ms = cuda_ms(lambda: ft.join_emit(spays, bpays, record, jends,
+                                            n_pairs), 10)
+    pairs = ft.join_emit(spays, bpays, record, jends, n_pairs)
+    jplain_ms = cuda_ms(lambda: ft.join_reference(skeys, spays, bkeys,
+                                                  bpays), 1)
     n_buckets = s_buckets.numel()
-    # each key of both sides and each bucket end read once; the payload of
-    # each key that pairs read once; each pair written once
+    sizes = torch.diff(s_buckets, prepend=s_buckets.new_zeros(1))
+    b_sizes = torch.diff(b_buckets, prepend=b_buckets.new_zeros(1))
+    # each key of a bucket that both sides hold (no other key can pair)
+    # and each bucket end read once; the payload of each key that pairs
+    # read once; each pair written once
+    both = (sizes > 0) & (b_sizes > 0)
+    n_keys = int((sizes + b_sizes)[both].sum())
     paired = torch.unique(pairs >> 32).numel() + \
         torch.unique(pairs & sj.MASK32).numel()
     n_bytes = n_keys * 8 + 2 * n_buckets * 8 + paired * 4 + n_pairs * 8
     bound_ms, bound_by = bound(n_bytes, OPS_PER_JOIN_ELEMENT * n_keys)
-    sizes = torch.diff(s_buckets, prepend=s_buckets.new_zeros(1))
-    b_sizes = torch.diff(b_buckets, prepend=b_buckets.new_zeros(1))
+    # the items: chunks of the big side, each with the small span of the
+    # buckets it touches
+    first, last = ft.join_items(b_buckets, bkeys.numel())
+    span = s_buckets[last] - torch.where(
+        first > 0, s_buckets[(first - 1).clamp(min=0)], 0)
+    items, largest = first.numel(), int(span.max()) if first.numel() else 0
+    tiled = int((span > ft.JOIN_TILE).sum())
+    records = int(record.n_rec.long().sum())
     ms = jcount_ms + jemit_ms
     library = (extra or {}).get("library_ms")
     say(f"kernel graft_join timed {name}: keys={skeys.numel()}+"
         f"{bkeys.numel()} buckets={n_buckets} largest_buckets="
         f"{int(sizes.max())}+{int(b_sizes.max())} empty_small_buckets="
-        f"{int((sizes == 0).sum())} pairs={n_pairs} paired_keys={paired} "
-        f"count_ms={jcount_ms:.4f} (sorted tiles: {resort_ms:.4f}) "
+        f"{int((sizes == 0).sum())} items={items} (chunks of "
+        f"{ft.JOIN_CHUNK}) largest_item={ft.JOIN_CHUNK}+{largest} "
+        f"tiled_items={tiled} records={records} pairs={n_pairs} "
+        f"paired_keys={paired} count_ms={jcount_ms:.4f} "
         f"emit_ms={jemit_ms:.4f} kernel_ms={ms:.4f} plain_ms={jplain_ms:.3f} "
         + (f"library_ms={library:.3f} (torch.sort of both sides' int64 "
            f"keys and torch.take of their payloads) " if library else "")
@@ -1094,14 +1130,16 @@ def join_timed(name, max_abs_err, unsorted, s_buckets, bkeys, bpays,
         f"bound_ms={bound_ms:.4f} ({bound_by})")
     return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": jplain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "count_ms": jcount_ms, "count_sorted_ms": resort_ms,
-            "emit_ms": jemit_ms, "pairs": n_pairs, **(extra or {})}
+            "count_ms": jcount_ms, "emit_ms": jemit_ms, "pairs": n_pairs,
+            "items": items, "largest_item_small": largest,
+            "tiled_items": tiled, "records": records, **(extra or {})}
 
 
 def graft_join_skewed(dev):
     """graft_join on skewed buckets (SKEWED_JOIN): four buckets, each
-    small one several tiles, each big one tens of thousands of keys,
-    against its plain versions and timed; returns its row."""
+    small one beyond a table, each big one tens of thousands of keys
+    (tens of chunks), against its plain versions and timed; returns its
+    row."""
     import numpy as np
     import torch
 
@@ -1116,19 +1154,56 @@ def graft_join_skewed(dev):
         sides.append(sj.partition(keys.to(dev), torch.arange(
             n, dtype=torch.int32, device=dev), SKEWED_JOIN["bits"]))
     (skeys, spays, s_buckets), (bkeys, bpays, b_buckets) = sides
-    unsorted = (skeys.clone(), spays.clone())
-    want_keys, want_pays = ft.sort_tiles_reference(skeys, spays, s_buckets)
-    pairs = ft.join_pairs(skeys, spays, s_buckets, bkeys, bpays, b_buckets)
-    want = ft.join_reference(*unsorted, bkeys, bpays)
+    worst, _ = join_check(skeys, spays, s_buckets, bkeys, bpays, b_buckets)
     torch.cuda.synchronize()
     sizes = torch.diff(s_buckets, prepend=s_buckets.new_zeros(1))
-    ok = torch.equal(skeys, want_keys) and torch.equal(spays, want_pays) \
-        and torch.equal(pairs, want) and int(sizes.min()) > ft.JOIN_TILE
-    if not ok:
+    if worst or int(sizes.min()) <= ft.JOIN_TILE:
         raise AssertionError("graft_join disagrees with its plain version "
                              "on skewed buckets")
-    return join_timed("skewed_buckets", 0, unsorted, s_buckets, bkeys, bpays,
-                      b_buckets)
+    return join_timed("skewed_buckets", 0, skeys, spays, s_buckets, bkeys,
+                      bpays, b_buckets)
+
+
+def graft_join_random(dev):
+    """graft_join on random sides (RANDOM_JOIN) against its plain
+    versions and timed: the asymmetric cell's count of big keys against
+    one small key (the count pass with next to no table) and against its
+    count of small ones; returns their rows by name."""
+    import torch
+
+    from swarm_tpu_torch.ops import neighbors_sortjoin as sj
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(RANDOM_JOIN["seed"])
+
+    def draw(n):
+        return torch.randint(-(2**62), 2**62, (n,), device=dev, generator=g)
+
+    big = draw(RANDOM_JOIN["big"])
+    smalls = []
+    for n in RANDOM_JOIN["small"]:
+        keys = draw(n)
+        keys[:n // 100] = big[:n // 100]
+        smalls.append(keys)
+
+    def side(keys):
+        return sj.partition(keys, torch.arange(
+            keys.numel(), dtype=torch.int32, device=dev), RANDOM_JOIN["bits"])
+
+    bkeys, bpays, b_buckets = side(big)
+    rows = {}
+    for keys in smalls:
+        skeys, spays, s_buckets = side(keys)
+        name = f"random_{skeys.numel()}_small_{bkeys.numel()}_big"
+        worst, _ = join_check(skeys, spays, s_buckets, bkeys, bpays,
+                              b_buckets)
+        torch.cuda.synchronize()
+        if worst:
+            raise AssertionError(f"graft_join disagrees with its plain "
+                                 f"version on {name}")
+        rows[name] = join_timed(name, 0, skeys, spays, s_buckets, bkeys,
+                                bpays, b_buckets)
+    return rows
 
 
 def graft_timed(name, fasta, dev, work):
@@ -1141,8 +1216,8 @@ def graft_timed(name, fasta, dev, work):
     from swarm_tpu_torch.ops import neighbors_sortjoin as sj
 
     db, heavy, light = _graft_sides(name, fasta, work)
-    errs, (words, row_word, lengths, zob, small_is_heavy, sides, unsorted,
-           skeys, spays, s_buckets, bkeys, bpays, b_buckets, pairs, ok) = \
+    errs, (words, row_word, lengths, zob, small_is_heavy, sides, skeys,
+           spays, s_buckets, bkeys, bpays, b_buckets, pairs, ok) = \
         graft_check(name, db, heavy, light, dev)
     (s_ids, s_ends, _, _), (b_ids, b_ends, _, _) = sides
     n_keys = skeys.numel() + bkeys.numel()
@@ -1155,15 +1230,22 @@ def graft_timed(name, fasta, dev, work):
         for ids in (s_ids, b_ids):
             ft.keygen_count(words, row_word, lengths, ids)
 
-    def emits():
-        for ids, ends in ((s_ids, s_ends), (b_ids, b_ends)):
-            ft.keygen_emit(words, row_word, lengths, ids, zob, ends,
-                           int(ends[-1]))
+    def emit(ids, ends, total=None):
+        # total None: read back in each call, a synchronisation that puts
+        # the wrapper's host time in the reading
+        return lambda: ft.keygen_emit(
+            words, row_word, lengths, ids, zob, ends,
+            int(ends[-1]) if total is None else total)
 
     zob_plain = ft.zobrist_tensor(ft.make_zobrist_pair(int(db.lengths.max())),
                                   "cpu").to(dev)
     count_ms = cuda_ms(counts, 10)
-    emit_ms = cuda_ms(emits, 5)
+    # each side's emit, its total read before; then read back in each call
+    side_ms = [cuda_ms(emit(ids, ends, int(ends[-1])), 5)
+               for ids, ends in ((s_ids, s_ends), (b_ids, b_ends))]
+    synced_ms = [cuda_ms(emit(ids, ends), 5)
+                 for ids, ends in ((s_ids, s_ends), (b_ids, b_ends))]
+    emit_ms = sum(side_ms)
     plain_ms = cuda_ms(lambda: [ft.variant_keys_reference(
         words, row_word, lengths, ids, zob_plain) for ids in (s_ids, b_ids)],
         1)
@@ -1172,14 +1254,20 @@ def graft_timed(name, fasta, dev, work):
     n_bytes = 4 * row_words + rows * (8 + 8 + 4 + 8) + zob.numel() * 4 + \
         n_keys * 12
     bound_ms, bound_by = bound(n_bytes, OPS_PER_GRAFT_KEY * n_keys)
-    say(f"kernel graft_keygen timed {name}: rows={rows} bases={bases} "
-        f"keys={n_keys} count_ms={count_ms:.4f} emit_ms={emit_ms:.4f} "
-        f"kernel_ms={count_ms + emit_ms:.4f} plain_ms={plain_ms:.3f} "
-        f"bytes={n_bytes} bound_ms={bound_ms:.4f} ({bound_by})")
+    say(f"kernel graft_keygen timed {name}: rows={rows} "
+        f"({s_ids.numel()}+{b_ids.numel()}) bases={bases} keys={n_keys} "
+        f"({skeys.numel()}+{bkeys.numel()}) longest={int(db.lengths.max())} "
+        f"count_ms={count_ms:.4f} emit_ms={emit_ms:.4f} "
+        f"(small side {side_ms[0]:.4f}, big side {side_ms[1]:.4f}; with the "
+        f"total read back in each call {synced_ms[0]:.4f} + "
+        f"{synced_ms[1]:.4f}) kernel_ms={count_ms + emit_ms:.4f} "
+        f"plain_ms={plain_ms:.3f} bytes={n_bytes} "
+        f"bound_ms={bound_ms:.4f} ({bound_by})")
     result = {"graft_keygen": {
         "max_abs_err": errs["graft_keygen"], "ms": count_ms + emit_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "count_ms": count_ms, "emit_ms": emit_ms,
+        "emit_sides_ms": side_ms, "emit_synced_sides_ms": synced_ms,
         "keys": n_keys}}
 
     part_ms = cuda_ms(lambda: [sj.partition(k.clone(), p.clone(),
@@ -1190,10 +1278,9 @@ def graft_timed(name, fasta, dev, work):
     sort_ms = cuda_ms(lambda: _sorted_keys(all_keys, all_pays), 3)
     del all_keys, all_pays
     result["graft_join"] = join_timed(
-        name, errs["graft_join"], unsorted, s_buckets, bkeys, bpays,
+        name, errs["graft_join"], skeys, spays, s_buckets, bkeys, bpays,
         b_buckets, {"library_ms": sort_ms, "partition_ms": part_ms},
         f"partition_ms={part_ms:.4f} (d1_partition of both sides)")
-    del unsorted
 
     best = torch.empty(lengths.numel(), dtype=torch.int32, device=dev)
     ms = cuda_ms(lambda: ft.verify(words, row_word, lengths, s_ids, s_ends,
@@ -1226,7 +1313,7 @@ def graft_timed(name, fasta, dev, work):
 def phase_graft_kernels(dev, corpus, work, edges):
     """The graft kernels against their plain versions (with `edges`, also
     on the ragged edge rows, a long insertion run whose light bucket
-    outgrows the join's tile, and an empty side) and timed on the
+    outgrows the join's table, and an empty side) and timed on the
     fastidious corpora of `corpus`; returns the three kernels' rows
     (d1_fastidious_200k's, with the asymmetric corpus' beside them)."""
     import numpy as np
@@ -1247,7 +1334,7 @@ def phase_graft_kernels(dev, corpus, work, edges):
                 light = np.arange(len(db)) % every != 0 if every else \
                     np.zeros(len(db), dtype=bool)
                 # the long run's light side as the small one: its bucket
-                # of 4,196 equal keys is walked over three tiles
+                # of 4,196 equal keys spans five tables, linked across
                 errs, _ = graft_check(
                     case, db, np.nonzero(~light)[0], np.nonzero(light)[0],
                     dev, False if case == "long_insertion_run" else None)
@@ -1258,6 +1345,7 @@ def phase_graft_kernels(dev, corpus, work, edges):
         row["max_abs_err"] = max(row["max_abs_err"], worst[kernel])
     if edges:
         result["graft_join"]["skewed_buckets"] = graft_join_skewed(dev)
+        result["graft_join"]["random_sides"] = graft_join_random(dev)
     if "d1_fastidious_asym_200k" in corpus:
         asym = graft_timed("d1_fastidious_asym_200k",
                            corpus["d1_fastidious_asym_200k"], dev, work)
@@ -1462,14 +1550,19 @@ GRAFT_KERNELS = ("graft_keygen", "graft_join", "graft_verify")
 GRAFT_NATIVE = {**D1_NATIVE, "SWARM_TPU_GRAFT_PROBE_MAX": str(1 << 40)}
 #: insertion_run(length=LONG_GRAFT_RUN): 4,204 rows that share a variant,
 #: all but every 500th light: a light bucket beyond the graft join's
-#: 2,048-element tile (its walk over several tiles)
+#: 1,024-element table (taken in tiles, its chain linked across them)
 LONG_GRAFT_RUN = 1400
 #: graft_join's skewed buckets: random keys from `distinct` values in
-#: 2^bits buckets, each small bucket ~3 tiles of 2,048, each big one
-#: ~50,000 keys (a big-side bucket of homopolymer-rich reads against a
-#: small-side bucket beyond one tile)
+#: 2^bits buckets, each small bucket ~6,000 keys (~6 tables of 1,024),
+#: each big one ~50,000 (~49 chunks of 1,024): a big-side bucket of
+#: homopolymer-rich reads against a small-side bucket beyond one table
 SKEWED_JOIN = {"seed": 20261017, "distinct": 6_000, "small": 24_000,
                "big": 200_000, "bits": 2}
+#: random sides at d1_fastidious_asym_200k's scale: its big side's count
+#: of keys against 1 and against its small side's count, a hundredth of
+#: those drawn from the big side, in its 2^18 buckets
+RANDOM_JOIN = {"seed": 20261018, "big": 199_146_219,
+               "small": (1, 4_148_705), "bits": 18}
 #: bench.py's config 4 (d1_fastidious) and the writers
 FASTIDIOUS_FLAGS = ["-d", "1", "-f", "-y", "12", "-o", "out.txt", "-s",
                     "stats.txt", "-i", "structure.txt"]

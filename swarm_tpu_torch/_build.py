@@ -141,16 +141,17 @@ def load() -> ctypes.CDLL:
                 vp, i64, vp, vp, i64, vp, i64, vp, vp]
             lib.swarm_graft_keygen_emit.argtypes = [
                 vp, i64, vp, vp, i64, vp, i64, vp, i64, vp, vp, vp, vp]
-            lib.swarm_graft_join_count.argtypes = [vp, vp, vp, vp, vp, i64,
-                                                   vp, vp]
+            lib.swarm_graft_join_count.argtypes = [
+                vp, vp, vp, i64, vp, vp, vp, vp, vp, vp, vp, vp]
             lib.swarm_graft_join_emit.argtypes = [
-                vp, vp, vp, vp, vp, vp, i64, vp, vp, vp]
+                vp, vp, i64, vp, vp, vp, vp, vp, vp]
             lib.swarm_graft_verify.argtypes = [
                 vp, i64, vp, vp, i64, vp, vp, i64, vp, vp, i64, vp, i64, i32,
                 vp, vp, vp]
+            lib.swarm_graft_join_chunk.argtypes = []
             lib.swarm_graft_join_tile.argtypes = []
             for fn in ("keygen_count", "keygen_emit", "join_count",
-                       "join_emit", "verify", "join_tile"):
+                       "join_emit", "verify", "join_chunk", "join_tile"):
                 getattr(lib, f"swarm_graft_{fn}").restype = i32
             scores = [vp, i64, i64, vp, i64, vp, i32, i64, i32, i32, i32]
             lib.swarm_nw_banded_scores.argtypes = [*scores, i32, vp, vp]

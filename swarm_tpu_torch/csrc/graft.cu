@@ -11,7 +11,7 @@
 //   graft_sort3 (:614) and build_graft_table (:123)
 //                                        -> d1_partition (csrc/d1_join.cu),
 //                                           run on each side with the same
-//                                           bucket bits, and the tile sort
+//                                           bucket bits, and the hash table
 //                                           of graft_join_count_kernel
 //   graft_pairs3 (:626), _graft_probe_body (:154), graft_probe_all (:254)
 //                                        -> graft_join_count_kernel,
@@ -48,35 +48,79 @@
 // (a popcount of the 2-bit fields that differ from the field before,
 // 16 a word). Bytes: the row's words, its start and length.
 //
-// Keygen emit. One warp a row, lane = position in a chunk of 32. The
-// first walk XORs each lane's terms and one butterfly gives the row's
-// three totals: the hash, S_del = XOR_{q>=1} Z[q-1, x_q] and S_ins =
-// XOR_q Z[q+1, x_q]. The second walk takes XOR scans of the chunk's terms
-// (five shuffles of 64 bits each): a substitution at p is h ^ Z[p, x_p] ^
-// Z[p, o]; a deletion the prefix before p ^ the S_del terms after p; an
-// insertion after p the prefix through p ^ the S_ins terms after p ^
-// Z[p+1, o]. Deletions are placed by a ballot of the run starts. What
-// bounds it: bytes, 12 a key written (key and payload), against ~15
-// integer operations a key.
+// Keygen emit. One warp a row (a persistent grid: each warp takes rows
+// r, r + warps, ...), lane = position in a chunk of 32. The first walk
+// XORs each lane's terms and one butterfly gives the row's three totals:
+// the hash, S_del = XOR_{q>=1} Z[q-1, x_q] and S_ins = XOR_q Z[q+1, x_q].
+// The second walk takes XOR scans of the chunk's terms (five shuffles of
+// 64 bits each): a substitution at p is h ^ Z[p, x_p] ^ Z[p, o]; a
+// deletion the prefix before p ^ the S_del terms after p; an insertion
+// after p the prefix through p ^ the S_ins terms after p ^ Z[p+1, o].
+// What bounds it: bytes, 12 a key written (key and payload), against ~15
+// integer operations a key. The stores are what the design is about: a
+// chunk's 6 x 32 keys are staged in the warp's shared memory in slot
+// order and leave as 16-byte stores of consecutive addresses (a scalar
+// head where the chunk's span starts on an odd key, a scalar tail), where
+// each lane writing its own six keys at a 48-byte stride put one store
+// instruction over 48 sectors for 256 useful bytes; the deletions, placed
+// by a ballot of the run starts, are staged by rank and leave as one
+// contiguous store; the payloads, which are only the keys' own indices,
+// are written once a row as an iota of 16-byte stores (scalar head and
+// tail to the row's 4-key alignment), not six 4-byte stores a lane at a
+// 24-byte stride. The Zobrist table is read by __ldg where it lies: held
+// in shared memory (base-major, up to 1,536 rows) it was no faster on the
+// H100, as the stores bound the pass.
 //
-// Join. One block a bucket b. The count pass sorts each tile of
-// kJoinTile elements of the smaller side's bucket b in place by (key,
-// payload), once, with a bitonic network in shared memory (JAX's
-// build_graft_table sorted its small side): the side stays partitioned.
-// Then every element of the strip's bucket b finds its key in each tile by
-// a binary search and walks the equal keys: one pair (small payload << 32)
-// | strip payload for each, in the strip's partition order, then in the
-// small side's order as sorted (the partition's order, as keygen's
-// payloads rise with it). A bucket of one tile is searched in shared memory;
-// the tiles of a larger one where they lie, so no tile is sorted twice in
-// a pass. Same-side equal keys never meet (a bucket of one side is never
-// joined with itself), and a bucket that one side leaves empty costs one
-// read of its bounds. No window, cap or retry: a run of any length is
-// walked whole. The count pass writes each bucket's pairs; torch.cumsum
-// and one readback size the emit pass, which reads the sorted tiles,
-// repeats the walk and writes (more pairs than counted trap). What bounds
-// it: bytes, 8 a key of both sides read, 4 a payload of a key that pairs,
-// 8 a pair written.
+// Join. Pure: neither side is written. The items are chunks of kJoinChunk
+// consecutive elements of the bigger side as partitioned, so a big bucket
+// spreads over many chunks and small buckets come several to a chunk; the
+// buckets a chunk touches are found by one torch.searchsorted of the big
+// side's bucket ends (no readback). Keys of different buckets differ, so
+// one hash table serves every bucket of a chunk: the small side's
+// elements of those buckets (a contiguous span) go into a table in shared
+// memory by open addressing (linear probing from a mix of the key other
+// than the bucket's). An entry is a valid bit, a 21-bit fingerprint of
+// the key and the smallest element of its key (atomicCAS to claim,
+// atomicMin to lower), beside a count of its elements after the first,
+// so that a key that comes once, as most do, costs one atomic, and a
+// probe that misses reads one word a slot; a fingerprint that matches is
+// confirmed on the full 64-bit key. Each big key then probes the table
+// once. The count pass' blocks are persistent (as many as are resident),
+// block b taking chunks b, b + grid, ...: the spans of a batch of
+// kMetaBatch chunks are read at once, and the next chunk's big keys and
+// small span come to shared memory by 1-D bulk copies of the TMA
+// (cp.async.bulk into an mbarrier, two stages) while this one is probed,
+// the threads issuing no copy of their own; a chunk whose buckets hold no
+// small key is not read. A chunk that no key repeats in and that pairs
+// nothing costs three block barriers. A span beyond
+// kJoinTile elements is taken in tiles, each probed in turn; a key's
+// count sums over them and its head is its first element in the first
+// tile that holds it. The count pass leaves one record a big element that
+// pairs, at the chunk's own span of an [m_big] int64 array, compacted in
+// place order (a ballot and one exchange of warp counts): the key's first
+// small element, its count, its place. The block whose chunk holds a
+// bucket's first big element also links that bucket's small elements of a
+// repeated key, each to the next of its key in partition order (an
+// [m_small] int32 array; most keys come once and are never linked): the
+// elements to link are listed in order, and warp 0 walks the list from its
+// end in chunks of 32, __match_any_sync on the slot finding each
+// element's next among the chunk's lanes, else the key's last one seen. In
+// a span of several tiles every element of the block's own buckets is
+// linked, and a key's last element in a tile links to the smallest later
+// element of its key (an atomicMin over the later tiles' elements probed
+// against this tile's table). torch.cumsum of the chunks' counts and one
+// readback size the emit pass (one warp a chunk), which reads only the
+// records: a record's pairs are its small chain from the head (spay <<
+// 32) | bpay, in place order (a warp scan of the counts places them; more
+// pairs than counted trap), so the pairs come bucket by bucket, the big
+// elements in partition order, each with its small partners in partition
+// order: join_reference's order. The big side's keys are read once, by
+// the count pass. No window, cap or retry: a run of equal keys of any
+// length is walked whole. 64-bit equality has no use for the tensor
+// cores. What bounds it: bytes, 8 a key of both sides read, 4 a payload
+// of a key that pairs, 8 a pair written; on an H100 the count pass runs
+// at ~30% of that, held by each chunk's table work and barriers, not by
+// its reads (scripts/graft_ab.py times it without small keys).
 //
 // Verify. One thread a pair: each payload's row is found in its side's
 // ends (binary search), its slot decoded (a deletion's position is the
@@ -101,10 +145,35 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kStageKeys = 6 * 32 + 32;  // a chunk's keys, then its deletions
+
+// join: a block a chunk of the big side, tables of up to kJoinTile small
+// elements
 constexpr int kJoinThreads = 256;
 constexpr int kJoinWarps = kJoinThreads / 32;
-constexpr int kJoinTile = 2048;  // small-side elements a tile
+constexpr int kPlaceBits = 10;
+constexpr int kJoinChunk = 1 << kPlaceBits;                // big elements
+constexpr int kJoinPer = kJoinChunk / kJoinThreads;        // a thread's
+constexpr int kJoinTile = 1024;                            // small elements
+constexpr int kJoinLists = kJoinTile / kJoinThreads;       // 32-chunks a warp
+constexpr int kElemBits = 10;                              // of a table entry
+constexpr uint32_t kElemMask = (1u << kElemBits) - 1u;
+constexpr int kTagBits = 31 - kElemBits;                   // the fingerprint
+constexpr int kJoinSlotBits = kElemBits + 1;
+constexpr int kJoinSlots = 1 << kJoinSlotBits;             // 1/2 full at most
+constexpr int kMetaBatch = 128;  // a count block's chunks a batch
+constexpr int kJoinBlocks = 4;   // count blocks an SM (64 registers)
+static_assert(kJoinTile == 1 << kElemBits, "an entry holds an element");
+// a record: the head (first small element) << 32 | count << kPlaceBits |
+// place; a count from kCountMax on is found along the links
+constexpr uint32_t kCountMax = (1u << (32 - kPlaceBits)) - 1u;
+constexpr size_t kJoinSmem =
+    2 * ((size_t)kJoinChunk * 8 + (size_t)(kJoinTile + 2) * 8 + 8) +
+    (size_t)3 * kMetaBatch * 8 + (size_t)kJoinSlots * 8 +
+    (size_t)kJoinTile * 4 + (size_t)kJoinPer * kJoinWarps * 4 +
+    (size_t)kJoinWarps * 8;
 
 // the words of row `amp` (of n) and its length, after the layout's checks
 __device__ __forceinline__ const uint32_t *row_of(
@@ -131,7 +200,8 @@ __device__ __forceinline__ uint32_t run_starts(uint32_t x, int w, int len,
 }
 
 // Z[p, b] as the key (hi << 32) | lo
-__device__ __forceinline__ uint64_t zkey(const uint2 *zob, int p, uint32_t b) {
+__device__ __forceinline__ uint64_t zkey(const uint2 *zob, int p,
+                                         uint32_t b) {
   const uint2 z = __ldg(zob + 4 * p + b);
   return ((uint64_t)z.x << 32) | z.y;
 }
@@ -170,26 +240,56 @@ __global__ void __launch_bounds__(kThreads)
   counts[r] = len > 0 ? 6 * len + 4 + runs : 0;
 }
 
-// One warp a row: the keys of row ids[r] and their payloads (their own
-// index) from ends[r - 1] (ends = inclusive cumsum of the counts)
-__global__ void __launch_bounds__(kThreads)
-    graft_emit_kernel(const uint32_t *__restrict__ words, int64_t n_words,
-                      const int64_t *__restrict__ row_word,
-                      const int32_t *__restrict__ lengths, int64_t n,
-                      const int64_t *__restrict__ ids, int64_t m,
-                      const uint2 *__restrict__ zob, int64_t z_rows,
-                      const int64_t *__restrict__ ends,
-                      int64_t *__restrict__ keys,
-                      int32_t *__restrict__ pays) {
-  const int lane = threadIdx.x & 31;
-  const int64_t r = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
-  if (r >= m) return;  // the whole warp: a warp holds one row
+// keys [d, d + cnt) from the warp's stage st: 16-byte stores of
+// consecutive addresses, a scalar head where d is odd and a scalar tail
+__device__ __forceinline__ void store_keys(int64_t *__restrict__ keys,
+                                           int64_t d, const uint64_t *st,
+                                           int cnt, int lane) {
+  const int head = (int)(d & 1) < cnt ? (int)(d & 1) : cnt;
+  if (lane < head) keys[d] = (int64_t)st[0];
+  const int two = (cnt - head) >> 1;
+  longlong2 *out = (longlong2 *)(keys + d + head);
+  for (int i = lane; i < two; i += 32)
+    out[i] = make_longlong2((long long)st[head + 2 * i],
+                            (long long)st[head + 2 * i + 1]);
+  if (lane == 0 && head + 2 * two < cnt)
+    keys[d + cnt - 1] = (int64_t)st[cnt - 1];
+}
+
+// pays[i] = i for i in [a, e): 16-byte stores, scalar head and tail
+__device__ __forceinline__ void store_iota(int32_t *__restrict__ pays,
+                                           int64_t a, int64_t e, int lane) {
+  const int64_t head = min((int64_t)((4 - (a & 3)) & 3), e - a);
+  if (lane < head) pays[a + lane] = (int32_t)(a + lane);
+  a += head;
+  const int64_t quads = (e - a) >> 2;
+  int4 *out = (int4 *)(pays + a);
+  for (int64_t i = lane; i < quads; i += 32) {
+    const int32_t v = (int32_t)(a + 4 * i);
+    out[i] = make_int4(v, v + 1, v + 2, v + 3);
+  }
+  const int64_t t = a + 4 * quads + lane;
+  if (t < e) pays[t] = (int32_t)t;
+}
+
+// The keys of row ids[r] and their payloads (their own index) from
+// ends[r - 1] (ends = inclusive cumsum of the counts), by one warp;
+// st: the warp's stage of kStageKeys keys
+__device__ __forceinline__ void emit_row(
+    const uint32_t *__restrict__ words, int64_t n_words,
+    const int64_t *__restrict__ row_word, const int32_t *__restrict__ lengths,
+    int64_t n, const int64_t *__restrict__ ids, int64_t r,
+    const uint2 *__restrict__ zob, int64_t z_rows,
+    const int64_t *__restrict__ ends,
+    int64_t *__restrict__ keys, int32_t *__restrict__ pays, uint64_t *st,
+    int lane) {
   int len;
   const uint32_t *src =
       row_of(words, n_words, row_word, lengths, n, ids[r], &len);
   if ((int64_t)len + 2 > z_rows) __trap();  // Z rows 0..len are read
   if (len == 0) return;
   const int64_t out = r ? ends[r - 1] : 0;
+  store_iota(pays, out, ends[r], lane);
 
   // walk 1: the row's hash and the two suffix totals
   uint64_t seq = 0, s_del = 0, s_ins = 0;
@@ -202,15 +302,15 @@ __global__ void __launch_bounds__(kThreads)
   seq = warp_xor(seq);
   s_del = warp_xor(s_del);
   s_ins = warp_xor(s_ins);
-  if (lane < 4) {  // insertions before position 0
+  if (lane < 4)  // insertions before position 0
     keys[out + lane] = (int64_t)(zkey(zob, 0, lane) ^ s_ins);
-    pays[out + lane] = (int32_t)(out + lane);
-  }
 
-  // walk 2: XOR scans of the chunk's terms; the deletions by a ballot
+  // walk 2: XOR scans of the chunk's terms, the keys staged in slot order;
+  // the deletions by a ballot, staged by rank
   uint64_t pre0 = 0, pre_del = 0, pre_ins = 0;  // over the earlier chunks
   uint32_t before_chunk = 4u;  // no code: position 0 starts a run
   int64_t del_at = out + 4 + 6 * (int64_t)len;
+  uint64_t *dels = st + 6 * 32;
   for (int base = 0; base < len; base += 32) {
     const int p = base + lane;
     const bool in = p < len;
@@ -228,25 +328,24 @@ __global__ void __launch_bounds__(kThreads)
     const uint64_t prefix = pre0 ^ inc0 ^ g0;         // XOR of g0 before p
     const uint64_t del_after = s_del ^ pre_del ^ incd;  // terms after p
     const uint64_t ins_after = s_ins ^ pre_ins ^ inci;
+    __syncwarp();  // the previous chunk's stage is written out
     if (in) {
-      const int64_t at = out + 4 + 6 * (int64_t)p;
       const uint64_t sub = seq ^ g0;
       const uint64_t ins = prefix ^ g0 ^ ins_after;
 #pragma unroll
       for (uint32_t k = 0; k < 3; ++k) {
         const uint32_t o = k + (c <= k);
-        keys[at + k] = (int64_t)(sub ^ zkey(zob, p, o));
-        keys[at + 3 + k] = (int64_t)(ins ^ zkey(zob, p + 1, o));
+        st[6 * lane + k] = sub ^ zkey(zob, p, o);
+        st[6 * lane + 3 + k] = ins ^ zkey(zob, p + 1, o);
       }
-#pragma unroll
-      for (int k = 0; k < 6; ++k) pays[at + k] = (int32_t)(at + k);
     }
-    if (start) {
-      const int64_t at = del_at + __popc(starts & ((1u << lane) - 1u));
-      keys[at] = (int64_t)(prefix ^ del_after);
-      pays[at] = (int32_t)at;
-    }
-    del_at += __popc(starts);
+    if (start) dels[__popc(starts & ((1u << lane) - 1u))] = prefix ^ del_after;
+    __syncwarp();
+    store_keys(keys, out + 4 + 6 * (int64_t)base, st,
+               6 * min(32, len - base), lane);
+    const int n_del = __popc(starts);
+    if (lane < n_del) keys[del_at + lane] = (int64_t)dels[lane];
+    del_at += n_del;
     pre0 ^= __shfl_sync(kFull, inc0, 31);
     pre_del ^= __shfl_sync(kFull, incd, 31);
     pre_ins ^= __shfl_sync(kFull, inci, 31);
@@ -254,206 +353,493 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- join: one block a bucket ----
-
-__device__ __forceinline__ void bucket_span(const int64_t *ends, int64_t b,
-                                            int64_t *lo, int64_t *size) {
-  *lo = b ? ends[b - 1] : 0;
-  *size = ends[b] - *lo;
+// One warp a row, rows r, r + the grid's warps, ...
+__global__ void __launch_bounds__(kThreads)
+    graft_emit_kernel(const uint32_t *__restrict__ words, int64_t n_words,
+                      const int64_t *__restrict__ row_word,
+                      const int32_t *__restrict__ lengths, int64_t n,
+                      const int64_t *__restrict__ ids, int64_t m,
+                      const uint2 *__restrict__ zob, int64_t z_rows,
+                      const int64_t *__restrict__ ends,
+                      int64_t *__restrict__ keys,
+                      int32_t *__restrict__ pays) {
+  __shared__ __align__(16) uint64_t stage[kWarps][kStageKeys];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t warps = (int64_t)gridDim.x * kWarps;
+  for (int64_t r = (int64_t)blockIdx.x * kWarps + warp; r < m; r += warps)
+    emit_row(words, n_words, row_word, lengths, n, ids, r, zob, z_rows, ends,
+             keys, pays, stage[warp], lane);
 }
 
-struct SortTile {
-  int64_t key[kJoinTile];
-  int32_t pay[kJoinTile];
+// ---- join: persistent blocks over chunks of the big side ----
+
+struct JoinSmem {
+  int64_t *bk;      // [2][kJoinChunk] a chunk's keys, two stages
+  int64_t *sk;      // [2][kJoinTile + 2] its small span's keys, if they fit
+  uint64_t *bar;    // [2] each stage's mbarrier
+  int64_t *span;    // [3][kMetaBatch] a batch's chunks: small span, own
+  uint32_t *table;  // [kJoinSlots] a slot's entry (tag | smallest
+                    // element), or 0: empty
+  int32_t *cnt;     // [kJoinSlots] a slot's elements after the first; in
+                    // the links, the next element (global) of its key
+                    // after those seen
+  int32_t *list;    // [kJoinTile] the elements to link, in order
+  int32_t *wc;      // [kJoinPer][kJoinWarps], then [kJoinWarps]: counts
+  int64_t *sum;     // [kJoinWarps]
 };
 
-// Elements [first, first + cnt) of the small side sorted in place by
-// (key, payload): a bitonic network over the next power of two in shared
-// memory (the padding sorts last), written back; t.key then holds the
-// sorted keys (all threads call it)
-__device__ void sort_tile(int64_t *skeys, int32_t *spays, int64_t first,
-                          int cnt, SortTile &t) {
-  int size = 32;
-  while (size < cnt) size <<= 1;
-  __syncthreads();  // the previous tile is written
-  for (int i = threadIdx.x; i < size; i += kJoinThreads) {
-    t.key[i] = i < cnt ? skeys[first + i] : INT64_MAX;
-    t.pay[i] = i < cnt ? spays[first + i] : INT32_MAX;
+__device__ __forceinline__ JoinSmem join_smem(unsigned char *base) {
+  JoinSmem sm;
+  sm.bk = (int64_t *)base;
+  sm.sk = sm.bk + 2 * kJoinChunk;
+  sm.bar = (uint64_t *)(sm.sk + 2 * (kJoinTile + 2));
+  sm.span = (int64_t *)(sm.bar + 2);
+  sm.table = (uint32_t *)(sm.span + 3 * kMetaBatch);
+  sm.cnt = (int32_t *)(sm.table + kJoinSlots);
+  sm.list = sm.cnt + kJoinSlots;
+  sm.wc = sm.list + kJoinTile;
+  sm.sum = (int64_t *)(sm.wc + kJoinPer * kJoinWarps);
+  return sm;
+}
+
+// A key's home slot in a table of 2^bits slots and its tag: the top bits
+// of one multiply by 2^64 / phi (another mix than the bucket's: within a
+// bucket the bucket's bits are all equal), the next kTagBits bits a
+// fingerprint, so that a probe that misses reads one entry a slot, and
+// one that hits also the key
+__device__ __forceinline__ uint32_t tag_of(int64_t key, int bits,
+                                           uint32_t *slot) {
+  const uint64_t p = (uint64_t)key * 0x9E3779B97F4A7C15ull;
+  *slot = (uint32_t)(p >> (64 - bits));
+  return 0x80000000u |
+         (((uint32_t)(p >> (64 - bits - kTagBits)) & ((1u << kTagBits) - 1u))
+          << kElemBits);
+}
+
+// the slot of `key` in the table of the small keys sk, or -1
+__device__ __forceinline__ int find_slot(const JoinSmem &sm,
+                                         const int64_t *sk, int64_t key,
+                                         int bits) {
+  uint32_t h;
+  const uint32_t tag = tag_of(key, bits, &h);
+  const uint32_t mask = (1u << bits) - 1u;
+  for (;; h = (h + 1) & mask) {
+    const uint32_t cur = sm.table[h];
+    if (cur == 0u) return -1;
+    if ((cur >> kElemBits) == (tag >> kElemBits) &&
+        sk[cur & kElemMask] == key)
+      return (int)h;
   }
-  __syncthreads();
-  for (int k = 2; k <= size; k <<= 1)
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < size; i += kJoinThreads) {
-        const int o = i ^ j;
-        if (o > i) {
-          const int64_t a = t.key[i], b = t.key[o];
-          const bool greater = a > b || (a == b && t.pay[i] > t.pay[o]);
-          if (greater == ((i & k) == 0)) {
-            t.key[i] = b;
-            t.key[o] = a;
-            const int32_t x = t.pay[i];
-            t.pay[i] = t.pay[o];
-            t.pay[o] = x;
-          }
-        }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void *p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Hopper's bulk copies (the TMA, one thread issuing a whole span, its
+// bytes counted into an mbarrier): the threads' load pipe stays free for
+// the table, where per-thread cp.async ahead of the probes held their
+// shared-memory loads back
+__device__ __forceinline__ void bar_init(uint64_t *bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t *bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t *bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// [dst, dst + bytes) <- [src, ...): both 16-byte aligned, bytes a
+// multiple of 16 (none for 0)
+__device__ __forceinline__ void bulk_copy(void *dst, const void *src,
+                                          unsigned bytes, uint64_t *bar) {
+  if (bytes == 0) return;
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 2^bits slots of the table and their counts emptied (the table is empty
+// between chunks)
+__device__ __forceinline__ void clear_table(const JoinSmem &sm, int bits) {
+  for (int h = threadIdx.x; h < (1 << bits); h += kJoinThreads) {
+    sm.table[h] = 0u;
+    sm.cnt[h] = 0;
+  }
+}
+
+// The n small keys of sk (in shared memory, visible) into the empty table
+// of 2^bits slots, each slot keeping the smallest element of its key and
+// counting its elements after the first (a key that comes once, as most
+// do, costs one atomicCAS); returns (in every thread, after a barrier)
+// whether some key repeats
+__device__ __forceinline__ bool build_table(const JoinSmem &sm,
+                                            const int64_t *sk, int n,
+                                            int bits) {
+  volatile uint32_t *table = sm.table;
+  bool repeats = false;
+  for (int i = threadIdx.x; i < n; i += kJoinThreads) {
+    const int64_t key = sk[i];
+    uint32_t h;
+    const uint32_t tag = tag_of(key, bits, &h) | (uint32_t)i;
+    for (;;) {
+      uint32_t cur = table[h];
+      if (cur == 0u) {
+        cur = atomicCAS(sm.table + h, 0u, tag);
+        if (cur == 0u) break;
       }
+      if ((cur >> kElemBits) == (tag >> kElemBits) &&
+          sk[cur & kElemMask] == key) {  // a slot only ever holds one key
+        atomicMin(sm.table + h, tag);
+        atomicAdd(sm.cnt + h, 1);
+        repeats = true;
+        break;
+      }
+      h = (h + 1) & ((1u << bits) - 1u);
+    }
+  }
+  return __syncthreads_or(repeats);
+}
+
+// Links of the tile's elements [own, n) (keys sk, global index tile_lo +
+// i): each to the next element of its key, in partition order; without
+// `every` only those of a repeated key, with it every one, a key's last
+// in the tile to its smallest element in [later, s_hi) (the next tiles).
+// All threads call it, after the tile's probes; the counts are spent.
+__device__ __forceinline__ void link_tile(
+    const JoinSmem &sm, const int64_t *sk, const int64_t *__restrict__ skeys,
+    int64_t tile_lo, int n, int own, int bits, bool every, int64_t later,
+    int64_t s_hi, int32_t *__restrict__ links) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int slots = 1 << bits;
+  // the elements to link, listed in order (warp w: a span of 32-chunks)
+  const int chunks = (n + kJoinThreads - 1) / kJoinThreads;
+  const int span = 32 * chunks;
+  unsigned flags[kJoinLists];
+  int mine = 0;
+#pragma unroll
+  for (int c = 0; c < kJoinLists; ++c) {
+    const int t = warp * span + 32 * c + lane;
+    flags[c] = __ballot_sync(
+        kFull, c < chunks && t < n && t >= own &&
+                   (every || sm.cnt[find_slot(sm, sk, sk[t], bits)] > 0));
+    mine += __popc(flags[c]);
+  }
+  if (lane == 0) sm.wc[warp] = mine;
+  __syncthreads();  // and every probe has read the counts
+  int at = 0, listed = 0;
+  for (int w = 0; w < kJoinWarps; ++w) {
+    const int v = sm.wc[w];
+    if (w < warp) at += v;
+    listed += v;
+  }
+#pragma unroll
+  for (int c = 0; c < kJoinLists; ++c) {
+    if ((flags[c] >> lane) & 1u)
+      sm.list[at + __popc(flags[c] & below)] = warp * span + 32 * c + lane;
+    at += __popc(flags[c]);
+  }
+  // a key's next element after this tile: none, or with `every` the
+  // smallest later one of its key
+  for (int h = threadIdx.x; h < slots; h += kJoinThreads)
+    sm.cnt[h] = every ? INT32_MAX : -1;
+  __syncthreads();
+  if (every) {
+    for (int64_t j = later + threadIdx.x; j < s_hi; j += kJoinThreads) {
+      const int h = find_slot(sm, sk, skeys[j], bits);
+      if (h >= 0) atomicMin(sm.cnt + h, (int32_t)j);
+    }
+    __syncthreads();
+    for (int h = threadIdx.x; h < slots; h += kJoinThreads)
+      if (sm.cnt[h] == INT32_MAX) sm.cnt[h] = -1;
+    __syncthreads();
+  }
+  if (warp != 0 || listed == 0) return;
+  // warp 0, from the list's end: each element's next is the nearest
+  // later lane of its slot, else the key's last one seen
+  for (int base = (listed - 1) & ~31; base >= 0; base -= 32) {
+    const int q = base + lane;
+    const int t = q < listed ? sm.list[q] : -1;
+    const int g = t >= 0 ? find_slot(sm, sk, sk[t], bits) : -1 - lane;
+    const unsigned peers = __match_any_sync(kFull, g);
+    const unsigned above = peers & ~((2u << lane) - 1u);
+    if (t >= 0)
+      links[tile_lo + t] =
+          above ? (int32_t)(tile_lo + sm.list[base + __ffs(above) - 1])
+                : sm.cnt[g];
+    __syncwarp();
+    if (t >= 0 && (peers & below) == 0) sm.cnt[g] = (int32_t)(tile_lo + t);
+    __syncwarp();
+  }
+}
+
+// where the small span [s_lo, ...) lies in a stage: at its parity, so
+// that the bulk copy's source and destination are both 16-byte aligned
+__device__ __forceinline__ int64_t *small_at(const JoinSmem &sm, int st,
+                                             int64_t s_lo) {
+  return sm.sk + st * (kJoinTile + 2) + (s_lo & 1);
+}
+
+// The copies of chunk k into stage `st` (thread 0): its big keys, and its
+// small span [s_lo, s_hi) when it fits one table, by bulk copies into the
+// stage's mbarrier, an odd head or tail element by the thread itself
+// (visible after the next block barrier); nothing for a chunk whose
+// buckets hold no small key, which nothing probes
+__device__ __forceinline__ void fetch_chunk(
+    const JoinSmem &sm, int st, const int64_t *__restrict__ skeys,
+    const int64_t *__restrict__ bkeys, int64_t m_big, int64_t k,
+    int64_t s_lo, int64_t s_hi) {
+  const int64_t e0 = k * kJoinChunk;
+  const int nb = s_hi > s_lo ? (int)min((int64_t)kJoinChunk, m_big - e0) : 0;
+  int64_t *bk = sm.bk + st * kJoinChunk;
+  const int b_even = nb & ~1;
+  int s_head = 0, s_even = 0;
+  int64_t *sk = small_at(sm, st, s_lo);
+  const int ns = s_hi - s_lo <= kJoinTile ? (int)(s_hi - s_lo) : 0;
+  if (ns) {
+    s_head = (int)(s_lo & 1);
+    s_even = (ns - s_head) & ~1;
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  bar_expect(sm.bar + st, 8u * (b_even + s_even));
+  bulk_copy(bk, bkeys + e0, 8u * b_even, sm.bar + st);
+  bulk_copy(sk + s_head, skeys + s_lo + s_head, 8u * s_even, sm.bar + st);
+  if (nb & 1) bk[nb - 1] = bkeys[e0 + nb - 1];
+  if (s_head) sk[0] = skeys[s_lo];
+  if (s_head + s_even < ns) sk[ns - 1] = skeys[s_lo + ns - 1];
+}
+
+// Chunk k (its keys landed in stage st, the table empty) against the
+// small side's elements [s_lo, s_hi) of the buckets it touches, own from
+// own_lo on: counts[k], its records and n_rec[k], and the links of its
+// own buckets; leaves the table empty
+__device__ __forceinline__ void count_chunk(
+    const JoinSmem &sm, int st, const int64_t *__restrict__ skeys,
+    int64_t m_big, int64_t k, int64_t s_lo, int64_t s_hi, int64_t own_lo,
+    int64_t *__restrict__ counts, int64_t *__restrict__ rec,
+    int32_t *__restrict__ n_rec, int32_t *__restrict__ links) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t e0 = k * kJoinChunk;
+  const int nb = (int)min((int64_t)kJoinChunk, m_big - e0);
+  const int64_t *bk = sm.bk + st * kJoinChunk;
+  const bool tiled = s_hi - s_lo > kJoinTile;
+  // a tiled span: tile after tile at the stage's start
+  int64_t *sk = tiled ? sm.sk + st * (kJoinTile + 2) : small_at(sm, st, s_lo);
+  int cnt[kJoinPer];
+  int32_t head[kJoinPer];
+#pragma unroll
+  for (int j = 0; j < kJoinPer; ++j) {
+    cnt[j] = 0;
+    head[j] = -1;
+  }
+  int bits = 0;
+  for (int64_t tile_lo = s_lo; tile_lo < s_hi; tile_lo += kJoinTile) {
+    const int n = (int)min((int64_t)kJoinTile, s_hi - tile_lo);
+    if (tiled) {  // a span beyond one table: tile after tile
+      __syncthreads();  // the previous tile is done with
+      if (bits) clear_table(sm, bits);
+      for (int i = threadIdx.x; i < n; i += kJoinThreads)
+        sk[i] = skeys[tile_lo + i];
       __syncthreads();
     }
-  for (int i = threadIdx.x; i < cnt; i += kJoinThreads) {
-    skeys[first + i] = t.key[i];
-    spays[first + i] = t.pay[i];
-  }
-  __syncthreads();  // the block reads the tile back from global memory
-}
-
-// the first place of `key` among the cnt sorted keys tk
-__device__ __forceinline__ int lower_bound(const int64_t *tk, int cnt,
-                                           int64_t key) {
-  int lo = 0, hi = cnt;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (tk[mid] < key)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-// The run of `key` among the size sorted keys tk: its length; with
-// `emit`, also a pair (spays[p0 + i] << 32) | pay for each of its places
-// i, written from *at (the payloads are read only then)
-__device__ __forceinline__ int64_t walk_run(const int64_t *tk, int size,
-                                            int64_t key, bool emit,
-                                            const int32_t *spays, int64_t p0,
-                                            uint32_t pay, int64_t *pairs,
-                                            int64_t *at) {
-  int i = lower_bound(tk, size, key);
-  const int first = i;
-  for (; i < size && tk[i] == key; ++i)
-    if (emit)
-      pairs[(*at)++] = ((int64_t)(uint32_t)spays[p0 + i] << 32) | pay;
-  return i - first;
-}
-
-// the sum of v over the block and, in `before`, over the threads before
-// this one (all threads call it)
-__device__ int64_t block_sum(int64_t v, int64_t *scratch, int64_t *before) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int64_t incl = v;
+    bits = 6;
+    while ((1 << bits) < 2 * n) ++bits;
+    const bool repeats = build_table(sm, sk, n, bits);
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int64_t u = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += u;
+    for (int j = 0; j < kJoinPer; ++j) {
+      const int p = j * kJoinThreads + threadIdx.x;
+      if (p < nb) {
+        const int h = find_slot(sm, sk, bk[p], bits);
+        if (h >= 0) {
+          cnt[j] += sm.cnt[h] + 1;
+          if (head[j] < 0)
+            head[j] = (int32_t)(tile_lo + (sm.table[h] & kElemMask));
+        }
+      }
+    }
+    if ((repeats || tiled) && tile_lo + n > own_lo)
+      link_tile(sm, sk, skeys, tile_lo, n,
+                (int)max(own_lo - tile_lo, (int64_t)0), bits, tiled,
+                max(tile_lo + n, own_lo), s_hi, links);
   }
-  __syncthreads();  // scratch is free
-  if (lane == 31) scratch[warp] = incl;
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < kJoinPer; ++j) any |= cnt[j] > 0;
+  any = __syncthreads_or(any);  // and the table is done with
+  if (bits) clear_table(sm, bits);  // for the next chunk
+  if (!any) {
+    if (threadIdx.x == 0) {
+      n_rec[k] = 0;
+      counts[k] = 0;
+    }
+    return;
+  }
+
+  // the records, compacted in place order: j, then warp, then lane
+  unsigned found[kJoinPer];
+  int64_t total = 0;
+#pragma unroll
+  for (int j = 0; j < kJoinPer; ++j) {
+    found[j] = __ballot_sync(kFull, cnt[j] > 0);
+    if (lane == 0) sm.wc[j * kJoinWarps + warp] = __popc(found[j]);
+    total += cnt[j];
+  }
+#pragma unroll
+  for (int d = 16; d >= 1; d >>= 1) total += __shfl_xor_sync(kFull, total, d);
+  if (lane == 0) sm.sum[warp] = total;
   __syncthreads();
-  int64_t all = 0, earlier = 0;
-  for (int w = 0; w < kJoinWarps; ++w) {
-    if (w < warp) earlier += scratch[w];
-    all += scratch[w];
+  const unsigned below = (1u << lane) - 1u;
+  int earlier = 0;  // the records of the rounds before j
+#pragma unroll
+  for (int j = 0; j < kJoinPer; ++j) {
+    int at = earlier;
+    for (int i = 0; i < warp; ++i) at += sm.wc[j * kJoinWarps + i];
+    if (cnt[j] > 0)
+      rec[e0 + at + __popc(found[j] & below)] =
+          ((int64_t)head[j] << 32) |
+          (int64_t)((min((uint32_t)cnt[j], kCountMax) << kPlaceBits) |
+                    (uint32_t)(j * kJoinThreads + threadIdx.x));
+    for (int i = 0; i < kJoinWarps; ++i) earlier += sm.wc[j * kJoinWarps + i];
   }
-  if (before) *before = earlier + incl - v;
-  return all;
+  if (threadIdx.x == 0) {
+    int64_t pairs = 0;
+    for (int w = 0; w < kJoinWarps; ++w) pairs += sm.sum[w];
+    n_rec[k] = earlier;
+    counts[k] = pairs;
+  }
 }
 
-// Bucket b of both sides, the small side's tiles sorted: the strip's
-// elements in rounds of kJoinThreads, each finding its key in every tile.
-// A bucket of one tile is searched in `tile` (its keys in shared memory),
-// the tiles of a larger one where they lie in skeys. EMIT: write the
-// pairs from `out` up to `end` (a second walk, after a block scan of the
-// counts; more pairs than join_count gave traps); else return the
-// bucket's count (in every thread).
-template <bool EMIT>
-__device__ __forceinline__ int64_t join_bucket(
-    const int64_t *skeys, const int32_t *spays, int64_t s_lo, int64_t s_n,
-    const int64_t *tile, const int64_t *__restrict__ bkeys,
-    const int32_t *__restrict__ bpays, int64_t b_lo, int64_t b_n,
-    int64_t out, int64_t end, int64_t *__restrict__ pairs, int64_t *scan) {
-  const bool one_tile = s_n <= kJoinTile;
-  int64_t total = 0;
-  for (int64_t r = 0; r < b_n; r += kJoinThreads) {  // the whole block
-    const int64_t e = r + threadIdx.x;
-    const bool in = e < b_n;
-    const int64_t key = in ? bkeys[b_lo + e] : 0;
-    const uint32_t pay = EMIT && in ? (uint32_t)bpays[b_lo + e] : 0u;
-    int64_t cnt = 0, round = 0, at = 0;
-    for (int walk = 0; walk < (EMIT ? 2 : 1); ++walk) {
-      const bool emit = walk == 1;
-      if (emit) {  // the round's pairs before this thread's
-        round = block_sum(cnt, scan, &at);
-        if (out + round > end) __trap();
-        at += out;
-      }
-      if (!in) continue;
-      if (one_tile) {
-        cnt = walk_run(tile, (int)s_n, key, emit, spays, s_lo, pay, pairs,
-                       &at);
-      } else {
-        cnt = 0;
-        for (int64_t first = s_lo; first < s_lo + s_n; first += kJoinTile)
-          cnt += walk_run(skeys + first,
-                          (int)min((int64_t)kJoinTile, s_lo + s_n - first),
-                          key, emit, spays, first, pay, pairs, &at);
+// The count pass: persistent blocks, block b taking chunks b, b + grid,
+// ... of the big side in batches of kMetaBatch, each batch's small spans
+// read once (first[k], last[k]: the buckets of chunk k's first and last
+// big element), each chunk's keys fetched by cp.async while the previous
+// one is probed.
+__global__ void __launch_bounds__(kJoinThreads, kJoinBlocks)
+    graft_join_count_kernel(const int64_t *__restrict__ skeys,
+                            const int64_t *__restrict__ s_ends,
+                            const int64_t *__restrict__ bkeys, int64_t m_big,
+                            const int64_t *__restrict__ b_ends,
+                            const int64_t *__restrict__ first,
+                            const int64_t *__restrict__ last,
+                            int64_t *__restrict__ counts,
+                            int64_t *__restrict__ rec,
+                            int32_t *__restrict__ n_rec,
+                            int32_t *__restrict__ links) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const JoinSmem sm = join_smem(smem);
+  const int64_t n_chunks = (m_big + kJoinChunk - 1) / kJoinChunk;
+  const int64_t grid = gridDim.x;
+  clear_table(sm, kJoinSlotBits);
+  if (threadIdx.x == 0) {
+    bar_init(sm.bar);
+    bar_init(sm.bar + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  unsigned phases = 0u;  // each stage's mbarrier phase to wait for
+  for (int64_t batch = blockIdx.x; batch < n_chunks;
+       batch += grid * kMetaBatch) {
+    // the batch's chunks: batch + j * grid; their spans
+    const int mine =
+        (int)min((int64_t)kMetaBatch, (n_chunks - batch + grid - 1) / grid);
+    __syncthreads();  // the previous batch is done with
+    for (int j = threadIdx.x; j < mine; j += kJoinThreads) {
+      const int64_t k = batch + j * grid;
+      const int64_t bf = first[k], bl = last[k];
+      const int64_t s_lo = bf ? s_ends[bf - 1] : 0;
+      sm.span[j] = s_lo;
+      sm.span[kMetaBatch + j] = s_ends[bl];
+      // the small elements of the buckets whose big side starts here
+      sm.span[2 * kMetaBatch + j] =
+          (bf ? b_ends[bf - 1] : 0) >= k * kJoinChunk ? s_lo : s_ends[bf];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      fetch_chunk(sm, 0, skeys, bkeys, m_big, batch, sm.span[0],
+                  sm.span[kMetaBatch]);
+    for (int j = 0; j < mine; ++j) {
+      bar_wait(sm.bar + (j & 1), (phases >> (j & 1)) & 1u);
+      phases ^= 1u << (j & 1);
+      __syncthreads();  // chunk j's keys have landed; chunk j - 1 is done
+      if (j + 1 < mine && threadIdx.x == 0)  // the stage chunk j - 1 held
+        fetch_chunk(sm, (j + 1) & 1, skeys, bkeys, m_big,
+                    batch + (j + 1) * grid, sm.span[j + 1],
+                    sm.span[kMetaBatch + j + 1]);
+      count_chunk(sm, j & 1, skeys, m_big, batch + j * grid, sm.span[j],
+                  sm.span[kMetaBatch + j], sm.span[2 * kMetaBatch + j],
+                  counts, rec, n_rec, links);
+    }
+  }
+}
+
+// The emit pass: one warp a chunk, its records in rounds of 32, each
+// record's pairs (its small chain from the head, along the links) from
+// ends[k - 1] up to ends[k] (a warp scan of the counts places them; more
+// pairs than the count pass gave trap). Reads only the records, the links
+// and the payloads.
+__global__ void __launch_bounds__(kJoinThreads)
+    graft_join_emit_kernel(const int32_t *__restrict__ spays,
+                           const int32_t *__restrict__ bpays, int64_t m_big,
+                           const int64_t *__restrict__ rec,
+                           const int32_t *__restrict__ n_rec,
+                           const int32_t *__restrict__ links,
+                           const int64_t *__restrict__ ends,
+                           int64_t *__restrict__ pairs) {
+  const int lane = threadIdx.x & 31;
+  const int64_t k = ((int64_t)blockIdx.x * kJoinThreads + threadIdx.x) >> 5;
+  if (k * kJoinChunk >= m_big) return;  // the whole warp
+  const int n = n_rec[k];
+  const int64_t e0 = k * kJoinChunk, end = ends[k];
+  int64_t out = k ? ends[k - 1] : 0;
+  for (int r0 = 0; r0 < n; r0 += 32) {
+    const int r = r0 + lane;
+    int64_t cnt = 0;
+    int32_t j = 0;
+    uint32_t place = 0;
+    if (r < n) {
+      const int64_t v = rec[e0 + r];
+      j = (int32_t)(v >> 32);
+      place = (uint32_t)v & (kJoinChunk - 1);
+      cnt = (uint32_t)v >> kPlaceBits;
+      if (cnt == kCountMax)  // a longer chain: its length, walked
+        for (int32_t i = links[j], walked = 1;; i = links[i], ++walked)
+          if (i < 0) {
+            cnt = walked;
+            break;
+          }
+    }
+    int64_t incl = cnt;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int64_t u = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += u;
+    }
+    const int64_t round = __shfl_sync(kFull, incl, 31);
+    if (out + round > end) __trap();
+    if (r < n) {
+      const uint32_t pay = (uint32_t)bpays[e0 + place];
+      int64_t at = out + incl - cnt;
+      for (int64_t i = 0; i < cnt; ++i) {
+        pairs[at + i] = ((int64_t)(uint32_t)spays[j] << 32) | pay;
+        if (i + 1 < cnt) j = links[j];
       }
     }
     out += round;
-    total += cnt;
   }
-  return EMIT ? 0 : block_sum(total, scan, nullptr);
-}
-
-// The count pass: every tile of the small side's bucket b sorted in place
-// (each once), then the bucket's pairs counted. The payloads move with
-// their keys and are not otherwise read.
-__global__ void __launch_bounds__(kJoinThreads)
-    graft_join_count_kernel(int64_t *skeys, int32_t *spays,
-                            const int64_t *__restrict__ s_ends,
-                            const int64_t *__restrict__ bkeys,
-                            const int64_t *__restrict__ b_ends,
-                            int64_t *__restrict__ counts) {
-  __shared__ SortTile t;
-  __shared__ int64_t scan[kJoinWarps];
-  const int64_t b = blockIdx.x;
-  int64_t s_lo, s_n, b_lo, b_n;
-  bucket_span(s_ends, b, &s_lo, &s_n);
-  bucket_span(b_ends, b, &b_lo, &b_n);
-  for (int64_t first = s_lo; first < s_lo + s_n; first += kJoinTile)
-    sort_tile(skeys, spays, first,
-              (int)min((int64_t)kJoinTile, s_lo + s_n - first), t);
-  int64_t total = 0;
-  if (s_n > 0 && b_n > 0)  // the whole block
-    total = join_bucket<false>(skeys, nullptr, s_lo, s_n, t.key, bkeys,
-                               nullptr, b_lo, b_n, 0, 0, nullptr, scan);
-  if (threadIdx.x == 0) counts[b] = total;
-}
-
-// The emit pass, on the small side as the count pass left it
-__global__ void __launch_bounds__(kJoinThreads)
-    graft_join_emit_kernel(const int64_t *__restrict__ skeys,
-                           const int32_t *__restrict__ spays,
-                           const int64_t *__restrict__ s_ends,
-                           const int64_t *__restrict__ bkeys,
-                           const int32_t *__restrict__ bpays,
-                           const int64_t *__restrict__ b_ends,
-                           const int64_t *__restrict__ ends,
-                           int64_t *__restrict__ pairs) {
-  __shared__ int64_t tile[kJoinTile];
-  __shared__ int64_t scan[kJoinWarps];
-  const int64_t b = blockIdx.x;
-  const int64_t out = b ? ends[b - 1] : 0;
-  if (ends[b] == out) return;  // no pair: the whole block
-  int64_t s_lo, s_n, b_lo, b_n;
-  bucket_span(s_ends, b, &s_lo, &s_n);
-  bucket_span(b_ends, b, &b_lo, &b_n);
-  if (s_n <= kJoinTile) {
-    for (int i = threadIdx.x; i < s_n; i += kJoinThreads)
-      tile[i] = skeys[s_lo + i];
-    __syncthreads();
-  }
-  join_bucket<true>(skeys, spays, s_lo, s_n, tile, bkeys, bpays, b_lo, b_n,
-                    out, ends[b], pairs, scan);
 }
 
 // ---- verify ----
@@ -560,9 +946,12 @@ inline unsigned grid_for(int64_t n) {
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for words that are not 16-byte
-// aligned or a Zobrist table that is not 8-byte aligned). Nothing is
-// launched for an empty input.
+// after the launch, or the error of a launch attribute it sets
+// (cudaErrorInvalidValue for words, keys, payloads or a join's big keys
+// that are not 16-byte aligned, or a Zobrist table that is not 8-byte
+// aligned). Nothing is launched for an empty input.
+
+extern "C" int swarm_graft_join_chunk() { return kJoinChunk; }
 
 extern "C" int swarm_graft_join_tile() { return kJoinTile; }
 
@@ -580,6 +969,24 @@ extern "C" int swarm_graft_keygen_count(const void *words, int64_t n_words,
   return (int)cudaGetLastError();
 }
 
+// a persistent grid: as many blocks of kThreads as are resident at once
+// (dynamic shared memory `smem`), at most `work`
+template <class Kernel>
+static cudaError_t resident_grid(Kernel kernel, size_t smem, int64_t work,
+                                 unsigned *grid) {
+  int device, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+  if (err != cudaSuccess) return err;
+  *grid = (unsigned)min(work, (int64_t)max(per_sm, 1) * sms);
+  return cudaSuccess;
+}
+
 extern "C" int swarm_graft_keygen_emit(const void *words, int64_t n_words,
                                        const void *row_word,
                                        const void *lengths, int64_t n,
@@ -587,10 +994,15 @@ extern "C" int swarm_graft_keygen_emit(const void *words, int64_t n_words,
                                        const void *zob, int64_t z_rows,
                                        const void *ends, void *keys,
                                        void *pays, void *stream) {
-  if ((uintptr_t)words % 16 || (uintptr_t)zob % 8)
+  if ((uintptr_t)words % 16 || (uintptr_t)zob % 8 || (uintptr_t)keys % 16 ||
+      (uintptr_t)pays % 16)
     return (int)cudaErrorInvalidValue;
   if (m <= 0) return 0;
-  graft_emit_kernel<<<grid_for(32 * m), kThreads, 0, (cudaStream_t)stream>>>(
+  unsigned grid;  // one warp a row at most
+  const cudaError_t err = resident_grid(graft_emit_kernel, 0,
+                                        (m + kWarps - 1) / kWarps, &grid);
+  if (err != cudaSuccess) return (int)err;
+  graft_emit_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t *)words, n_words, (const int64_t *)row_word,
       (const int32_t *)lengths, n, (const int64_t *)ids, m,
       (const uint2 *)zob, z_rows, (const int64_t *)ends, (int64_t *)keys,
@@ -598,28 +1010,49 @@ extern "C" int swarm_graft_keygen_emit(const void *words, int64_t n_words,
   return (int)cudaGetLastError();
 }
 
-extern "C" int swarm_graft_join_count(void *skeys, void *spays,
-                                      const void *s_ends, const void *bkeys,
-                                      const void *b_ends, int64_t n_buckets,
-                                      void *counts, void *stream) {
-  if (n_buckets <= 0) return 0;
-  graft_join_count_kernel<<<(unsigned)n_buckets, kJoinThreads, 0,
+// first, last [n_chunks] int64: the buckets of each chunk's first and
+// last big element; counts [n_chunks] int64, rec [m_big] int64, n_rec
+// [n_chunks] int32 and links [m_small] int32 are written (links only
+// where a repeated key's chain needs them). The big side's keys must be
+// 16-byte aligned (cp.async).
+extern "C" int swarm_graft_join_count(const void *skeys, const void *s_ends,
+                                      const void *bkeys, int64_t m_big,
+                                      const void *b_ends, const void *first,
+                                      const void *last, void *counts,
+                                      void *rec, void *n_rec, void *links,
+                                      void *stream) {
+  if ((uintptr_t)bkeys % 16 || (uintptr_t)skeys % 16)
+    return (int)cudaErrorInvalidValue;
+  if (m_big <= 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      graft_join_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kJoinSmem);
+  unsigned grid;
+  if (err == cudaSuccess)
+    err = resident_grid(graft_join_count_kernel, kJoinSmem,
+                        (m_big + kJoinChunk - 1) / kJoinChunk, &grid);
+  if (err != cudaSuccess) return (int)err;
+  graft_join_count_kernel<<<grid, kJoinThreads, kJoinSmem,
                             (cudaStream_t)stream>>>(
-      (int64_t *)skeys, (int32_t *)spays, (const int64_t *)s_ends,
-      (const int64_t *)bkeys, (const int64_t *)b_ends, (int64_t *)counts);
+      (const int64_t *)skeys, (const int64_t *)s_ends, (const int64_t *)bkeys,
+      m_big, (const int64_t *)b_ends, (const int64_t *)first,
+      (const int64_t *)last, (int64_t *)counts, (int64_t *)rec,
+      (int32_t *)n_rec, (int32_t *)links);
   return (int)cudaGetLastError();
 }
 
-extern "C" int swarm_graft_join_emit(const void *skeys, const void *spays,
-                                     const void *s_ends, const void *bkeys,
-                                     const void *bpays, const void *b_ends,
-                                     int64_t n_buckets, const void *ends,
-                                     void *pairs, void *stream) {
-  if (n_buckets <= 0) return 0;
-  graft_join_emit_kernel<<<(unsigned)n_buckets, kJoinThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (const int64_t *)skeys, (const int32_t *)spays, (const int64_t *)s_ends,
-      (const int64_t *)bkeys, (const int32_t *)bpays, (const int64_t *)b_ends,
+// ends [n_chunks]: the inclusive cumsum of the count pass' counts
+extern "C" int swarm_graft_join_emit(const void *spays, const void *bpays,
+                                     int64_t m_big, const void *rec,
+                                     const void *n_rec, const void *links,
+                                     const void *ends, void *pairs,
+                                     void *stream) {
+  if (m_big <= 0) return 0;
+  const int64_t chunks = (m_big + kJoinChunk - 1) / kJoinChunk;
+  graft_join_emit_kernel<<<(unsigned)((chunks + kJoinWarps - 1) / kJoinWarps),
+                           kJoinThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t *)spays, (const int32_t *)bpays, m_big,
+      (const int64_t *)rec, (const int32_t *)n_rec, (const int32_t *)links,
       (const int64_t *)ends, (int64_t *)pairs);
   return (int)cudaGetLastError();
 }

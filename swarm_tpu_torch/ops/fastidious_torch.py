@@ -32,12 +32,11 @@ the CPU, and on a CUDA tensor launches its kernel or raises:
 - join: join_reference (plain) and the wrappers join_count, join_emit
   and join_pairs: one pair (small payload << 32) | big payload for every
   two keys of the two sides that are equal, in the big side's partition
-  order, then the small side's. join_count first sorts each tile of
-  JOIN_TILE elements of the small side's buckets by (key, payload), in
-  place (sort_tiles_reference, its plain version): the kernels' binary
-  searches need it. The pairs stay the same, and so does their order
-  where the payloads rise with their place in each bucket, as
-  keygen_emit and partition leave them;
+  order, then the small side's. The items
+  are chunks of JOIN_CHUNK big elements (join_items); join_count writes
+  neither side and leaves each chunk's count and a JoinRecord
+  (join_record_reference, its plain version), from which alone join_emit
+  writes the pairs (join_emit_reference);
 - verify: variant_rows_reference and verify_reference (plain: the
   payloads decoded to (amplicon, slot), both variants rebuilt and
   compared) and the wrapper verify, which also keeps the smallest heavy
@@ -56,6 +55,7 @@ and an empty bucket costs one read of its bounds.
 import os
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -67,10 +67,17 @@ from . import neighbors_sortjoin as sj
 #: keygen (count, emit) and of join (count, emit) counts as one launch
 launches = {"graft_keygen": 0, "graft_join": 0, "graft_verify": 0}
 
-#: small-side elements a tile (csrc/graft.cu: kJoinTile): join_count sorts
-#: each tile of a bucket; the join kernels hold a bucket of one tile in
-#: shared memory and search the tiles of a bigger one where they lie
-JOIN_TILE = 2048
+#: big-side elements a chunk, the join's item (csrc/graft.cu: kJoinChunk):
+#: a block of the count pass probes a chunk's keys against the small
+#: elements of the buckets it touches
+JOIN_CHUNK = 1024
+#: the bits of a record's place in its chunk, and the largest count a
+#: record holds (a longer chain is counted along the links)
+PLACE_BITS = JOIN_CHUNK.bit_length() - 1
+COUNT_MAX = (1 << (32 - PLACE_BITS)) - 1
+#: small elements a hash table in shared memory (kJoinTile): a chunk
+#: whose buckets hold more are probed tile after tile
+JOIN_TILE = 1024
 
 _RNG_SEED = 0x5EED5EED
 _INT32_MAX = (1 << 31) - 1
@@ -311,25 +318,97 @@ def keygen_emit(words, row_word, lengths, ids, zob, ends, total: int):
     return keys, pays
 
 
-def sort_tiles_reference(skeys, spays, s_ends, tile: int = JOIN_TILE):
-    """(keys, payloads) of a partitioned side with each tile of `tile`
-    elements of every bucket sorted by (key, payload); the plain version
-    of join_count's tile sort."""
-    idx = torch.arange(skeys.numel(), device=skeys.device)
-    bucket = torch.searchsorted(s_ends, idx, right=True)
-    start = torch.where(bucket > 0, s_ends[(bucket - 1).clamp(min=0)], 0)
-    tile_first = idx - (idx - start) % tile
-    perm = torch.sort(spays, stable=True)[1]
-    for by in (skeys, tile_first):
-        perm = perm[torch.sort(by[perm], stable=True)[1]]
-    return skeys[perm], spays[perm]
+class JoinRecord(NamedTuple):
+    """What join_count leaves for join_emit: rec [m_big] int64, from
+    chunk k's first element on one record a big element that pairs, in
+    place order, (head << 32) | (min(count, COUNT_MAX) << PLACE_BITS) |
+    place, head the first small element of its key, count its small
+    elements, place the big element's place in its chunk; n_rec
+    [n_chunks] int32, each chunk's records; links [m_small] int32, each
+    small element's next element of its key in partition order (-1 after
+    the last; the kernel writes only those of a key that repeats)."""
+    rec: torch.Tensor
+    n_rec: torch.Tensor
+    links: torch.Tensor
+
+
+def join_items(b_ends, m_big: int, chunk: int = JOIN_CHUNK):
+    """(first, last) [n_chunks] int64: the buckets of the first and the
+    last element of each chunk [k * chunk, (k + 1) * chunk) of a big side
+    of m_big keys partitioned at b_ends (one torch.searchsorted, no
+    readback). A chunk is the join's item: a bucket beyond `chunk` spreads
+    over several, small buckets come several to one."""
+    starts = torch.arange(0, m_big, chunk, device=b_ends.device)
+    at = torch.stack([starts, (starts + chunk).clamp(max=m_big) - 1])
+    first, last = torch.searchsorted(b_ends, at, right=True)
+    return first, last
+
+
+def join_record_reference(skeys, s_ends, bkeys, b_ends,
+                          chunk: int = JOIN_CHUNK):
+    """(counts [n_chunks] int64, JoinRecord): the pairs of each chunk of
+    the big side, and the record of the pairs (links of every small
+    element); the plain version of join_count. The sides are partitioned
+    into the same buckets, so equal keys share one."""
+    dev = bkeys.device
+    m_big = bkeys.numel()
+    n_chunks = -(-m_big // chunk)
+    sk, perm = torch.sort(skeys, stable=True)
+    lo = torch.searchsorted(sk, bkeys)
+    cnt = torch.searchsorted(sk, bkeys, right=True) - lo
+    head = perm[lo.clamp(max=max(skeys.numel() - 1, 0))] if skeys.numel() \
+        else torch.zeros_like(lo)
+    e = torch.arange(m_big, device=dev)
+    k = e // chunk
+    counts = torch.zeros(n_chunks, dtype=torch.int64, device=dev)
+    counts.index_add_(0, k, cnt)
+    hit = cnt > 0
+    n_rec = torch.bincount(k[hit], minlength=n_chunks).to(torch.int32)
+    before = torch.cumsum(n_rec.long(), 0) - n_rec
+    rank = torch.cumsum(hit.long(), 0) - 1 - before[k]
+    bits = chunk.bit_length() - 1
+    rec = torch.full((m_big,), -1, dtype=torch.int64, device=dev)
+    rec[(k * chunk + rank)[hit]] = (head[hit] << 32) | (
+        cnt[hit].clamp(max=(1 << (32 - bits)) - 1) << bits) | (e % chunk)[hit]
+    links = torch.full((skeys.numel(),), -1, dtype=torch.int32, device=dev)
+    same = sk[1:] == sk[:-1]
+    links[perm[:-1][same]] = perm[1:][same].to(torch.int32)
+    return counts, JoinRecord(rec, n_rec, links)
+
+
+def join_emit_reference(spays, bpays, record: JoinRecord,
+                        chunk: int = JOIN_CHUNK) -> torch.Tensor:
+    """[P] int64 pairs (spay << 32) | bpay of a JoinRecord: record after
+    record, each its head's chain along the links; the plain version of
+    join_emit."""
+    rec, n_rec, links = record
+    bits = chunk.bit_length() - 1
+    e = torch.arange(rec.numel(), device=rec.device)
+    valid = e % chunk < n_rec.long()[e // chunk]
+    v = rec[valid]
+    at = (e[valid] // chunk) * chunk + (v & (chunk - 1))
+    cur = v >> 32
+    cnt = (v & sj.MASK32) >> bits
+    for i in torch.nonzero(cnt == (1 << (32 - bits)) - 1)[:, 0].tolist():
+        j, c = int(cur[i]), 1
+        while int(links[j]) >= 0:
+            j, c = int(links[j]), c + 1
+        cnt[i] = c
+    offsets = torch.cumsum(cnt, 0) - cnt
+    pb = bpays[at].long() & sj.MASK32
+    pairs = torch.empty(int(cnt.sum()), dtype=torch.int64, device=rec.device)
+    for step in range(int(cnt.max()) if cnt.numel() else 0):
+        live = cnt > step
+        pairs[offsets[live] + step] = (spays[cur[live]].long() << 32) | pb[live]
+        cur = torch.where(live & (cnt > step + 1),
+                          links[cur.clamp(min=0)].long(), cur)
+    return pairs
 
 
 def join_reference(skeys, spays, bkeys, bpays) -> torch.Tensor:
     """[P] int64 pairs (spay << 32) | bpay of every small key equal to a
     big key: the big keys in their order, each with its equal small keys
-    in theirs. Keys in any order; the plain version of join_pairs (on the
-    small side as join_count leaves it)."""
+    in theirs. Keys in any order; the plain version of join_pairs."""
     dev = bkeys.device
     sk, perm = torch.sort(skeys, stable=True)
     lo = torch.searchsorted(sk, bkeys)
@@ -341,87 +420,90 @@ def join_reference(skeys, spays, bkeys, bpays) -> torch.Tensor:
     return spays[i].long() * (1 << 32) + bpays[j].long()
 
 
-def _check_sides(skeys, spays, s_ends, bkeys, bpays, b_ends):
-    sj._check_partitioned(skeys, spays, s_ends)
-    sj._check_partitioned(bkeys, bpays, b_ends)
+def join_count(skeys, s_ends, bkeys, b_ends):
+    """(counts [n_chunks] int64, JoinRecord): the pairs of each chunk of
+    JOIN_CHUNK big elements (the join's items) of two sides partitioned
+    into the same buckets, and their record for join_emit. Writes neither
+    side."""
+    sj._check_partitioned(skeys, None, s_ends)
+    sj._check_partitioned(bkeys, None, b_ends)
     if s_ends.shape != b_ends.shape or skeys.device != bkeys.device:
         raise ValueError("both sides must be partitioned into the same "
                          "buckets on one device")
-
-
-def join_count_reference(skeys, bkeys, b_ends) -> torch.Tensor:
-    """[2^bits] int64: join_reference's pairs by the bucket of their big
-    key (b_ends: the big side's bucket ends); the plain version of
-    join_count."""
-    dev = bkeys.device
-    big = join_reference(skeys, torch.zeros_like(skeys, dtype=torch.int32),
-                         bkeys, torch.arange(bkeys.numel(), dtype=torch.int32,
-                                             device=dev)) & sj.MASK32
-    return torch.bincount(torch.searchsorted(b_ends, big, right=True),
-                          minlength=b_ends.numel())
-
-
-def join_count(skeys, spays, s_ends, bkeys, b_ends) -> torch.Tensor:
-    """[2^bits] int64: the pairs of each bucket of two sides partitioned
-    into the same buckets. Sorts each tile of the small side in place by
-    (key, payload), as sort_tiles_reference does (the side stays
-    partitioned and gives the same pairs), for join_emit."""
-    _check_sides(skeys, spays, s_ends, bkeys,
-                 torch.zeros_like(bkeys, dtype=torch.int32), b_ends)
-    nb = s_ends.numel()
     if bkeys.device.type == "cpu":
-        keys, pays = sort_tiles_reference(skeys, spays, s_ends)
-        skeys.copy_(keys)
-        spays.copy_(pays)
-        return join_count_reference(skeys, bkeys, b_ends)
+        return join_record_reference(skeys, s_ends, bkeys, b_ends)
     from .._build import load
 
-    counts = torch.empty(nb, dtype=torch.int64, device=bkeys.device)
-    with torch.cuda.device(bkeys.device):
+    dev = bkeys.device
+    m_big = bkeys.numel()
+    first, last = join_items(b_ends, m_big)
+    counts = torch.empty(first.numel(), dtype=torch.int64, device=dev)
+    record = JoinRecord(
+        torch.empty(m_big, dtype=torch.int64, device=dev),
+        torch.empty(first.numel(), dtype=torch.int32, device=dev),
+        torch.empty(skeys.numel(), dtype=torch.int32, device=dev))
+    if m_big == 0:
+        return counts, record
+    with torch.cuda.device(dev):
         err = load().swarm_graft_join_count(
-            skeys.data_ptr(), spays.data_ptr(), s_ends.contiguous().data_ptr(),
-            bkeys.data_ptr(), b_ends.contiguous().data_ptr(), nb,
-            counts.data_ptr(), sj._stream(bkeys))
+            skeys.data_ptr(), s_ends.contiguous().data_ptr(),
+            bkeys.data_ptr(), m_big, b_ends.contiguous().data_ptr(),
+            first.data_ptr(), last.data_ptr(), counts.data_ptr(),
+            record.rec.data_ptr(), record.n_rec.data_ptr(),
+            record.links.data_ptr(), sj._stream(bkeys))
     _raise_on(err, "graft_join")
-    return counts
+    return counts, record
 
 
-def join_emit(skeys, spays, s_ends, bkeys, bpays, b_ends, ends,
+def join_emit(spays, bpays, record: JoinRecord, ends,
               total: int) -> torch.Tensor:
-    """[total] int64 pairs of two partitioned sides in join_reference's
-    order, the small side as join_count left it; `ends` is the inclusive
-    cumsum of join_count's counts, `total` its last value."""
-    _check_sides(skeys, spays, s_ends, bkeys, bpays, b_ends)
-    nb = s_ends.numel()
-    if ends.dtype != torch.int64 or ends.shape != (nb,):
-        raise ValueError("ends must be a [2^bits] int64 tensor")
-    if bkeys.device.type == "cpu":
-        pairs = join_reference(skeys, spays, bkeys, bpays)
+    """[total] int64 pairs in join_reference's order, from join_count's
+    record alone; `ends` is the inclusive cumsum of join_count's counts,
+    `total` its last value."""
+    rec, n_rec, links = record
+    m_big = bpays.numel()
+    if spays.dtype != torch.int32 or bpays.dtype != torch.int32 or \
+            spays.shape != links.shape or rec.shape != bpays.shape:
+        raise ValueError("payloads must be [m] int32 tensors of the sides "
+                         "join_count saw")
+    if ends.dtype != torch.int64 or ends.shape != n_rec.shape or \
+            n_rec.numel() != -(-m_big // JOIN_CHUNK):
+        raise ValueError("ends must be an [n_chunks] int64 tensor")
+    if rec.dtype != torch.int64 or n_rec.dtype != torch.int32 or \
+            links.dtype != torch.int32:
+        raise ValueError("the record must be join_count's")
+    if any(t.device != bpays.device for t in (spays, *record, ends)):
+        raise ValueError("the payloads, the record and ends must share a "
+                         "device")
+    if bpays.device.type == "cuda" and not all(
+            t.is_contiguous() for t in record):
+        raise ValueError("the kernel takes a contiguous record")
+    if bpays.device.type == "cpu":
+        pairs = join_emit_reference(spays, bpays, record)
         if pairs.numel() != total:
             raise ValueError(f"total {total} is not the sides' {pairs.numel()}")
         return pairs
     from .._build import load
 
-    pairs = torch.empty(total, dtype=torch.int64, device=bkeys.device)
+    pairs = torch.empty(total, dtype=torch.int64, device=bpays.device)
     if total == 0:
         return pairs
-    with torch.cuda.device(bkeys.device):
+    with torch.cuda.device(bpays.device):
         err = load().swarm_graft_join_emit(
-            skeys.data_ptr(), spays.data_ptr(), s_ends.contiguous().data_ptr(),
-            bkeys.data_ptr(), bpays.data_ptr(), b_ends.contiguous().data_ptr(),
-            nb, ends.contiguous().data_ptr(), pairs.data_ptr(),
-            sj._stream(bkeys))
+            spays.contiguous().data_ptr(), bpays.contiguous().data_ptr(),
+            m_big, rec.data_ptr(), n_rec.data_ptr(), links.data_ptr(),
+            ends.contiguous().data_ptr(), pairs.data_ptr(),
+            sj._stream(bpays))
     _raise_on(err, "graft_join")
     return pairs
 
 
 def join_pairs(skeys, spays, s_ends, bkeys, bpays, b_ends) -> torch.Tensor:
     """Cross-side pairs of two sides partitioned into the same buckets:
-    join_count (which sorts the small side's tiles in place),
-    torch.cumsum, one readback of the total, join_emit."""
-    ends, total = sj._cumsum_total(join_count(skeys, spays, s_ends, bkeys,
-                                              b_ends))
-    return join_emit(skeys, spays, s_ends, bkeys, bpays, b_ends, ends, total)
+    join_count, torch.cumsum, one readback of the total, join_emit."""
+    counts, record = join_count(skeys, s_ends, bkeys, b_ends)
+    ends, total = sj._cumsum_total(counts)
+    return join_emit(spays, bpays, record, ends, total)
 
 
 def decode_payloads(ids, ends, pays):
@@ -560,7 +642,8 @@ class GraftEngine:
 
     #: keys a strip of the bigger side holds at most; None: as many as
     #: half the free device memory takes at 24 bytes a key (keys,
-    #: payloads and the partition's scratch pair), below 2^31
+    #: payloads and the partition's scratch pair; the join's 8-byte
+    #: record comes after the scratch is freed), below 2^31
     MAX_STRIP_KEYS = None
     #: the same budget on the CPU, where the plain versions run
     CPU_STRIP_KEYS = 1 << 26

@@ -459,14 +459,18 @@ def partition_reference(keys, owners, bits: int):
 
 
 def _check_keys(keys, owners):
+    """[m] int64 keys and [m] int32 owners beside them (owners None:
+    keys alone), contiguous on the card."""
     if keys.dim() != 1 or keys.dtype != torch.int64:
         raise ValueError("keys must be an [m] int64 tensor")
-    if owners.dtype != torch.int32 or owners.shape != keys.shape:
-        raise ValueError("owners must be an [m] int32 tensor")
-    if keys.device != owners.device:
-        raise ValueError("keys and owners must share a device")
-    if keys.device.type == "cuda" and not (keys.is_contiguous()
-                                           and owners.is_contiguous()):
+    if owners is not None:
+        if owners.dtype != torch.int32 or owners.shape != keys.shape:
+            raise ValueError("owners must be an [m] int32 tensor")
+        if keys.device != owners.device:
+            raise ValueError("keys and owners must share a device")
+    if keys.device.type == "cuda" and not (
+            keys.is_contiguous()
+            and (owners is None or owners.is_contiguous())):
         raise ValueError("the kernels take contiguous keys and owners")
 
 
@@ -554,8 +558,8 @@ def join_pairs_reference(keys, owners) -> torch.Tensor:
 
 
 def _check_partitioned(keys, owners, bucket_ends):
-    """partition's output: on the CPU also its values (every key in the
-    bucket whose span holds it)."""
+    """partition's output (owners None: its keys alone): on the CPU also
+    its values (every key in the bucket whose span holds it)."""
     _check_keys(keys, owners)
     nb = bucket_ends.numel()
     if bucket_ends.dim() != 1 or bucket_ends.dtype != torch.int64 or \

@@ -544,8 +544,8 @@ GRAFT_CASES = ["ragged_edge_rows", "insertion_run", "fastidious_corpus",
 
 #: an insertion run of 4,204 rows sharing one variant (the row they are
 #: insertions of): all but every 500th row light, a light bucket beyond
-#: the join's shared-memory tile (ft.JOIN_TILE = 2,048) against 9 heavy
-#: rows
+#: the join's shared-memory table (ft.JOIN_TILE = 1,024), so tiled, against
+#: 9 heavy rows
 LONG_GRAFT_RUN = 1400
 
 
@@ -576,11 +576,33 @@ def _graft_rows(db, device):
     return ft.GraftEngine(db, device).packed_rows()
 
 
+def _check_join(skeys, spays, s_buckets, bkeys, bpays, b_buckets):
+    """graft_join on partitioned sides against its plain versions: the
+    count pass' counts and records (join_record_reference), the pairs
+    element for element (join_reference), neither side written; returns
+    the pairs."""
+    before = [x.clone() for x in (skeys, spays, bkeys, bpays)]
+    counts, record = ft.join_count(skeys, s_buckets, bkeys, b_buckets)
+    ends, total = sj._cumsum_total(counts)
+    pairs = ft.join_emit(spays, bpays, record, ends, total)
+    torch.cuda.synchronize()
+    want_counts, want = ft.join_record_reference(skeys, s_buckets, bkeys,
+                                                 b_buckets)
+    assert torch.equal(counts, want_counts)
+    assert torch.equal(record.n_rec, want.n_rec)
+    e = torch.arange(bkeys.numel(), device=bkeys.device)
+    valid = e % ft.JOIN_CHUNK < want.n_rec.long()[e // ft.JOIN_CHUNK]
+    assert torch.equal(record.rec[valid], want.rec[valid])
+    assert torch.equal(pairs, ft.join_reference(skeys, spays, bkeys, bpays))
+    for x, y in zip(before, (skeys, spays, bkeys, bpays)):
+        assert torch.equal(x, y)
+    return pairs
+
+
 @pytest.mark.parametrize("case", GRAFT_CASES)
 def test_graft_kernels_match_reference(tmp_path, cuda_device, case):
-    """graft_keygen (counts, keys, payloads), graft_join (the small
-    side's tiles as the count pass sorts them, pairs in the kernel's
-    order, counts a bucket)
+    """graft_keygen (counts, keys, payloads), graft_join (counts and
+    records a chunk, pairs in the kernel's order, both sides unwritten)
     and graft_verify (flags, each light row's smallest heavy one) against
     their plain versions on the same card tensors; the partition between
     them is d1_partition."""
@@ -611,16 +633,9 @@ def test_graft_kernels_match_reference(tmp_path, cuda_device, case):
     bits = sj.bucket_bits(skeys.numel() + bkeys.numel())
     skeys, spays, s_buckets = sj.partition(skeys, spays, bits)
     bkeys, bpays, b_buckets = sj.partition(bkeys, bpays, bits)
-    want_pairs = ft.join_reference(skeys, spays, bkeys, bpays)
-    want_keys, want_pays = ft.sort_tiles_reference(skeys, spays, s_buckets)
-    pairs = ft.join_pairs(skeys, spays, s_buckets, bkeys, bpays, b_buckets)
-    torch.cuda.synchronize()
-    join_launches = ft.launches["graft_join"] - before["graft_join"]
-    assert torch.equal(skeys, want_keys) and torch.equal(spays, want_pays)
-    assert torch.equal(pairs, want_pairs)
-    assert torch.equal(ft.join_count(skeys, spays, s_buckets, bkeys,
-                                     b_buckets),
-                       ft.join_count_reference(skeys, bkeys, b_buckets))
+    before_join = ft.launches["graft_join"]
+    pairs = _check_join(skeys, spays, s_buckets, bkeys, bpays, b_buckets)
+    join_launches = ft.launches["graft_join"] - before_join
     best = torch.full((len(db),), 2**31 - 1, dtype=torch.int32,
                       device=cuda_device)
     want_best = best.clone()
@@ -638,16 +653,82 @@ def test_graft_kernels_match_reference(tmp_path, cuda_device, case):
         assert int(sizes.max()) > ft.JOIN_TILE
     n_keygen = 2 * sum(int(x.numel() > 0) for x in (s_ids, b_ids))
     assert ft.launches["graft_keygen"] == before["graft_keygen"] + n_keygen
-    assert join_launches == 1 + int(pairs.numel() > 0)
+    assert join_launches == int(bkeys.numel() > 0) + int(pairs.numel() > 0)
     assert ft.launches["graft_verify"] == before["graft_verify"] + int(
         pairs.numel() > 0)
     assert bool(want.any()) == (case != "empty_side")
 
 
-def test_graft_join_tile_is_the_kernels(cuda_device):
+def _random_sides(dev, n_small, n_big, distinct, bits, seed):
+    """Two sides of random keys drawn from `distinct` values, partitioned
+    into 2^bits buckets on the card."""
+    rng = np.random.default_rng(seed)
+    values = rng.integers(-(1 << 62), 1 << 62, distinct)
+    sides = []
+    for n in (n_small, n_big):
+        keys = torch.from_numpy(values[rng.integers(0, distinct, n)])
+        sides.extend(sj.partition(keys.to(dev), torch.arange(
+            n, dtype=torch.int32, device=dev), bits))
+    return sides
+
+
+@pytest.mark.parametrize("case", ["skewed", "small_beyond_the_table",
+                                  "many_tiny_buckets"])
+def test_graft_join_on_bucket_shapes(cuda_device, case):
+    """graft_join against its plain versions on a skewed bucket (a big
+    bucket over many chunks against a small one over several tables),
+    small buckets beyond one table (spans taken in tiles, keys repeated
+    across them), and many buckets a chunk."""
+    n_small, n_big, distinct, bits = {
+        "skewed": (5_000, 60_000, 1_500, 0),
+        "small_beyond_the_table": (9_000, 20_000, 20_000, 2),
+        "many_tiny_buckets": (3_000, 200_000, 150_000, 12)}[case]
+    skeys, spays, s_buckets, bkeys, bpays, b_buckets = _random_sides(
+        cuda_device, n_small, n_big, distinct, bits, 20261017)
+    pairs = _check_join(skeys, spays, s_buckets, bkeys, bpays, b_buckets)
+    s_sizes = torch.diff(s_buckets, prepend=s_buckets.new_zeros(1))
+    b_sizes = torch.diff(b_buckets, prepend=b_buckets.new_zeros(1))
+    assert pairs.numel() > 0
+    if case != "many_tiny_buckets":
+        assert int(s_sizes.max()) > ft.JOIN_TILE
+        assert int(b_sizes.max()) > ft.JOIN_CHUNK
+    else:
+        assert int(b_sizes.max()) < ft.JOIN_CHUNK // 4
+
+
+def test_graft_keygen_spans_that_start_unaligned(tmp_path, cuda_device):
+    """keygen_emit into keys and payloads whose rows start on every key
+    parity and every place in a 16-byte quad of payloads (rows of 1 to 9
+    bases, whose key counts are odd and even), on an aligned output."""
+    rng = np.random.default_rng(5)
+    rows = [rng.integers(0, 4, L).astype(np.uint8)
+            for L in rng.integers(1, 10, 300)]
+    rows = list({r.tobytes(): r for r in rows}.values())
+    db = make_db(tmp_path, rows_records(rows))
+    words, row_word, lengths = _graft_rows(db, cuda_device)
+    zob_np = ft.make_zobrist_pair(int(db.longest))
+    ids = torch.arange(len(db), device=cuda_device)
+    ends, total = sj._cumsum_total(ft.keygen_count(words, row_word, lengths,
+                                                   ids))
+    starts = (ends - torch.diff(ends, prepend=ends.new_zeros(1))).cpu()
+    assert set((starts % 4).tolist()) == {0, 1, 2, 3}
+    want, _ = ft.variant_keys_reference(
+        words, row_word, lengths, ids,
+        ft.zobrist_tensor(zob_np, "cpu").to(cuda_device))
+    keys, pays = ft.keygen_emit(words, row_word, lengths, ids,
+                                ft.zobrist_tensor(zob_np, cuda_device),
+                                ends, total)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, want)
+    assert torch.equal(pays.long(), torch.arange(total, device=cuda_device))
+
+
+def test_graft_join_constants_are_the_kernels(cuda_device):
     from swarm_tpu_torch._build import load
 
+    assert load().swarm_graft_join_chunk() == ft.JOIN_CHUNK
     assert load().swarm_graft_join_tile() == ft.JOIN_TILE
+    assert ft.PLACE_BITS == 10 and ft.COUNT_MAX == (1 << 22) - 1
 
 
 @pytest.mark.parametrize("strip_keys", [None, 5_000])
@@ -730,6 +811,18 @@ def test_graft_wrappers_refuse_what_the_kernels_cannot_read(tmp_path,
     with pytest.raises(ValueError, match="same buckets"):
         ft.join_pairs(keys, pays, buckets, keys, pays,
                       torch.cat([buckets, buckets]))
+    with pytest.raises(RuntimeError, match="graft_join kernel launch"):
+        ft.join_count(keys, buckets, torch.cat([keys, keys[:1]])[1:],
+                      buckets)  # big keys off a 16-byte boundary
+    counts, record = ft.join_count(keys, buckets, keys, buckets)
+    pair_ends, n_pairs = sj._cumsum_total(counts)
+    with pytest.raises(ValueError, match="share a device"):
+        ft.join_emit(pays, pays, record._replace(rec=record.rec.cpu()),
+                     pair_ends, n_pairs)
+    with pytest.raises(ValueError, match="contiguous record"):
+        ft.join_emit(pays, pays, record._replace(
+            rec=torch.stack([record.rec, record.rec], 1)[:, 0]),
+            pair_ends, n_pairs)
     best = torch.zeros(len(db), dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError, match="best"):
         ft.verify(words, row_word, lengths, ids, ends, ids, ends,
@@ -750,14 +843,16 @@ torch.cuda.synchronize()
 """
 
 
-#: an emit pass given fewer pairs than the bucket holds (3): it traps
+#: an emit pass given fewer pairs than the chunk's record holds (3 small
+#: keys equal to the one big key): it traps
 GRAFT_JOIN_TRAP_PROBE = """import torch
 from swarm_tpu_torch.ops import fastidious_torch as ft
 dev = torch.device("cuda", 0)
 one = torch.tensor([1], device=dev)
-ft.join_emit(torch.ones(3, dtype=torch.int64, device=dev),
-             torch.arange(3, dtype=torch.int32, device=dev),
-             torch.tensor([3], device=dev), one, one.int(), one, one, 1)
+counts, record = ft.join_count(torch.ones(3, dtype=torch.int64, device=dev),
+                               torch.tensor([3], device=dev), one, one)
+ft.join_emit(torch.arange(3, dtype=torch.int32, device=dev), one.int(),
+             record, one, 1)
 torch.cuda.synchronize()
 """
 

@@ -11,12 +11,18 @@ swarm_tpu's, on the CPU, exactly:
   GraftEngine in its sort mode (SWARM_TPU_GRAFT=sorted) and its probe
   mode (=chunked), the native graft_join and models/d1._graft_join on
   seeded corpora; strips of the bigger side equal one pass;
-- a numpy emulation of the join kernels' schedule (csrc/graft.cu: the
-  count pass' bitonic network over each tile of the small side, once;
-  binary searches and walks of equal keys, rounds of the big side, tiles
-  beyond the first searched in place) equals the plain join at the
-  kernel's tile and at a 16-element tile; join_count leaves the small
-  side as the emulated network does, and no pair changes;
+- a numpy emulation of the join kernels' schedule (csrc/graft.cu: a
+  block a chunk of the big side, one hash table over the small elements
+  of the buckets it touches, in tiles, each big key probed once a tile;
+  the count pass' records and links, the emit pass from the records
+  alone) equals the plain versions and brute force at the kernel's
+  chunk and tile and at chunks of 8 and tables of 8 elements; join_items
+  covers every bucket in (bucket, chunk) order; join_count writes
+  neither side;
+- a numpy emulation of the keygen emit pass' staged stores (a chunk's
+  keys in slot order out as 16-byte pairs with a scalar head and tail,
+  the deletions by rank, the payloads as an iota of quads) equals
+  variant_keys_reference;
 - the dispatch of models/d1.py: the native join up to
   SWARM_TPU_GRAFT_PROBE_MAX keys on the smaller side (read at each
   call), the device engine above it, with the same outputs.
@@ -256,85 +262,144 @@ def test_empty_side_gives_no_candidate():
     assert count == 0 and (cand == -1).all()
 
 
-# ---- a numpy emulation of the join kernel's schedule ----------------------
+# ---- numpy emulations of the join kernels' schedule ----------------------
 
-def _bitonic(keys, at):
-    """csrc/graft.cu: sort_tile's network on (key, at) pairs (at: the
-    payloads there) over a power of two of at least 32 (padding: the
-    largest key and at), as its threads run it stage by stage."""
-    size = 32
-    while size < len(keys):
-        size <<= 1
-    k = np.full(size, np.iinfo(np.int64).max, np.int64)
-    a = np.full(size, INT32_MAX, np.int64)
-    k[:len(keys)], a[:len(keys)] = keys, at
-    i = np.arange(size)
-    kk = 2
-    while kk <= size:
-        j = kk >> 1
-        while j > 0:
-            o = i ^ j
-            lo = i[o > i]
-            hi = lo ^ j
-            greater = (k[lo] > k[hi]) | ((k[lo] == k[hi]) & (a[lo] > a[hi]))
-            swap = greater == ((lo & kk) == 0)
-            sl, sh = lo[swap], hi[swap]
-            k[sl], k[sh] = k[sh].copy(), k[sl].copy()
-            a[sl], a[sh] = a[sh].copy(), a[sl].copy()
-            j >>= 1
-        kk <<= 1
-    return k, a
+def _slot_of(key, bits):
+    """csrc/graft.cu: slot_of, the table's home slot of a key."""
+    return ((int(key) * 0x9E3779B97F4A7C15) & (2**64 - 1)) >> (64 - bits)
 
 
-def emulate_sort_tiles(skeys, spays, s_ends, tile=2048):
-    """(keys, payloads): the count kernel's tile sort, a block a bucket
-    sorting each tile in place by (key, payload)."""
-    keys, pays = skeys.copy(), spays.copy()
-    for b in range(len(s_ends)):
-        lo = s_ends[b - 1] if b else 0
-        for first in range(lo, s_ends[b], tile):
-            size = min(tile, s_ends[b] - first)
-            k, a = _bitonic(keys[first:first + size],
-                            pays[first:first + size])
-            keys[first:first + size] = k[:size]
-            pays[first:first + size] = a[:size]
-    return keys, pays
+class _Table:
+    """build_table's hash table over n small keys: open addressing with
+    linear probing from slot_of; a slot holds the smallest element of its
+    key and the key's number of elements; every probe compares the full
+    key. (The kernel inserts in parallel, so a slot may differ from this
+    sequential schedule's; what a slot holds does not.)"""
+
+    def __init__(self, keys, min_bits):
+        self.keys, self.bits = keys, min_bits
+        while (1 << self.bits) < 2 * len(keys):
+            self.bits += 1
+        size = 1 << self.bits
+        self.table = np.full(size, -1, np.int64)
+        self.cnt = np.zeros(size, np.int64)
+        self.slot = np.zeros(len(keys), np.int64)
+        for i, key in enumerate(keys):
+            h = _slot_of(key, self.bits)
+            while self.table[h] >= 0 and keys[self.table[h]] != key:
+                h = (h + 1) % size
+            if self.table[h] < 0:
+                self.table[h] = i
+            self.slot[i] = h
+            self.cnt[h] += 1
+
+    def find(self, key):
+        h = _slot_of(key, self.bits)
+        while self.table[h] >= 0:
+            if self.keys[self.table[h]] == key:
+                return h
+            h = (h + 1) % len(self.table)
+        return -1
 
 
-def emulate_join(skeys, spays, s_ends, bkeys, bpays, b_ends, tile=2048,
-                 threads=256):
-    """(counts a bucket, pairs): the count kernel's and the emit
-    kernel's schedule after the count pass' tile sort (emulate_sort_tiles):
-    per bucket, rounds of `threads` big elements, each finding its key in
-    every tile of the small bucket by a lower bound and walking the equal
-    keys (a bucket of one tile in shared memory, the tiles of a larger
-    one where they lie); the emit pass places a round's pairs by an
-    exclusive scan of the round's counts."""
-    nb = len(s_ends)
-    counts = np.zeros(nb, np.int64)
+#: a link the emulated kernel did not write
+UNWRITTEN = -7
+
+
+def _link_tile(tab, skeys, tile_lo, own, every, later, s_hi, links):
+    """link_tile: the elements [own, n) to link listed in order; a key's
+    next after the tile (none, or with `every` its smallest later
+    element); warp 0's walk from the list's end in chunks of 32, each
+    element linked to the nearest later lane of its slot, else to the
+    key's last one seen."""
+    n = len(tab.keys)
+    listed = [t for t in range(own, n)
+              if every or tab.cnt[tab.slot[t]] >= 2]
+    last = {}
+    if every:
+        for j in range(later, s_hi):
+            h = tab.find(skeys[j])
+            if h >= 0 and h not in last:
+                last[h] = j
+    for base in range((len(listed) - 1) // 32 * 32, -1, -32):
+        lanes = listed[base:base + 32]
+        for q, t in enumerate(lanes):
+            g = tab.slot[t]
+            later_lanes = [u for u in lanes[q + 1:] if tab.slot[u] == g]
+            links[tile_lo + t] = tile_lo + later_lanes[0] if later_lanes \
+                else last.get(g, -1)
+        for t in reversed(lanes):
+            last[tab.slot[t]] = tile_lo + t
+
+
+def emulate_join_count(skeys, s_ends, bkeys, b_ends, chunk, tile,
+                       min_bits):
+    """(counts, rec, n_rec, links) of graft_join_count_kernel's schedule:
+    chunk after chunk of the big side (a persistent block takes chunks b,
+    b + grid, ...; first and last bucket from join_items), one table over
+    the small span of the buckets it touches in tiles of `tile`, each big
+    key probed in every tile (counts summed, the head from the first tile
+    that holds the key), links by the chunk that holds a bucket's first
+    big element, records in place order."""
+    m_big = len(bkeys)
+    bits = chunk.bit_length() - 1
+    count_max = (1 << (32 - bits)) - 1
+    starts = np.arange(0, m_big, chunk)
+    first = np.searchsorted(b_ends, starts, side="right")
+    last = np.searchsorted(b_ends, np.minimum(starts + chunk, m_big) - 1,
+                           side="right")
+    counts = np.zeros(len(starts), np.int64)
+    n_rec = np.zeros(len(starts), np.int64)
+    rec = np.full(m_big, -1, np.int64)
+    links = np.full(len(skeys), UNWRITTEN, np.int64)
+    for k, e0 in enumerate(starts):
+        nb = min(chunk, m_big - e0)
+        bf, bl = first[k], last[k]
+        s_lo = s_ends[bf - 1] if bf else 0
+        s_hi = s_ends[bl]
+        own_lo = s_lo if (b_ends[bf - 1] if bf else 0) >= e0 else s_ends[bf]
+        tiled = s_hi - s_lo > tile
+        cnt = np.zeros(nb, np.int64)
+        head = np.full(nb, -1, np.int64)
+        for tile_lo in range(s_lo, s_hi, tile):
+            n = min(tile, s_hi - tile_lo)
+            tab = _Table(skeys[tile_lo:tile_lo + n], min_bits)
+            for p in range(nb):
+                h = tab.find(bkeys[e0 + p])
+                if h >= 0:
+                    cnt[p] += tab.cnt[h]
+                    if head[p] < 0:
+                        head[p] = tile_lo + tab.table[h]
+            if tile_lo + n > own_lo:
+                _link_tile(tab, skeys, tile_lo, max(own_lo - tile_lo, 0),
+                           tiled, max(tile_lo + n, own_lo), s_hi, links)
+        hit = np.nonzero(cnt)[0]
+        rec[e0:e0 + len(hit)] = (head[hit] << 32) | (
+            np.minimum(cnt[hit], count_max) << bits) | hit
+        n_rec[k], counts[k] = len(hit), cnt.sum()
+    return counts, rec, n_rec, links
+
+
+def emulate_join_emit(spays, bpays, rec, n_rec, links, chunk):
+    """graft_join_emit_kernel's schedule: chunk after chunk, its records
+    in order, each its head's chain along the links (a saturated count
+    walked to its end)."""
+    bits = chunk.bit_length() - 1
     pairs = []
-    for b in range(nb):
-        s_lo = s_ends[b - 1] if b else 0
-        b_lo = b_ends[b - 1] if b else 0
-        s_n, b_n = s_ends[b] - s_lo, b_ends[b] - b_lo
-        if s_n == 0 or b_n == 0:
-            continue
-        tiles = [(first, skeys[first:min(first + tile, s_lo + s_n)])
-                 for first in range(s_lo, s_lo + s_n, tile)]
-        for r in range(0, b_n, threads):
-            out = [[] for _ in range(threads)]
-            for t in range(min(threads, b_n - r)):
-                key = bkeys[b_lo + r + t]
-                for first, k in tiles:
-                    i = int(np.searchsorted(k, key))  # lower_bound
-                    while i < len(k) and k[i] == key:
-                        out[t].append((int(spays[first + i]) << 32)
-                                      | int(bpays[b_lo + r + t]))
-                        i += 1
-            counts[b] += sum(len(o) for o in out)
-            for o in out:  # the scan's order: thread after thread
-                pairs += o
-    return counts, np.array(pairs, np.int64)
+    for k, n in enumerate(n_rec):
+        for v in rec[k * chunk:k * chunk + n]:
+            j, c = int(v) >> 32, (int(v) & M32) >> bits
+            pay = int(bpays[k * chunk + (int(v) & (chunk - 1))])
+            if c == (1 << (32 - bits)) - 1:
+                c, i = 1, j
+                while links[i] >= 0:
+                    c, i = c + 1, links[i]
+            for step in range(c):
+                assert j >= 0 and links[j] != UNWRITTEN or step == c - 1
+                pairs.append((int(spays[j]) << 32) | pay)
+                if step + 1 < c:
+                    j = int(links[j])
+    return np.array(pairs, np.int64)
 
 
 def _join_case(tmp_path, case, permuted=True):
@@ -364,73 +429,242 @@ def _join_case(tmp_path, case, permuted=True):
     return (*sj.partition(sk, sp, bits), *sj.partition(bk, bp, bits))
 
 
-@pytest.mark.parametrize("tile,threads", [(2048, 256), (16, 8)])
+#: (chunk, tile, smallest table bits): the kernel's, and tiny ones (chunks
+#: of 8, tables of 8 elements in 16 slots) that chunk every big bucket
+#: and tile every small span of more than 8
+JOIN_PARAMS = [(ft.JOIN_CHUNK, ft.JOIN_TILE, 6), (8, 8, 4)]
+
+
+@pytest.mark.parametrize("chunk,tile,min_bits", JOIN_PARAMS)
 @pytest.mark.parametrize("case", ["random", "insertion_run",
                                   "fastidious_corpus"])
-def test_join_kernel_emulation(tmp_path, case, tile, threads):
+def test_join_kernel_emulation(tmp_path, case, chunk, tile, min_bits):
+    """The count pass' counts, records and links and the emit pass' pairs
+    as the kernels' schedule gives them, against the plain versions
+    (join_record_reference, join_reference) and, on random keys, every
+    equal pair by brute force."""
     skeys, spays, s_ends, bkeys, bpays, b_ends = _join_case(tmp_path, case)
-    sorted_keys, sorted_pays = emulate_sort_tiles(
-        skeys.numpy(), spays.numpy(), s_ends.numpy(), tile)
-    counts, pairs = emulate_join(sorted_keys, sorted_pays, s_ends.numpy(),
-                                 bkeys.numpy(), bpays.numpy(),
-                                 b_ends.numpy(), tile, threads)
+    sk, se, bk, be = (x.numpy() for x in (skeys, s_ends, bkeys, b_ends))
+    counts, rec, n_rec, links = emulate_join_count(sk, se, bk, be, chunk,
+                                                   tile, min_bits)
+    pairs = emulate_join_emit(spays.numpy(), bpays.numpy(), rec, n_rec,
+                              links, chunk)
+    want = ft.join_reference(skeys, spays, bkeys, bpays)
+    assert want.numel() > 0
+    assert np.array_equal(pairs, want.numpy())
+    w_counts, w_record = ft.join_record_reference(skeys, s_ends, bkeys,
+                                                  b_ends, chunk)
+    assert np.array_equal(counts, w_counts.numpy())
+    assert np.array_equal(n_rec, w_record.n_rec.numpy())
+    valid = np.arange(len(bk)) % chunk < np.repeat(n_rec, chunk)[:len(bk)]
+    assert np.array_equal(rec[valid], w_record.rec.numpy()[valid])
+    # every link of a repeated key whose bucket the big side reaches is
+    # written, and written links are the plain ones
+    written = links != UNWRITTEN
+    assert np.array_equal(links[written], w_record.links.numpy()[written])
+    bucket = np.searchsorted(se, np.arange(len(sk)), side="right")
+    reached = np.diff(be, prepend=0)[bucket] > 0
+    repeats = np.unique(sk, return_counts=True)
+    many = np.isin(sk, repeats[0][repeats[1] > 1])
+    assert written[reached & many].all()
     if case == "random":  # every equal pair, once
         eq = torch.nonzero(skeys[:, None] == bkeys[None, :])
         assert sorted(pairs.tolist()) == sorted(
             (spays[eq[:, 0]].long() << 32 | bpays[eq[:, 1]].long()).tolist())
-    # the plain versions on the side as the count pass leaves it
-    keys, pays = (torch.from_numpy(x) for x in (sorted_keys, sorted_pays))
-    want = ft.join_reference(keys, pays, bkeys, bpays)
-    assert np.array_equal(pairs, want.numpy())
-    assert np.array_equal(counts, ft.join_count_reference(keys, bkeys,
-                                                          b_ends).numpy())
-    assert want.numel() > 0
-    if tile == ft.JOIN_TILE:  # the wrappers
+    if chunk == ft.JOIN_CHUNK:  # the wrappers
         assert torch.equal(
             ft.join_pairs(skeys, spays, s_ends, bkeys, bpays, b_ends), want)
-    else:  # some bucket of the small side spans several tiles
-        assert int(torch.diff(s_ends, prepend=s_ends.new_zeros(1)).max()) \
-            > tile
+    else:  # some big bucket spans chunks, some small span several tiles
+        sizes = np.diff(be, prepend=0)
+        assert sizes.max() > chunk
+        assert np.diff(se, prepend=0).max() > tile
 
 
-@pytest.mark.parametrize("tile", [2048, 16])
+def _bucket_ends(sizes):
+    return torch.cumsum(torch.tensor(sizes, dtype=torch.int64), 0)
+
+
+@pytest.mark.parametrize("sizes", [
+    [3, 0, 5, 0, 0, 9, 1, 0],          # small buckets, several to a chunk
+    [0, 0, 0, 0],                       # an empty side
+    [2, 40, 1, 0, 0, 0, 0, 17],         # a bucket over several chunks
+    [0, 1000, 1, 0],                    # a skewed one, the rest tiny
+])
+def test_join_items_cover_every_bucket_in_order(sizes):
+    """join_items: each chunk's first and last bucket hold its first and
+    last element, so the chunks' pieces, taken chunk after chunk, cover
+    every big element once, bucket by bucket, in (bucket, chunk) order."""
+    chunk = 8
+    b_ends = _bucket_ends(sizes)
+    m_big = int(b_ends[-1])
+    first, last = ft.join_items(b_ends, m_big, chunk)
+    assert first.numel() == -(-m_big // chunk)
+    pieces = []
+    for k in range(first.numel()):
+        e0, e1 = k * chunk, min((k + 1) * chunk, m_big)
+        for b in range(int(first[k]), int(last[k]) + 1):
+            lo = max(e0, int(b_ends[b - 1]) if b else 0)
+            hi = min(e1, int(b_ends[b]))
+            if hi > lo:
+                pieces.append((b, k, lo, hi))
+    assert [p[2:] for p in pieces] == sorted(p[2:] for p in pieces)
+    assert [p[:2] for p in pieces] == sorted(p[:2] for p in pieces)
+    covered = np.concatenate([np.arange(lo, hi) for *_, lo, hi in pieces]) \
+        if pieces else np.zeros(0)
+    assert np.array_equal(covered, np.arange(m_big))
+    at = np.searchsorted(b_ends.numpy(), covered, side="right")
+    assert np.array_equal(at, np.concatenate(
+        [np.full(hi - lo, b) for b, _, lo, hi in pieces]) if pieces else at)
+
+
 @pytest.mark.parametrize("case", ["random", "insertion_run",
                                   "fastidious_corpus"])
-def test_join_count_sorts_the_tiles_as_the_network_does(tmp_path, case,
-                                                        tile):
-    """The tile sort's plain version equals the count kernel's emulated
-    network; the sorted side stays partitioned and gives the same pairs,
-    in the same order where the payloads rise with their place;
-    join_count leaves the side so."""
-    for permuted in (True, False):
-        (tmp_path / str(permuted)).mkdir()
-        skeys, spays, s_ends, bkeys, bpays, b_ends = _join_case(
-            tmp_path / str(permuted), case, permuted)
-        keys, pays = ft.sort_tiles_reference(skeys, spays, s_ends, tile)
-        want_keys, want_pays = emulate_sort_tiles(
-            skeys.numpy(), spays.numpy(), s_ends.numpy(), tile)
-        assert np.array_equal(keys.numpy(), want_keys)
-        assert np.array_equal(pays.numpy(), want_pays)
-        assert not torch.equal(keys, skeys)  # some tile was out of order
-        sj._check_partitioned(keys, pays, s_ends)
-        pairs = ft.join_reference(keys, pays, bkeys, bpays)
-        before = ft.join_reference(skeys, spays, bkeys, bpays)
-        assert sorted(pairs.tolist()) == sorted(before.tolist())
-        if not permuted:
-            assert torch.equal(pairs, before)
-        if tile == ft.JOIN_TILE:  # the wrapper, in place
-            ft.join_count(skeys, spays, s_ends, bkeys, b_ends)
-            assert torch.equal(skeys, keys) and torch.equal(spays, pays)
+def test_join_count_leaves_the_small_side_as_it_was(tmp_path, case):
+    skeys, spays, s_ends, bkeys, bpays, b_ends = _join_case(tmp_path, case)
+    before = [x.clone() for x in (skeys, spays, s_ends, bkeys, bpays,
+                                  b_ends)]
+    counts, record = ft.join_count(skeys, s_ends, bkeys, b_ends)
+    ends, total = sj._cumsum_total(counts)
+    pairs = ft.join_emit(spays, bpays, record, ends, total)
+    for x, y in zip(before, (skeys, spays, s_ends, bkeys, bpays, b_ends)):
+        assert torch.equal(x, y)
+    assert torch.equal(pairs, ft.join_reference(skeys, spays, bkeys, bpays))
 
 
-def test_bitonic_network_sorts_by_key_then_place():
-    rng = np.random.default_rng(11)
-    for size in (1, 5, 32, 33, 100, 2048):
-        keys = rng.integers(-3, 3, size) * (1 << 50)
-        k, a = _bitonic(keys, np.arange(size))
-        order = np.lexsort((np.arange(size), keys))
-        assert np.array_equal(k[:size], keys[order])
-        assert np.array_equal(a[:size], order)
+# ---- a numpy emulation of the keygen emit pass' staged stores -------------
+
+def _zob_keys(zob):
+    """Z[p, b] as the int64 key (hi << 32) | lo."""
+    return (zob[..., 0].astype(np.uint64) << np.uint64(32)) | \
+        zob[..., 1].astype(np.uint64)
+
+
+def _xor_scan(v):
+    return np.bitwise_xor.accumulate(v)
+
+
+def emulate_keygen_emit(rows, zob):
+    """(keys, payloads, vector stores) of graft_emit_kernel's schedule on
+    rows (code arrays, in order): per row the iota of payloads (scalar
+    head to a multiple of 4, 16-byte quads, scalar tail), the walk's
+    totals, then per chunk of 32 positions the 6 x 32 keys staged in slot
+    order and written as a scalar head (an odd first key), pairs of keys
+    (16-byte stores, each checked to start on an even key) and a scalar
+    tail; the deletions staged by their rank among the chunk's run
+    starts. Buffers start 16-byte aligned (key 0, payload 0)."""
+    z = _zob_keys(zob)
+    counts = [6 * len(r) + 4 + int((np.diff(r) != 0).sum()) + 1
+              if len(r) else 0 for r in rows]
+    ends = np.cumsum(counts)
+    keys = np.zeros(int(ends[-1]) if rows else 0, np.uint64)
+    pays = np.full(len(keys), -1, np.int64)
+    written = np.zeros(len(keys), np.int64)
+    vector = []
+    for r, row in enumerate(rows):
+        L = len(row)
+        if L == 0:
+            continue
+        out = int(ends[r - 1]) if r else 0
+        a, e = out, int(ends[r])
+        head = min((4 - a % 4) % 4, e - a)
+        pays[a:a + head] = np.arange(a, a + head)
+        a += head
+        quads = (e - a) // 4
+        for i in range(quads):
+            assert (a + 4 * i) % 4 == 0
+            pays[a + 4 * i:a + 4 * i + 4] = np.arange(a + 4 * i, a + 4 * i + 4)
+        pays[a + 4 * quads:e] = np.arange(a + 4 * quads, e)
+        pos = np.arange(L)
+        seq = np.bitwise_xor.reduce(z[pos, row])
+        s_del = np.bitwise_xor.reduce(z[pos[1:] - 1, row[1:]]) if L > 1 \
+            else np.uint64(0)
+        s_ins = np.bitwise_xor.reduce(z[pos + 1, row])
+        keys[out:out + 4] = z[0, :4] ^ s_ins
+        written[out:out + 4] += 1
+        pre0 = pre_del = pre_ins = np.uint64(0)
+        before_chunk = 4
+        del_at = out + 4 + 6 * L
+        for base in range(0, L, 32):
+            p = np.arange(base, min(base + 32, L))
+            c = row[p].astype(np.int64)
+            g0 = z[p, c]
+            gd = np.where(p >= 1, z[np.maximum(p - 1, 0), c], np.uint64(0))
+            gi = z[p + 1, c]
+            inc0, incd, inci = _xor_scan(g0), _xor_scan(gd), _xor_scan(gi)
+            before = np.concatenate([[before_chunk], c[:-1]])
+            start = c != before
+            prefix = pre0 ^ inc0 ^ g0
+            del_after = s_del ^ pre_del ^ incd
+            ins_after = s_ins ^ pre_ins ^ inci
+            stage = np.zeros(6 * len(p), np.uint64)
+            for k in range(3):
+                o = k + (c <= k)
+                stage[k::6] = seq ^ g0 ^ z[p, o]
+                stage[3 + k::6] = prefix ^ g0 ^ ins_after ^ z[p + 1, o]
+            d, cnt = out + 4 + 6 * base, len(stage)
+            hd = min(d % 2, cnt)
+            keys[d:d + hd] = stage[:hd]
+            written[d:d + hd] += 1
+            for i in range((cnt - hd) // 2):
+                at = d + hd + 2 * i
+                assert at % 2 == 0
+                vector.append(at)
+                keys[at:at + 2] = stage[hd + 2 * i:hd + 2 * i + 2]
+                written[at:at + 2] += 1
+            if hd + 2 * ((cnt - hd) // 2) < cnt:
+                keys[d + cnt - 1] = stage[-1]
+                written[d + cnt - 1] += 1
+            dels = (prefix ^ del_after)[start]  # staged by rank
+            keys[del_at:del_at + len(dels)] = dels
+            written[del_at:del_at + len(dels)] += 1
+            del_at += len(dels)
+            pre0 ^= inc0[-1]
+            pre_del ^= incd[-1]
+            pre_ins ^= inci[-1]
+            before_chunk = c[-1]
+        assert del_at == int(ends[r])
+    assert (written == 1).all()  # every key once
+    return keys.view(np.int64), pays, vector
+
+
+@pytest.mark.parametrize("case", ["edge_rows", "runs", "lengths_1_to_80",
+                                  "empty_side"])
+def test_keygen_emit_emulation(tmp_path, case):
+    """The staged emit's keys and payloads equal variant_keys_reference
+    and an iota, row after row, with chunk spans starting on odd and even
+    keys (the scalar head), partial last chunks (the tail) and rows whose
+    payload span starts anywhere in a quad."""
+    from swarm_tpu_torch.corpora import ragged_edge_rows
+
+    rows = {"edge_rows": lambda: ragged_edge_rows(
+                lengths=(1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127)),
+            "runs": lambda: _run_rows(4),
+            "lengths_1_to_80": lambda: [
+                np.random.default_rng(L).integers(0, 4, L).astype(np.uint8)
+                for L in range(1, 81)],
+            "empty_side": lambda: _run_rows(5)}[case]()
+    db = make_db(tmp_path, rows_records(rows))
+    amps = np.arange(len(db)) if case != "empty_side" else np.arange(0)
+    rows3, want, _, _ = _port_side(db, amps)
+    zob = ft.make_zobrist_pair(int(db.lengths.max()))
+    side = [db.codes[db.offsets[a]:db.offsets[a] + db.lengths[a]]
+            for a in amps]
+    keys, pays, vector = emulate_keygen_emit(side, zob)
+    assert np.array_equal(keys, want.numpy())
+    assert np.array_equal(pays, np.arange(len(keys)))
+    if case == "empty_side":
+        assert len(keys) == 0
+        return
+    ids = torch.from_numpy(amps.astype(np.int64))
+    ends, total = sj._cumsum_total(ft.keygen_count(*rows3, ids))
+    got_keys, got_pays = ft.keygen_emit(*rows3, ids,
+                                        ft.zobrist_tensor(zob, "cpu"), ends,
+                                        total)
+    assert np.array_equal(got_keys.numpy(), keys)
+    assert np.array_equal(got_pays.numpy(), pays)
+    outs = (ends - ends.diff(prepend=ends.new_zeros(1))).numpy()
+    assert {int(o) % 2 for o in outs} == {0, 1} and vector  # both spans
+    assert len({int(o) % 4 for o in outs}) > 2  # payload heads of 0-3
 
 
 # ---- the dispatch in models/d1.py ----------------------------------------
