@@ -38,27 +38,34 @@ final line:
    rows sharing a key, on a run of 4,504 (a bucket beyond the join's
    shared-memory tile: its oversized variant), on rows of mixed lengths
    at the edges of the ragged layout (1 to 5,003 nt), and on the d1_1m
-   and d1_mixed_1m corpora, which are also timed: each kernel's passes,
-   the pack with its bound, torch.sort + torch.take of the keys (the
-   parent's grouping step, d1_partition's library call) with both peaks
+   and d1_mixed_1m corpora, which are also timed: each kernel's passes
+   (d1_verify alone behind a busy kernel and as its wrapper's call
+   reads), the pack with its bound, torch.sort + torch.take of the keys
+   (the parent's grouping step, d1_partition's library call) with both peaks
    of device memory, the plain versions, and the arena's copy to the
    card from pageable and from pinned memory;
 5. the graft kernels graft_keygen (count and emit), graft_join and
    graft_verify against their plain versions on the card, exactly (keys
    and payloads; the join's counts and records a chunk, its pairs in the
    kernel's order, both sides unwritten; flags and each light row's
-   smallest heavy one), with the sides partitioned by d1_partition, and
-   the engine against the native host join: on ragged edge rows (1 to
-   5,003 nt), a run of 4,204 rows sharing a variant (a light bucket
-   beyond the join's 1,024-element table, so tiled), an empty side, and
-   the sides that a `-d 1 -f` run of each fastidious corpus hands the
-   engine, which are also timed (each kernel's passes, keygen's emit a
-   side, also with its total read back in each call, the plain versions,
-   d1_partition of both sides, and torch.sort + torch.take of both
-   sides' keys as the join's library yardstick); graft_join also on
-   skewed buckets (small ones of ~6 tables against big ones of ~50
-   chunks) and on random sides at the asymmetric corpus' scale (its
-   199 M big keys against 1 small key and against its 4.1 M), timed;
+   smallest heavy one, on the join's pairs and on 4,096 pairs of random
+   keys), with the sides partitioned by d1_partition, and the engine
+   against the native host join: on ragged edge rows (1 to 5,003 nt),
+   rows two edits from a base row with the edits on the verify's word
+   edges (graft_edge_rows: positions 15, 16, 31, 32 and the last,
+   appended bases, deletions inside runs, rows of 1 to 5,006 nt), a run
+   of 4,204 rows sharing a variant (a light bucket beyond the join's
+   1,024-element table, so tiled), an empty side (graft_verify timed
+   alone on each side with pairs), and the sides that a `-d 1 -f` run of each
+   fastidious corpus hands the engine, which are also timed (each
+   kernel's passes, keygen's emit a side, also with its total read back
+   in each call, the verify alone behind a busy kernel and as its
+   wrapper's call reads, the plain versions, d1_partition of both
+   sides, and torch.sort + torch.take of both sides' keys as the join's
+   library yardstick); graft_join also on skewed buckets (small ones of
+   ~6 tables against big ones of ~50 chunks) and on random sides at the
+   asymmetric corpus' scale (its 199 M big keys against 1 small key and
+   against its 4.1 M), timed;
 6. main paths through swarm_tpu_torch.main.run, each with a warm-up
    run, then one timed run with every kernel's launch count set to 0
    before it and read after it, then the port's native C engine
@@ -199,6 +206,27 @@ def busy_kernel(dev):
             raise AssertionError("probe kernel failed to launch")
 
     return launch
+
+
+def launch_floor_ms(busy):
+    """Milliseconds of an empty kernel (one block, no steps of
+    csrc/probe.cu) queued behind the busy kernel: what any launch
+    costs the card."""
+    return cuda_ms(lambda: busy(iters=0, blocks=1), 200, busy)
+
+
+def alone_and_wrapper_ms(call, busy, reset=None):
+    """(alone_ms, wrapper_ms) of one call: queued behind the busy kernel,
+    `reset` run once before (the kernel's own time), and with `reset`
+    inside each call and no busy kernel, as the verifies were first
+    timed (the wrapper's host time in the reading where it outlasts the
+    kernel)."""
+    if reset is not None:
+        reset()
+    alone = cuda_ms(call, 20, busy)
+    if reset is None:
+        return alone, cuda_ms(call, 10)
+    return alone, cuda_ms(lambda: (reset(), call()), 10)
 
 
 def bound(n_bytes, n_ops):
@@ -505,9 +533,9 @@ def phase_nw_scores(dev, fasta):
 
     mm, go, ge, B = 18, 24, 13, 4  # default scores at d = 2
     busy = busy_kernel(dev)
-    launch_floor_ms = cuda_ms(lambda: busy(iters=0, blocks=1), 200, busy)
+    floor_ms = launch_floor_ms(busy)
     say(f"launch floor: an empty kernel (1 block, 0 steps of csrc/probe.cu) "
-        f"launch_floor_ms={launch_floor_ms:.5f}")
+        f"launch_floor_ms={floor_ms:.5f}")
 
     def banded(some_ids):
         return nw_scores.banded_scores(
@@ -546,7 +574,7 @@ def phase_nw_scores(dev, fasta):
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "chain_ms": chain_ms, "saturated_ms": saturated_ms,
         "saturated_bound_ms": saturated_bound_ms,
-        "launch_floor_ms": launch_floor_ms}
+        "launch_floor_ms": floor_ms}
 
     ms = cuda_ms(lambda: nw_scores.full_scores(
         al.padded, al.lengths, seed_id, ids, mm, go, ge), 10)
@@ -854,7 +882,10 @@ def d1_timed(name, fasta, dev):
     del pkeys, powners, bucket_ends
 
     dedup_ms = cuda_ms(lambda: _dedup(cand), 5)
-    ms = cuda_ms(lambda: sj.verify_pairs(words, row_word, lengths, uniq), 10)
+    busy = busy_kernel(dev)
+    floor_ms = launch_floor_ms(busy)
+    ms, wrapper_ms = alone_and_wrapper_ms(
+        lambda: sj.verify_pairs(words, row_word, lengths, uniq), busy)
     plain_ms = cuda_ms(lambda: sj.verify_ragged_reference(
         words, row_word, lengths, uniq), 1)
     a, b = sj.pair_ids(uniq)
@@ -868,12 +899,15 @@ def d1_timed(name, fasta, dev):
     bound_ms, bound_by = bound(n_bytes, n_ops)
     say(f"kernel d1_verify timed {name}: pairs={uniq.numel()} "
         f"rows_read={read.numel()} words_walked={walked} "
-        f"at_distance_1={int(ok.sum())} kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.3f} dedup_ms={dedup_ms:.3f} bytes={n_bytes} "
-        f"ops={n_ops} bound_ms={bound_ms:.4f} ({bound_by})")
+        f"at_distance_1={int(ok.sum())} kernel_ms={ms:.4f} (alone, "
+        f"behind the busy kernel) wrapper_ms={wrapper_ms:.4f} "
+        f"launch_floor_ms={floor_ms:.5f} plain_ms={plain_ms:.3f} "
+        f"dedup_ms={dedup_ms:.3f} bytes={n_bytes} ops={n_ops} "
+        f"bound_ms={bound_ms:.4f} ({bound_by})")
     result["d1_verify"] = {
         "max_abs_err": errs["d1_verify"], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "wrapper_ms": wrapper_ms, "launch_floor_ms": floor_ms,
         "dedup_ms": dedup_ms}
     return result, {"h2d_pageable_ms": pageable_ms,
                     "h2d_pinned_ms": pinned_ms}
@@ -959,12 +993,14 @@ def join_check(skeys, spays, s_buckets, bkeys, bpays, b_buckets):
 def graft_check(name, db, heavy, light, dev, small_is_heavy=None):
     """graft_keygen (count and emit, both sides), graft_join (the sides
     partitioned by d1_partition into the same buckets; counts, records,
-    pairs, both sides unwritten) and graft_verify
-    (flags, each light row's smallest heavy one) against their plain
-    versions on the same card tensors, and the engine against the native
-    host join; returns the max_abs_err of each and the tensors. The
-    kernels take the side of fewer keys as the small one, as the engine
-    does, unless `small_is_heavy` says which."""
+    pairs, both sides unwritten) and graft_verify (flags, each light
+    row's smallest heavy one; on the join's pairs and on RANDOM_PAIRS
+    pairs of random keys of the two sides, whose variants mostly differ,
+    in length too) against their plain versions on the same card
+    tensors, and the engine against the native host join; returns the
+    max_abs_err of each and the tensors (the join's pairs and their
+    flags). The kernels take the side of fewer keys as the small one, as
+    the engine does, unless `small_is_heavy` says which."""
     import numpy as np
     import torch
 
@@ -1013,20 +1049,29 @@ def graft_check(name, db, heavy, light, dev, small_is_heavy=None):
     bkeys, bpays, b_buckets = sj.partition(bkeys, bpays, bits)
     e_join, pairs = join_check(skeys, spays, s_buckets, bkeys, bpays,
                                b_buckets)
+    checked = torch.cat([pairs, random_pairs(skeys.numel(), bkeys.numel(),
+                                             dev)])
     best = torch.full((len(db),), 2**31 - 1, dtype=torch.int32, device=dev)
     want_best = best.clone()
     ok = ft.verify(words, row_word, lengths, s_ids, s_ends, b_ids, b_ends,
-                   pairs, small_is_heavy, best)
+                   checked, small_is_heavy, best)
     want_ok = ft.verify_reference(words, row_word, lengths, s_ids, s_ends,
-                                  b_ids, b_ends, pairs)
-    ft.best_reference(s_ids, s_ends, b_ids, b_ends, pairs[want_ok],
+                                  b_ids, b_ends, checked)
+    ft.best_reference(s_ids, s_ends, b_ids, b_ends, checked[want_ok],
                       small_is_heavy, want_best)
     e_verify = max(err(ok, want_ok), err(best, want_best))
+    random_ok = int(ok[pairs.numel():].sum())
+    ok = ok[:pairs.numel()]
     count, cand = ft.GraftEngine(db, dev).graft_candidates(heavy, light)
     native = _native.graft_join(db.codes, db.offsets, db.lengths, len(db),
                                 heavy, light)
     n_count, n_cand = native if native is not None else (
         0, np.full(len(db), -1))
+    # the native joins emit no deletion of a 1-nt row, so they do not
+    # count the empty midpoint of a heavy and a light 1-nt row; the
+    # engine counts it, as swarm_tpu's GraftEngine does
+    one = db.lengths == 1
+    empty_midpoints = int(one[heavy].sum()) * int(one[light].sum())
     torch.cuda.synchronize()
     sizes = torch.diff(s_buckets, prepend=s_buckets.new_zeros(1))
     say(f"kernels graft {name}: rows={len(db)} heavy={len(heavy)} "
@@ -1034,13 +1079,17 @@ def graft_check(name, db, heavy, light, dev, small_is_heavy=None):
         f" keys={skeys.numel()}+{bkeys.numel()} bucket_bits={bits} "
         f"largest_small_bucket={int(sizes.max()) if sizes.numel() else 0} "
         f"empty_small_buckets={int((sizes == 0).sum())} "
-        f"pairs={pairs.numel()} verified={int(ok.sum())} engine_count="
-        f"{count} native_count={n_count} max_abs_err keygen={e_keygen} "
+        f"pairs={pairs.numel()} verified={int(ok.sum())} random_pairs="
+        f"{checked.numel() - pairs.numel()} (verified {random_ok}) "
+        f"engine_count="
+        f"{count} native_count={n_count} (empty midpoints it does not "
+        f"count: {empty_midpoints}) max_abs_err keygen={e_keygen} "
         f"join={e_join} verify={e_verify}")
     if e_keygen or e_join or e_verify:
         raise AssertionError(f"a graft kernel disagrees with its plain "
                              f"version on {name}")
-    if count != n_count or not np.array_equal(cand, n_cand):
+    if count != n_count + empty_midpoints or \
+            not np.array_equal(cand, n_cand):
         raise AssertionError(f"{name}: the graft engine disagrees with the "
                              f"native join")
     return {"graft_keygen": e_keygen, "graft_join": e_join,
@@ -1048,6 +1097,37 @@ def graft_check(name, db, heavy, light, dev, small_is_heavy=None):
                                         small_is_heavy, sides, skeys, spays,
                                         s_buckets, bkeys, bpays, b_buckets,
                                         pairs, ok)
+
+
+def random_pairs(s_keys, b_keys, dev):
+    """RANDOM_PAIRS pairs (spay << 32) | bpay of random payloads of two
+    sides of s_keys and b_keys keys (none if a side has none)."""
+    import torch
+
+    if not s_keys or not b_keys:
+        return torch.zeros(0, dtype=torch.int64, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(RANDOM_PAIRS["seed"])
+    n = RANDOM_PAIRS["pairs"]
+    return (torch.randint(0, s_keys, (n,), generator=g, device=dev) << 32) \
+        | torch.randint(0, b_keys, (n,), generator=g, device=dev)
+
+
+def verify_timed(busy, words, row_word, lengths, s_ids, s_ends, b_ids,
+                 b_ends, pairs, small_is_heavy):
+    """(alone_ms, wrapper_ms) of graft_verify on `pairs`: queued behind
+    the busy kernel with `best` filled once before, and as first timed
+    (`best` filled inside each call, no busy kernel)."""
+    import torch
+
+    from swarm_tpu_torch.ops import fastidious_torch as ft
+
+    best = torch.empty(lengths.numel(), dtype=torch.int32,
+                       device=lengths.device)
+    return alone_and_wrapper_ms(
+        lambda: ft.verify(words, row_word, lengths, s_ids, s_ends, b_ids,
+                          b_ends, pairs, small_is_heavy, best), busy,
+        lambda: best.fill_(2**31 - 1))
 
 
 def _graft_sides(name, fasta, work):
@@ -1282,10 +1362,11 @@ def graft_timed(name, fasta, dev, work):
         b_buckets, {"library_ms": sort_ms, "partition_ms": part_ms},
         f"partition_ms={part_ms:.4f} (d1_partition of both sides)")
 
-    best = torch.empty(lengths.numel(), dtype=torch.int32, device=dev)
-    ms = cuda_ms(lambda: ft.verify(words, row_word, lengths, s_ids, s_ends,
-                                   b_ids, b_ends, pairs, small_is_heavy,
-                                   best.fill_(2**31 - 1)), 10)
+    busy = busy_kernel(dev)
+    floor_ms = launch_floor_ms(busy)
+    ms, wrapper_ms = verify_timed(busy, words, row_word, lengths, s_ids,
+                                  s_ends, b_ids, b_ends, pairs,
+                                  small_is_heavy)
     plain_ms = cuda_ms(lambda: ft.verify_reference(
         words, row_word, lengths, s_ids, s_ends, b_ids, b_ends, pairs), 1)
     s_amp, _ = ft.decode_payloads(s_ids, s_ends, pairs >> 32)
@@ -1302,48 +1383,82 @@ def graft_timed(name, fasta, dev, work):
     bound_ms, bound_by = bound(n_bytes, OPS_PER_GRAFT_BASE * compared)
     say(f"kernel graft_verify timed {name}: pairs={pairs.numel()} "
         f"rows_read={read.numel()} bases_compared={compared} "
-        f"verified={int(ok.sum())} kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
-        f"bytes={n_bytes} bound_ms={bound_ms:.4f} ({bound_by})")
+        f"verified={int(ok.sum())} kernel_ms={ms:.4f} (alone, behind the "
+        f"busy kernel) wrapper_ms={wrapper_ms:.4f} launch_floor_ms="
+        f"{floor_ms:.5f} plain_ms={plain_ms:.3f} bytes={n_bytes} "
+        f"bound_ms={bound_ms:.5f} ({bound_by})")
     result["graft_verify"] = {
         "max_abs_err": errs["graft_verify"], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "wrapper_ms": wrapper_ms, "launch_floor_ms": floor_ms,
+        "pairs": pairs.numel()}
     return result
+
+
+def graft_edges(dev):
+    """The graft kernels against their plain versions on the ragged edge
+    rows, the word-edge rows of graft_edge_rows, a long insertion run
+    whose light bucket outgrows the join's table, and an empty side;
+    graft_verify timed alone on each side's pairs. Returns the worst
+    max_abs_err of each kernel and the verify's {side: (pairs, alone
+    ms)}."""
+    import numpy as np
+
+    from swarm_tpu_torch.corpora import (
+        graft_edge_rows, insertion_run, make_db, ragged_edge_rows,
+        record_index, rows_records)
+
+    def every(k):
+        return lambda db: np.arange(len(db)) % k != 0 if k else \
+            np.zeros(len(db), dtype=bool)
+
+    edge_rows, edge_light = graft_edge_rows()
+    worst = dict.fromkeys(GRAFT_KERNELS, 0)
+    timed = {}
+    busy = busy_kernel(dev)
+    with tempfile.TemporaryDirectory(prefix="graft_edges_") as tmp:
+        for case, rows, light_of in (
+                ("ragged_edge_rows", ragged_edge_rows(), every(2)),
+                ("graft_edge_rows", edge_rows,
+                 lambda db: edge_light[record_index(db)]),
+                ("long_insertion_run", insertion_run(length=LONG_GRAFT_RUN),
+                 every(500)),
+                ("empty_side", insertion_run(), every(None))):
+            (Path(tmp) / case).mkdir()
+            db = make_db(Path(tmp) / case, rows_records(rows))
+            light = light_of(db)
+            # the long run's light side as the small one: its bucket
+            # of 4,196 equal keys spans five tables, linked across
+            errs, (words, row_word, lengths, _, small_is_heavy, sides, *_,
+                   pairs, _) = graft_check(
+                case, db, np.nonzero(~light)[0], np.nonzero(light)[0],
+                dev, False if case == "long_insertion_run" else None)
+            worst = {k: max(worst[k], errs[k]) for k in worst}
+            if pairs.numel():
+                (s_ids, s_ends, _, _), (b_ids, b_ends, _, _) = sides
+                ms, _ = verify_timed(busy, words, row_word, lengths, s_ids,
+                                     s_ends, b_ids, b_ends, pairs,
+                                     small_is_heavy)
+                timed[case] = (pairs.numel(), ms)
+                say(f"kernel graft_verify timed {case}: pairs="
+                    f"{pairs.numel()} kernel_ms={ms:.4f} (alone)")
+    return worst, timed
 
 
 def phase_graft_kernels(dev, corpus, work, edges):
     """The graft kernels against their plain versions (with `edges`, also
-    on the ragged edge rows, a long insertion run whose light bucket
-    outgrows the join's table, and an empty side) and timed on the
-    fastidious corpora of `corpus`; returns the three kernels' rows
-    (d1_fastidious_200k's, with the asymmetric corpus' beside them)."""
-    import numpy as np
-
-    from swarm_tpu_torch.corpora import (
-        insertion_run, make_db, ragged_edge_rows, rows_records)
-
+    on graft_edges' sides) and timed on the fastidious corpora of
+    `corpus`; returns the three kernels' rows (d1_fastidious_200k's, with
+    the asymmetric corpus' beside them)."""
     worst = dict.fromkeys(GRAFT_KERNELS, 0)
     if edges:
-        with tempfile.TemporaryDirectory(prefix="graft_edges_") as tmp:
-            for case, rows, every in (
-                    ("ragged_edge_rows", ragged_edge_rows(), 2),
-                    ("long_insertion_run",
-                     insertion_run(length=LONG_GRAFT_RUN), 500),
-                    ("empty_side", insertion_run(), None)):
-                (Path(tmp) / case).mkdir()
-                db = make_db(Path(tmp) / case, rows_records(rows))
-                light = np.arange(len(db)) % every != 0 if every else \
-                    np.zeros(len(db), dtype=bool)
-                # the long run's light side as the small one: its bucket
-                # of 4,196 equal keys spans five tables, linked across
-                errs, _ = graft_check(
-                    case, db, np.nonzero(~light)[0], np.nonzero(light)[0],
-                    dev, False if case == "long_insertion_run" else None)
-                worst = {k: max(worst[k], errs[k]) for k in worst}
+        worst, timed = graft_edges(dev)
     result = graft_timed("d1_fastidious_200k", corpus["d1_fastidious_200k"],
                          dev, work)
     for kernel, row in result.items():
         row["max_abs_err"] = max(row["max_abs_err"], worst[kernel])
     if edges:
+        result["graft_verify"]["edge_sides_ms"] = timed
         result["graft_join"]["skewed_buckets"] = graft_join_skewed(dev)
         result["graft_join"]["random_sides"] = graft_join_random(dev)
     if "d1_fastidious_asym_200k" in corpus:
@@ -1563,6 +1678,9 @@ SKEWED_JOIN = {"seed": 20261017, "distinct": 6_000, "small": 24_000,
 #: those drawn from the big side, in its 2^18 buckets
 RANDOM_JOIN = {"seed": 20261018, "big": 199_146_219,
                "small": (1, 4_148_705), "bits": 18}
+#: random pairs of keys of the two sides that the graft verify takes
+#: beside the join's pairs in every graft check
+RANDOM_PAIRS = {"seed": 20261019, "pairs": 4096}
 #: bench.py's config 4 (d1_fastidious) and the writers
 FASTIDIOUS_FLAGS = ["-d", "1", "-f", "-y", "12", "-o", "out.txt", "-s",
                     "stats.txt", "-i", "structure.txt"]

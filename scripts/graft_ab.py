@@ -2,16 +2,20 @@
 """The graft phase of one checkout's own chip_smoke.py, so that two
 checkouts' graft kernels can be compared in one call:
 
-    python3 scripts/graft_ab.py --work DIR [--tree CHECKOUT]
+    python3 scripts/graft_ab.py --work DIR [--tree CHECKOUT] [--edges]
 
 imports the chip_smoke.py and swarm_tpu_torch of CHECKOUT (default: this
 one), makes the two fastidious corpora in DIR, and runs that script's
 timed graft phase on them (phase_graft_kernels without the edge cases,
-then graft_join_skewed): every time is chip_smoke.py's own, read by the
-checkout's own code. Prints the phase's lines and one JSON line
-{"ab": {card, tree, kernels}}. Run two checkouts in turns inside one
-call (A, B, B, A): a `git archive` of the other commit unpacked into a
-git-ignored directory, such as _dev/.
+then graft_join_skewed; with --edges first graft_edges, the edge sides
+checked and the verify timed alone on each): every time is
+chip_smoke.py's own, read by the checkout's own code. Prints the
+phase's lines and one JSON line {"ab": {card, tree, verify, kernels}},
+`verify` holding graft_verify's times a cell: alone (behind the busy
+kernel), as the wrapper's call reads without it, and the launch floor.
+Run two checkouts in turns inside one call (A, B, B, A): a `git
+archive` of the other commit unpacked into a git-ignored directory,
+such as _dev/.
 """
 
 import argparse
@@ -28,6 +32,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--work", type=Path, required=True)
     ap.add_argument("--tree", type=Path, default=REPO)
+    ap.add_argument("--edges", action="store_true",
+                    help="also chip_smoke.py's graft_edges")
     args = ap.parse_args()
     tree = args.tree.resolve()
     sys.path.insert(0, str(tree))
@@ -52,11 +58,18 @@ def main():
     dev = torch.device("cuda", 0)
     work = args.work.resolve() / tree.name
     work.mkdir(parents=True, exist_ok=True)
+    edge_sides = cs.graft_edges(dev)[1] if args.edges else {}
     rows = cs.phase_graft_kernels(dev, cs.make_corpora(work, CELLS), work,
                                   edges=False)
     rows["graft_join"]["skewed_buckets"] = cs.graft_join_skewed(dev)
+    verify = {cell: {k: row[k] for k in ("ms", "wrapper_ms",
+                                         "launch_floor_ms", "pairs")}
+              for cell, row in ((CELLS[0], rows["graft_verify"]),
+                                (CELLS[1], rows["graft_verify"][CELLS[1]]))}
+    verify["edge_sides_ms"] = edge_sides
     print(json.dumps({"ab": {"card": card, "tree": str(tree),
-                             "kernels": rows}}), flush=True)
+                             "verify": verify, "kernels": rows}}),
+          flush=True)
     return 0
 
 

@@ -23,6 +23,8 @@ run on the card and a run on the CPU see the same sequences.
   one run of 125 rows that share one key.
 - ``ragged_edge_rows``: rows of mixed lengths on the edges of the
   ragged layout (1 to 5,003 nt), with their neighbours at distance 1.
+- ``graft_edge_rows``: heavy rows and light rows two edits from them,
+  whose graft pairs put the edits on the verify's word edges.
 - ``mixed_length_corpus``: gen_corpus' clouds around centres of mixed
   lengths (V4, V3-V4, full-length 16S, long reads, and centres on JAX's
   width-bucket edges): the d1_mixed_1m corpus.
@@ -30,7 +32,8 @@ run on the card and a run on the CPU see the same sequences.
   low-abundance satellites 2 and 3 edits from a cloud member, the light
   swarms of a `-f` run: the d1_fastidious_200k (balanced) and
   d1_fastidious_asym_200k (a few thousand light amplicons) corpora.
-- ``read_db``, ``make_db``: a corpus as a Db, read back through db_read.
+- ``read_db``, ``make_db``: a corpus as a Db, read back through db_read;
+  ``record_index``: where each of its amplicons came from.
 """
 
 import io
@@ -556,6 +559,59 @@ def ragged_edge_rows(seed=20260825, lengths=RAGGED_EDGE_LENGTHS):
     return out
 
 
+#: base-row lengths of graft_edge_rows: one base, around one, two and
+#: three 16-base words, and the longest reads of a mixed corpus
+GRAFT_EDGE_LENGTHS = (1, 2, 15, 16, 17, 31, 32, 33, 48, 5004)
+
+
+def graft_edge_rows(seed=20261019, lengths=GRAFT_EDGE_LENGTHS):
+    """(rows, light): distinct code rows and which are light, whose graft
+    pairs put the verify's edits on the edges of its 16-base words. For
+    each length L a random base row, heavy, and light rows two edits from
+    it (so that every pair's midpoint is one edit from both): a
+    substitution, deletion or insertion at positions 0, 15, 16, 31, 32
+    and L - 1 (those below L), each with a base appended after the last
+    one or with a random second edit. From L = 48 on, the base row holds
+    a run over 12-19 (across position 16) and one over 32-39 (starting
+    on a word), so that the deletions at 15, 16 and 32 lie inside runs.
+    The light rows are L - 2 to L + 2 bases long."""
+    rng = np.random.default_rng(seed)
+    rows, light, seen = [], [], set()
+
+    def add(row, is_light):
+        row = np.asarray(row, dtype=np.uint8)
+        if len(row) and row.tobytes() not in seen:
+            seen.add(row.tobytes())
+            rows.append(row)
+            light.append(is_light)
+
+    def edit(v, kind, p):
+        if kind == 0:
+            v = v.copy()
+            v[p] = (v[p] + 1 + rng.integers(0, 3)) % 4
+            return v
+        if kind == 1:
+            return np.delete(v, p)
+        return np.insert(v, p, rng.integers(0, 4))
+
+    for L in lengths:
+        base = rng.integers(0, 4, size=L).astype(np.uint8)
+        if L >= 48:
+            for lo, hi in ((12, 20), (32, 40)):
+                c = base[lo]
+                base[lo:hi] = c
+                base[lo - 1] = base[hi] = (c + 1) % 4
+        add(base, False)
+        for p in sorted({p for p in (0, 15, 16, 31, 32, L - 1) if p < L}):
+            for kind in range(3):
+                one = edit(base, kind, p)
+                add(np.append(one, rng.integers(0, 4)), True)
+                if len(one):
+                    q = int(rng.integers(0, len(one)))
+                    add(edit(one, int(rng.integers(0, 3)), q), True)
+    return rows, np.array(light, dtype=bool)
+
+
 def insertion_run(seed=20260822, length=40):
     """A random row of `length` codes and every distinct single insertion
     of it (3 * length + 4 rows): all of them share the row's own key, so
@@ -577,6 +633,14 @@ def rows_records(rows, seed=20260823):
     rng = np.random.default_rng(seed)
     return [_record(f"r{i}", int(rng.integers(1, 50)), r)
             for i, r in enumerate(rows)]
+
+
+def record_index(db):
+    """[n] int64: the index, in the list given to rows_records, of each
+    amplicon of a Db read from its records (db_read sorts by
+    abundance)."""
+    return np.array([int(h[1:h.index(b"_")]) for h in db.headers],
+                    dtype=np.int64)
 
 
 def read_db(path: Path):

@@ -122,14 +122,41 @@
 // at ~30% of that, held by each chunk's table work and barriers, not by
 // its reads (scripts/graft_ab.py times it without small keys).
 //
-// Verify. One thread a pair: each payload's row is found in its side's
-// ends (binary search), its slot decoded (a deletion's position is the
-// rank-th run start, counted by popcounts word by word), and the two
-// variants compared base by base, each base read from the packed row. A
-// pair of equal variants is a verified graft candidate: ok[pair] and an
-// atomicMin of the heavy amplicon into best[light] (the smallest heavy
-// amplicon a light one meets, JAX's lexsort and first-of-run). What bounds
-// it: bytes, the two rows of a pair.
+// Verify. A group of kVerifyLanes (16) lanes a pair, two pairs a warp.
+// A pair is a chain of round trips to memory, each needing the one
+// before, so the design is about having few of them, and few
+// instructions a pair: the card's time follows the instructions it
+// issues once the pairs fill it. Rows: each payload's row is found in
+// its side's ends by a k-ary search, each lane reading one pivot a
+// round, both sides' pivots loaded together: the first round's pivots
+// lie every 8 rows around the row the payload would be in if all rows
+// had as many keys (64 rows either way), which on reads of similar
+// lengths leaves fewer than 16 rows in one round, where a binary search
+// of 150,000 rows takes 18 dependent loads; later rounds split what is
+// left evenly (n rows become n / 17). The last round reads the
+// remaining rows' ends, the end before each and their ids at once, and
+// a ballot picks the row. Slots decode as in the slot order above; a
+// deletion's position, the rank-th run start, comes from popcounts of
+// the words' run-start masks, a word a lane, scanned across the group.
+// Compare: lane j builds word j of each variant (16 bases) from the
+// source's words j - 1, j and j + 1, reading the code a base is chosen
+// against with them: a substitution replaces one 2-bit field, a
+// deletion takes the fields from its position on from the pair (j, j +
+// 1) shifted down one field (__funnelshift_r), an insertion the fields
+// after its base from the pair (j - 1, j) shifted up one
+// (__funnelshift_l); fields past the variant's length are zero, as the
+// rows' are. Lengths first, then one __all_sync a pass of 16 words (256
+// bases: one pass for a read of ~150 nt, 20 for 5 kb). A verified pair
+// sets ok[pair] and lowers best[light] by atomicMin to the heavy
+// amplicon (the smallest heavy amplicon a light one meets, JAX's
+// lexsort and first-of-run). What bounds it: bytes (the pair, its
+// flag, each row's words, id, length and key ends), ~1.5 us at the
+// fastidious cells' 5 MB, below an empty launch (~2 us); the realistic
+// floor is the launch and one chain: the pair, the first round, the
+// last, the row's start and length, its words. On an H100 a cell of
+// 5,435 pairs (one wave) takes ~4x the launch; one of 63,009 takes ~5x
+// that, the same with 6 or 8 blocks an SM: held by the instructions a
+// pair issues, not by the chains in flight (PERF.md).
 //
 // Ragged rows are those of csrc/ragged_rows.cuh (row_word, 2-bit codes, zero
 // past the length); every kernel traps on a row that does not fit the
@@ -844,74 +871,209 @@ __global__ void __launch_bounds__(kJoinThreads)
 
 // ---- verify ----
 
-struct Variant {
-  const uint32_t *src;  // the source row's words
-  int32_t amp;
-  int type;  // 0 substitution, 1 deletion, 2 insertion
-  int pos;   // the edit's place in the variant
-  uint32_t base;
-  int len;   // the variant's length
+constexpr int kVerifyLanes = 16;  // a pair's group of lanes
+enum : int { kSub = 0, kDel = 1, kIns = 2 };
+
+// A group of G lanes of a warp that works on one pair
+template <int G>
+struct Group {
+  unsigned mask;  // its lanes in the warp
+  int first;      // its first lane in the warp
+  int lane;       // this lane's place in the group
+
+  __device__ __forceinline__ Group() {
+    const int w = threadIdx.x & 31;
+    first = w & ~(G - 1);
+    lane = w & (G - 1);
+    mask = G == 32 ? kFull : ((1u << G) - 1u) << first;
+  }
+  // the group's lanes whose pred holds, bit i for its lane i
+  __device__ __forceinline__ unsigned ballot(bool pred) const {
+    return (__ballot_sync(mask, pred) & mask) >> first;
+  }
+  template <class T>
+  __device__ __forceinline__ T from(T v, int src) const {
+    return __shfl_sync(mask, v, src, G);
+  }
 };
 
-// the variant of key `pay` of a side (its rows ids, ends = inclusive cumsum
-// of their key counts)
-__device__ Variant decode(const uint32_t *words, int64_t n_words,
-                          const int64_t *row_word, const int32_t *lengths,
-                          int64_t n, const int64_t *ids, const int64_t *ends,
-                          int64_t rows, int64_t pay) {
-  int64_t lo = 0, hi = rows;  // the first row whose end is past pay
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (ends[mid] <= pay)
-      lo = mid + 1;
-    else
-      hi = mid;
+// The search for the row of a side (ends: inclusive cumsum of its rows'
+// key counts) whose keys hold a payload: the first row whose end is past
+// it, somewhere in [lo, hi] (hi == rows: past the side)
+struct Find {
+  const int64_t *ends;
+  const int64_t *ids;
+  int64_t rows, total, pay, lo, hi;  // total: the side's keys
+};
+
+// Lane s's pivot in [lo, hi) of the first round: around the row the
+// payload would lie in if every row had as many keys (pay * rows /
+// total), every G / 2 rows (for 16 lanes, -64 to +56), clamped; of a
+// later round, G points splitting [lo, hi) in G + 1
+template <int G>
+__device__ __forceinline__ int64_t pivot(const Find &f, int s, bool guided) {
+  if (!guided) return f.lo + (int64_t)(s + 1) * (f.hi - f.lo) / (G + 1);
+  const int64_t guess =
+      f.total > 0 ? (int64_t)((double)f.pay * f.rows / f.total) : 0;
+  return min(max(guess + (s - G / 2) * (G / 2), f.lo), f.hi - 1);
+}
+
+// Both sides' rows, by a k-ary search: while G rows or more remain,
+// each lane reads one pivot of each side's ends a round (the pivots
+// rise with the lane) and a ballot counts those at or below the
+// payload, whose neighbours become the new bounds; the first round's
+// pivots sit around the payload's interpolated row, so that on rows of
+// similar lengths one round leaves fewer than G, and the later ones
+// split what is left evenly (n rows become ~n / (G + 1)). Then lane s
+// takes row lo + s, reading its end, the end before it and its id at
+// once, and the one row whose keys hold the payload is picked. The
+// sides' loads of a round are issued together. amp[k], start[k]: the
+// row's id and the index of its first key.
+template <int G>
+__device__ __forceinline__ void find_rows(Find (&f)[2], const Group<G> &g,
+                                          int64_t (&amp)[2],
+                                          int64_t (&start)[2]) {
+  for (bool guided = true;; guided = false) {
+    bool more[2];
+    int64_t q[2], e[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      more[k] = f[k].hi - f[k].lo >= G;
+      q[k] = more[k] ? pivot<G>(f[k], g.lane, guided) : 0;
+      e[k] = more[k] ? __ldg(f[k].ends + q[k]) : 0;
+    }
+    if (!more[0] && !more[1]) break;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int below = __popc(g.ballot(more[k] && e[k] <= f[k].pay));
+      if (!more[k]) continue;
+      if (below > 0) f[k].lo = g.from(q[k], below - 1) + 1;
+      if (below < G) f[k].hi = g.from(q[k], below);
+    }
   }
-  if (pay < 0 || lo >= rows) __trap();
+  int64_t first[2], end[2], id[2];
+  bool in[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int64_t r = f[k].lo + g.lane;
+    in[k] = r <= f[k].hi && r < f[k].rows;
+    first[k] = in[k] && r > 0 ? __ldg(f[k].ends + r - 1) : 0;
+    end[k] = in[k] ? __ldg(f[k].ends + r) : 0;
+    id[k] = in[k] ? __ldg(f[k].ids + r) : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const unsigned hit =
+        g.ballot(in[k] && first[k] <= f[k].pay && f[k].pay < end[k]);
+    if (hit == 0u) __trap();  // a payload outside its side
+    amp[k] = g.from(id[k], __ffs(hit) - 1);
+    start[k] = g.from(first[k], __ffs(hit) - 1);
+  }
+}
+
+// The position of the rank-th run start of a row of len > 0 bases: G
+// words a pass, a lane a word, the popcounts of their run-start masks
+// scanned across the group; traps past the row's run starts
+template <int G>
+__device__ int run_start(const uint32_t *src, int len, int64_t rank,
+                         const Group<G> &g) {
+  const int words = (len + 15) >> 4;
+  for (int w0 = 0; w0 < words; w0 += G) {
+    const int w = w0 + g.lane;
+    const uint32_t x = w < words ? __ldg(src + w) : 0u;
+    uint32_t prev = w >= 1 && w <= words ? __ldg(src + w - 1) >> 30 : 0u;
+    const uint32_t starts = run_starts(x, w, len, &prev);
+    const int c = __popc(starts);
+    int incl = c;
+#pragma unroll
+    for (int d = 1; d < G; d <<= 1) {
+      const int u = __shfl_up_sync(g.mask, incl, d, G);
+      if (g.lane >= d) incl += u;
+    }
+    const int total = g.from(incl, G - 1);
+    if (rank < total) {
+      const bool mine = rank >= incl - c && rank < incl;
+      int pos = 0;
+      if (mine) {
+        uint32_t s = starts;
+        for (int64_t r = rank - (incl - c); r > 0; --r) s &= s - 1u;
+        pos = 16 * w + (__ffs(s) - 1) / 2;
+      }
+      return g.from(pos, __ffs(g.ballot(mine)) - 1);
+    }
+    rank -= total;
+  }
+  __trap();  // a deletion slot past the row's run starts
+  return -1;
+}
+
+struct Variant {
+  const uint32_t *src;  // the source row's words
+  int src_words;        // those that hold its bases
+  int type;             // kSub, kDel, kIns
+  int pos;              // the edit's place in the variant
+  uint32_t base;        // the base, or with from >= 0 k of o_k
+  int from;             // the position whose code o_k is taken against
+  int len;              // the variant's length
+};
+
+// key `slot` of a row of len bases (the slot order of the header); a
+// substitution's or an insertion's base o_k = k + (x_p <= k) is left to
+// variant_word, so that x_p is read with the words, not a round trip
+// before them
+template <int G>
+__device__ __forceinline__ Variant decode(const uint32_t *src, int len,
+                                          int64_t slot, const Group<G> &g) {
   Variant v;
-  int len;
-  v.amp = (int32_t)ids[lo];
-  v.src = row_of(words, n_words, row_word, lengths, n, ids[lo], &len);
-  const int64_t slot = pay - (lo ? ends[lo - 1] : 0);
+  v.src = src;
+  v.src_words = (len + 15) >> 4;
+  v.base = 0u;
+  v.from = -1;
   if (slot < 4) {  // insertion before position 0
-    v.type = 2;
+    v.type = kIns;
     v.pos = 0;
     v.base = (uint32_t)slot;
   } else if (slot < 4 + 6 * (int64_t)len) {
     const int p = (int)((slot - 4) / 6), j = (int)((slot - 4) % 6);
-    const uint32_t k = j % 3;
-    v.type = j < 3 ? 0 : 2;
+    v.type = j < 3 ? kSub : kIns;
     v.pos = j < 3 ? p : p + 1;
-    v.base = k + (code_at(v.src, p) <= k);
-  } else {  // the rank-th run start
-    int rank = (int)(slot - 4 - 6 * (int64_t)len);
-    v.type = 1;
-    v.pos = -1;
-    v.base = 0u;
-    uint32_t prev = 0u;
-    for (int w = 0; 16 * w < len; ++w) {
-      uint32_t starts = run_starts(__ldg(v.src + w), w, len, &prev);
-      const int c = __popc(starts);
-      if (rank < c) {
-        for (; rank > 0; --rank) starts &= starts - 1u;
-        v.pos = 16 * w + (__ffs(starts) - 1) / 2;
-        break;
-      }
-      rank -= c;
-    }
-    if (v.pos < 0) __trap();
+    v.base = j % 3;
+    v.from = p;
+  } else {
+    v.type = kDel;
+    v.pos = run_start(src, len, slot - 4 - 6 * (int64_t)len, g);
   }
-  v.len = len + (v.type == 1 ? -1 : v.type == 2 ? 1 : 0);
+  v.len = len + (v.type == kDel ? -1 : v.type == kIns ? 1 : 0);
   return v;
 }
 
-__device__ __forceinline__ uint32_t variant_at(const Variant &v, int i) {
-  if (v.type == 0) return i == v.pos ? v.base : code_at(v.src, i);
-  if (v.type == 1) return code_at(v.src, i < v.pos ? i : i + 1);
-  return i < v.pos ? code_at(v.src, i) : i == v.pos ? v.base
-                                                     : code_at(v.src, i - 1);
+__device__ __forceinline__ uint32_t src_word(const Variant &v, int w) {
+  return (unsigned)w < (unsigned)v.src_words ? __ldg(v.src + w) : 0u;
 }
 
+// Word w of a variant, from the source's words w - 1, w and w + 1: a
+// substitution replaces one field; a deletion takes the fields from its
+// position on from the words shifted down one field, an insertion those
+// after its base from the words shifted up one. Fields past the
+// variant's length come out zero, as the source's are.
+__device__ __forceinline__ uint32_t variant_word(const Variant &v, int w) {
+  const uint32_t cur = src_word(v, w);
+  const uint32_t below = field_mask(v.pos - 16 * w);  // fields before it
+  if (v.type == kDel)
+    return (cur & below) |
+           (__funnelshift_r(cur, src_word(v, w + 1), 2) & ~below);
+  const uint32_t at = field_mask(v.pos + 1 - 16 * w) & ~below;
+  const uint32_t b =
+      v.from < 0 ? v.base : v.base + (code_at(v.src, v.from) <= v.base);
+  const uint32_t base = (b * kOdd) & at;
+  if (v.type == kSub) return (cur & ~at) | base;
+  return (cur & below) | base |
+         (__funnelshift_l(src_word(v, w - 1), cur, 2) & ~(below | at));
+}
+
+// A group of kVerifyLanes lanes a pair: both rows found, both slots
+// decoded, then the variants compared G words a pass, lengths first
+template <int G>
 __global__ void __launch_bounds__(kThreads)
     graft_verify_kernel(const uint32_t *__restrict__ words, int64_t n_words,
                         const int64_t *__restrict__ row_word,
@@ -923,20 +1085,39 @@ __global__ void __launch_bounds__(kThreads)
                         const int64_t *__restrict__ pairs, int64_t n_pairs,
                         int small_is_heavy, bool *__restrict__ ok,
                         int32_t *__restrict__ best) {
-  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (t >= n_pairs) return;
-  const int64_t pr = pairs[t];
-  const Variant a = decode(words, n_words, row_word, lengths, n, s_ids,
-                           s_ends, s_rows, (int64_t)((uint64_t)pr >> 32));
-  const Variant b = decode(words, n_words, row_word, lengths, n, b_ids,
-                           b_ends, b_rows, pr & 0xFFFFFFFF);
-  bool same = a.len == b.len;
-  for (int i = 0; same && i < a.len; ++i)
-    same = variant_at(a, i) == variant_at(b, i);
-  ok[t] = same;
-  if (same)
-    atomicMin(best + (small_is_heavy ? b.amp : a.amp),
-              small_is_heavy ? a.amp : b.amp);
+  const Group<G> g;
+  const int64_t t = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / G;
+  if (t >= n_pairs) return;  // the whole group
+  const int64_t pr = __ldg(pairs + t);
+  Find f[2] = {
+      {s_ends, s_ids, s_rows, s_rows > 0 ? __ldg(s_ends + s_rows - 1) : 0,
+       (int64_t)((uint64_t)pr >> 32), 0, s_rows},
+      {b_ends, b_ids, b_rows, b_rows > 0 ? __ldg(b_ends + b_rows - 1) : 0,
+       pr & 0xFFFFFFFF, 0, b_rows}};
+  int64_t amp[2], start[2];
+  find_rows(f, g, amp, start);
+  int len[2];
+  const uint32_t *src[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    src[k] = row_of(words, n_words, row_word, lengths, n, amp[k], &len[k]);
+  Variant v[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    v[k] = decode(src[k], len[k], f[k].pay - start[k], g);
+  bool same = v[0].len == v[1].len;
+  const int v_words = (v[0].len + 15) >> 4;
+  for (int w0 = 0; same && w0 < v_words; w0 += G) {
+    const int w = w0 + g.lane;
+    same = __all_sync(g.mask, w >= v_words || variant_word(v[0], w) ==
+                                                  variant_word(v[1], w));
+  }
+  if (g.lane == 0) {
+    ok[t] = same;
+    if (same)  // lowered to the heavy amplicon at the light one
+      atomicMin(best + (small_is_heavy ? amp[1] : amp[0]),
+                (int32_t)(small_is_heavy ? amp[0] : amp[1]));
+  }
 }
 
 inline unsigned grid_for(int64_t n) {
@@ -1067,8 +1248,8 @@ extern "C" int swarm_graft_verify(const void *words, int64_t n_words,
                                   void *ok, void *best, void *stream) {
   if ((uintptr_t)words % 16) return (int)cudaErrorInvalidValue;
   if (n_pairs <= 0) return 0;
-  graft_verify_kernel<<<grid_for(n_pairs), kThreads, 0,
-                        (cudaStream_t)stream>>>(
+  graft_verify_kernel<kVerifyLanes><<<grid_for(n_pairs * kVerifyLanes),
+                                      kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t *)words, n_words, (const int64_t *)row_word,
       (const int32_t *)lengths, n, (const int64_t *)s_ids,
       (const int64_t *)s_ends, s_rows, (const int64_t *)b_ids,

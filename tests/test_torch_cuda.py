@@ -20,12 +20,14 @@ from swarm_tpu_torch.corpora import (
     dense_cloud_corpus,
     fastidious_corpus,
     gen_corpus,
+    graft_edge_rows,
     insertion_run,
     make_db,
     mixed_length_corpus,
     ragged_edge_rows,
     ragged_rows,
     read_db,
+    record_index,
     rows_records,
     score_edge_cases,
 )
@@ -540,7 +542,7 @@ def test_d1_kernels_trap_on_a_layout_that_does_not_fit(cuda_device, start,
 # ---- the fastidious graft kernels (csrc/graft.cu) -------------------------
 
 GRAFT_CASES = ["ragged_edge_rows", "insertion_run", "fastidious_corpus",
-               "empty_side", "long_insertion_run"]
+               "empty_side", "long_insertion_run", "graft_edge_rows"]
 
 #: an insertion run of 4,204 rows sharing one variant (the row they are
 #: insertions of): all but every 500th row light, a light bucket beyond
@@ -552,11 +554,16 @@ LONG_GRAFT_RUN = 1400
 def _graft_case(tmp_path, case):
     """(db, heavy, light) of a case: every other row light on the short
     rows cases, all but every 500th on long_insertion_run, a quarter
-    light at random on the corpus, no light row on empty_side."""
+    light at random on the corpus, no light row on empty_side, the rows
+    two edits from a base row on graft_edge_rows."""
     if case == "fastidious_corpus":
         fastidious_corpus(tmp_path / "c.fasta", n=3000, seed=7)
         db = read_db(tmp_path / "c.fasta")
         light = np.random.default_rng(7).random(len(db)) < 0.25
+    elif case == "graft_edge_rows":
+        rows, light = graft_edge_rows()
+        db = make_db(tmp_path, rows_records(rows))
+        light = light[record_index(db)]
     else:
         rows = {"ragged_edge_rows": ragged_edge_rows,
                 "insertion_run": insertion_run, "empty_side": insertion_run,
@@ -657,6 +664,86 @@ def test_graft_kernels_match_reference(tmp_path, cuda_device, case):
     assert ft.launches["graft_verify"] == before["graft_verify"] + int(
         pairs.numel() > 0)
     assert bool(want.any()) == (case != "empty_side")
+
+
+@pytest.mark.parametrize("small_is_heavy", [False, True])
+@pytest.mark.parametrize("case", ["graft_edge_rows", "ragged_edge_rows",
+                                  "fastidious_corpus", "long_insertion_run"])
+def test_graft_verify_on_join_and_random_pairs(tmp_path, cuda_device, case,
+                                               small_is_heavy):
+    """graft_verify against verify_reference and best_reference element
+    for element, on the join's pairs (edits on word edges, deletions in
+    runs, rows of 1 to 5,006 nt) and on 4,096 pairs of random keys of the
+    two sides, whose variants mostly differ, in length too; the small
+    side (the light one) labelled heavy or light."""
+    db, heavy, light = _graft_case(tmp_path, case)
+    words, row_word, lengths = _graft_rows(db, cuda_device)
+    zob = ft.zobrist_tensor(ft.make_zobrist_pair(int(db.longest)),
+                            cuda_device)
+    sides = []
+    for amps in (light, heavy):
+        ids = torch.from_numpy(amps.astype(np.int64)).to(cuda_device)
+        ends, total = sj._cumsum_total(ft.keygen_count(words, row_word,
+                                                       lengths, ids))
+        keys, pays = ft.keygen_emit(words, row_word, lengths, ids, zob, ends,
+                                    total)
+        sides.append((ids, ends, total, *sj.partition(keys, pays, 8)))
+    (s_ids, s_ends, s_total, skeys, spays, s_buckets), \
+        (b_ids, b_ends, b_total, bkeys, bpays, b_buckets) = sides
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(20261019)
+    rand = (torch.randint(0, s_total, (4096,), generator=g,
+                          device=cuda_device) << 32) | torch.randint(
+        0, b_total, (4096,), generator=g, device=cuda_device)
+    pairs = torch.cat([ft.join_pairs(skeys, spays, s_buckets, bkeys, bpays,
+                                     b_buckets), rand])
+    best = torch.full((len(db),), 2**31 - 1, dtype=torch.int32,
+                      device=cuda_device)
+    want_best = best.clone()
+    ok = ft.verify(words, row_word, lengths, s_ids, s_ends, b_ids, b_ends,
+                   pairs, small_is_heavy, best)
+    torch.cuda.synchronize()
+    want = ft.verify_reference(words, row_word, lengths, s_ids, s_ends,
+                               b_ids, b_ends, pairs)
+    ft.best_reference(s_ids, s_ends, b_ids, b_ends, pairs[want],
+                      small_is_heavy, want_best)
+    assert torch.equal(ok, want)
+    assert torch.equal(best, want_best)
+    assert bool(want[:-4096].all()) and not bool(want[-4096:].all())
+
+
+#: graft_verify on one row of ten A (65 keys: 4 + 60 + one run start),
+#: given a payload PAY of a side that claims ENDS keys: past the side's
+#: keys (65 of 65) and a deletion slot past the row's run starts (65 of
+#: 66) trap
+GRAFT_VERIFY_TRAP_PROBE = """import torch
+from swarm_tpu_torch.ops import fastidious_torch as ft
+dev = torch.device("cuda", 0)
+words = torch.zeros(4, dtype=torch.int32, device=dev)
+lengths = torch.tensor([10], dtype=torch.int32, device=dev)
+row_word = torch.zeros(1, dtype=torch.int64, device=dev)
+ids = torch.zeros(1, dtype=torch.int64, device=dev)
+ends = torch.tensor([ENDS], device=dev)
+best = torch.full((1,), 2**31 - 1, dtype=torch.int32, device=dev)
+ft.verify(words, row_word, lengths, ids, ends, ids, ends,
+          torch.tensor([PAY << 32], device=dev), True, best)
+torch.cuda.synchronize()
+"""
+
+
+@pytest.mark.parametrize("ends,pay", [(65, 65), (66, 65)])
+def test_graft_verify_traps_on_a_payload_it_cannot_decode(cuda_device, ends,
+                                                          pay):
+    words = torch.zeros(4, dtype=torch.int32)
+    lengths = torch.tensor([10], dtype=torch.int32)
+    ids, row_word = torch.zeros(1, dtype=torch.int64), torch.zeros(
+        1, dtype=torch.int64)
+    with pytest.raises(ValueError):  # the plain version refuses it too
+        ft.verify_reference(words, row_word, lengths, ids,
+                            torch.tensor([ends]), ids, torch.tensor([ends]),
+                            torch.tensor([pay << 32]))
+    assert _traps(GRAFT_VERIFY_TRAP_PROBE.replace("ENDS", str(ends))
+                  .replace("PAY", str(pay)))
 
 
 def _random_sides(dev, n_small, n_big, distinct, bits, seed):

@@ -23,6 +23,14 @@ swarm_tpu's, on the CPU, exactly:
   keys in slot order out as 16-byte pairs with a scalar head and tail,
   the deletions by rank, the payloads as an iota of quads) equals
   variant_keys_reference;
+- an emulation of the verify kernel's schedule (groups of G lanes: the
+  k-ary row search with its interpolated first round, the run-start
+  scan across the lanes, variant words built by funnel shifts and
+  compared G at a time) equals verify_reference and best_reference on
+  graft_edge_rows (edits on the 16-base word edges) and a fastidious
+  side, pairs of equal keys and random ones; verify_reference equals
+  the equality of JAX's _variant_rows of the two keys; the emulation
+  traps where the kernel does;
 - the dispatch of models/d1.py: the native join up to
   SWARM_TPU_GRAFT_PROBE_MAX keys on the smaller side (read at each
   call), the device engine above it, with the same outputs.
@@ -44,10 +52,13 @@ from swarm_tpu.ops.neighbors_jax import make_zobrist_pair as jax_zobrist
 from swarm_tpu.ops.neighbors_jax import variant_hash_halves as jax_halves
 from swarm_tpu_torch import _native
 from swarm_tpu_torch.corpora import (
+    GRAFT_EDGE_LENGTHS,
     fastidious_corpus,
+    graft_edge_rows,
     insertion_run,
     make_db,
     read_db,
+    record_index,
     rows_records,
 )
 from swarm_tpu_torch.ops import fastidious_torch as ft
@@ -133,27 +144,19 @@ def _per_row(amps, keys, rows=None, lens=None):
     return {a: sorted(v) for a, v in out.items()}
 
 
-@pytest.mark.parametrize("case", ["runs", "lengths_1_to_80", "empty_side"])
-def test_ragged_keys_and_variants_equal_jax_per_row(tmp_path, case):
-    """Each row's valid keys as a multiset, and the variant each key
-    rebuilds: JAX's variant_keys_hilo slots decoded by its _variant_rows
-    against the port's slots decoded by variant_rows_reference; the
-    same multisets from JAX's variant_hash_halves."""
-    rows = _run_rows(3) if case == "runs" else [
-        np.random.default_rng(L).integers(0, 4, L).astype(np.uint8)
-        for L in range(1, 81)]
-    db = make_db(tmp_path, rows_records(rows))
-    n = len(db)
-    amps = np.arange(n) if case != "empty_side" else np.arange(0)
-    rows3, keys, owner, slots = _port_side(db, amps)
-    if case == "empty_side":
-        assert keys.numel() == 0 and owner.numel() == 0
-        return
-    width_port = 16 * int(sj.row_sizes(int(db.lengths.max()) + 1))
-    vrows, vlens = ft.variant_rows_reference(*rows3, owner, slots,
-                                             width_port)
-    got = _per_row(owner, keys, vrows.numpy(), vlens.numpy())
+def _port_variants(db, rows3, keys, owner, slots):
+    """{amp: sorted [(key, variant bytes)]} of the port's keys, each
+    variant rebuilt by variant_rows_reference from its slot."""
+    width = 16 * int(sj.row_sizes(int(db.lengths.max()) + 1))
+    vrows, vlens = ft.variant_rows_reference(*rows3, owner, slots, width)
+    return _per_row(owner, keys, vrows.numpy(), vlens.numpy())
 
+
+def _jax_variants(db):
+    """{amp: sorted [(key, variant bytes)]} of JAX's valid keys of every
+    row, each variant rebuilt by JAX's _variant_rows from its slot of
+    variant_keys_hilo."""
+    n = len(db)
     width = _round_up(int(db.lengths.max()), 64)
     lcap = min(_round_up(int(db.lengths.max()), 16), width)
     padded = jnp.asarray(_padded(db, width))
@@ -171,11 +174,45 @@ def test_ragged_keys_and_variants_equal_jax_per_row(tmp_path, case):
     jrows, jlens = fastidious_jax._variant_rows(
         padded, lengths, jnp.asarray(j_amp, jnp.int32),
         jnp.asarray(j_slot, jnp.int32), width, lcap)
-    want = _per_row(torch.from_numpy(j_amp),
+    return _per_row(torch.from_numpy(j_amp),
                     torch.from_numpy((hi[flat] << 32) | lo[flat]),
                     np.asarray(jrows), np.asarray(jlens))
-    assert got == want
 
+
+def _edge_db(tmp_path):
+    """(db, light [n] bool) of graft_edge_rows up to 48 nt (its 5-kb rows
+    are the card's)."""
+    rows, light = graft_edge_rows(lengths=GRAFT_EDGE_LENGTHS[:-1])
+    db = make_db(tmp_path, rows_records(rows))
+    return db, light[record_index(db)]
+
+
+@pytest.mark.parametrize("case", ["runs", "lengths_1_to_80", "empty_side",
+                                  "graft_edge_rows"])
+def test_ragged_keys_and_variants_equal_jax_per_row(tmp_path, case):
+    """Each row's valid keys as a multiset, and the variant each key
+    rebuilds: JAX's variant_keys_hilo slots decoded by its _variant_rows
+    against the port's slots decoded by variant_rows_reference; the
+    same multisets from JAX's variant_hash_halves."""
+    if case == "graft_edge_rows":
+        db, _ = _edge_db(tmp_path)
+    else:
+        rows = _run_rows(3) if case == "runs" else [
+            np.random.default_rng(L).integers(0, 4, L).astype(np.uint8)
+            for L in range(1, 81)]
+        db = make_db(tmp_path, rows_records(rows))
+    n = len(db)
+    amps = np.arange(n) if case != "empty_side" else np.arange(0)
+    rows3, keys, owner, slots = _port_side(db, amps)
+    if case == "empty_side":
+        assert keys.numel() == 0 and owner.numel() == 0
+        return
+    assert _port_variants(db, rows3, keys, owner, slots) == _jax_variants(db)
+
+    width = _round_up(int(db.lengths.max()), 64)
+    padded = jnp.asarray(_padded(db, width))
+    lengths = jnp.asarray(db.lengths.astype(np.int32))
+    zob = jnp.asarray(jax_zobrist(width))
     (h_hi, h_lo), _, valid = jax_halves(padded, lengths, zob)
     valid = np.asarray(valid)
     h_keys = (np.asarray(h_hi).astype(np.int64) << 32) | np.asarray(h_lo)
@@ -665,6 +702,329 @@ def test_keygen_emit_emulation(tmp_path, case):
     outs = (ends - ends.diff(prepend=ends.new_zeros(1))).numpy()
     assert {int(o) % 2 for o in outs} == {0, 1} and vector  # both spans
     assert len({int(o) % 4 for o in outs}) > 2  # payload heads of 0-3
+
+
+# ---- a numpy emulation of the verify kernel's schedule --------------------
+
+SUB, DEL, INS = 0, 1, 2
+ODD = 0x55555555
+
+
+class _Trap(Exception):
+    """Where graft_verify_kernel would __trap()."""
+
+
+def _field_mask(k):
+    return M32 if k >= 16 else 0 if k <= 0 else (1 << (2 * k)) - 1
+
+
+def _popc(x):
+    return bin(x).count("1")
+
+
+def _scan(c):
+    """Inclusive sums across the group's lanes, as its shuffles take
+    them: log2(G) steps, each lane adding the value d lanes below."""
+    incl, d = list(c), 1
+    while d < len(c):
+        incl = [v + (incl[s - d] if s >= d else 0) for s, v in enumerate(incl)]
+        d <<= 1
+    return incl
+
+
+def _pivots(lo, hi, rows, total, pay, G, guided):
+    """The lanes' pivots of a round: every G / 2 rows around the
+    payload's interpolated row (clamped) in the first, G points
+    splitting [lo, hi) evenly later."""
+    if not guided:
+        return [lo + (s + 1) * (hi - lo) // (G + 1) for s in range(G)]
+    guess = int(float(pay) * rows / total) if total else 0
+    return [min(max(guess + (s - G // 2) * (G // 2), lo), hi - 1)
+            for s in range(G)]
+
+
+def _find_rows(sides, pays, G, rounds):
+    """find_rows: the k-ary search of both sides' ends (a pivot a lane a
+    round, rising with the lane, the first round's around the payload's
+    interpolated row; the pivots at or below the payload counted by a
+    ballot, the new bounds taken from the lanes beside that count), then
+    a candidate row a lane, the one whose keys hold the payload picked;
+    [(amp, start)], the rounds appended to `rounds`."""
+    f = [[0, len(ends)] for ends, _ in sides]
+    guided = True
+    while True:
+        more = [hi - lo >= G for lo, hi in f]
+        if not any(more):
+            break
+        rounds.append(more)
+        for k, (ends, _) in enumerate(sides):
+            if not more[k]:
+                continue
+            lo, hi = f[k]
+            q = _pivots(lo, hi, len(ends), ends[-1], pays[k], G, guided)
+            assert q == sorted(q) and lo <= q[0] and q[-1] < hi
+            at = [ends[x] <= pays[k] for x in q]
+            below = sum(at)
+            assert at == [True] * below + [False] * (G - below)
+            if below:
+                f[k][0] = q[below - 1] + 1
+            if below < G:
+                f[k][1] = q[below]
+        guided = False
+    out = []
+    for k, (ends, ids) in enumerate(sides):
+        lo, hi = f[k]
+        assert hi - lo < G
+        hits = []
+        for s in range(G):
+            r = lo + s
+            if r <= hi and r < len(ends):
+                first = ends[r - 1] if r else 0
+                if first <= pays[k] < ends[r]:
+                    hits.append((ids[r], first))
+        if not hits:
+            raise _Trap("a payload outside its side")
+        assert len(hits) == 1
+        out.append(hits[0])
+    return out
+
+
+def _run_start(word, n_bases, rank, G):
+    """run_start: G words a pass, a lane a word, the popcounts of their
+    run-start masks scanned across the lanes."""
+    words = (n_bases + 15) >> 4
+    for w0 in range(0, words, G):
+        ws = range(w0, w0 + G)
+        starts = []
+        for w in ws:
+            x = word(w) if w < words else 0
+            prev = word(w - 1) >> 30 if 1 <= w <= words else 0
+            st = (((x ^ ((x << 2) & M32 | prev)) |
+                   ((x ^ ((x << 2) & M32 | prev)) >> 1)) & ODD) & \
+                _field_mask(n_bases - 16 * w)
+            starts.append(st | 1 if w == 0 else st)
+        c = [_popc(st) for st in starts]
+        incl = _scan(c)
+        if rank < incl[-1]:
+            mine = [incl[s] - c[s] <= rank < incl[s] for s in range(G)]
+            assert sum(mine) == 1
+            s = mine.index(True)
+            st = starts[s]
+            for _ in range(rank - (incl[s] - c[s])):
+                st &= st - 1
+            return 16 * ws[s] + ((st & -st).bit_length() - 1) // 2
+        rank -= incl[-1]
+    raise _Trap("a deletion slot past the row's run starts")
+
+
+def _decode(word, n_bases, slot, G):
+    """decode: (type, position, base, from, variant length) of a slot;
+    with from >= 0 the base is k of o_k = k + (x_from <= k), taken by
+    variant_word."""
+    if slot < 4:
+        return INS, 0, slot, -1, n_bases + 1
+    if slot < 4 + 6 * n_bases:
+        p, j = divmod(slot - 4, 6)
+        return (SUB, p, j % 3, p, n_bases) if j < 3 else \
+            (INS, p + 1, j % 3, p, n_bases + 1)
+    return DEL, _run_start(word, n_bases, slot - 4 - 6 * n_bases, G), 0, \
+        -1, n_bases - 1
+
+
+def _variant_word(v, w):
+    """variant_word: word w of a variant from the source's words w - 1, w
+    and w + 1 (zero outside the row's), by funnel shifts."""
+    (kind, pos, base, at_code, _), word, src_words = v
+    if at_code >= 0:
+        base += ((word(at_code >> 4) >> (2 * (at_code & 15))) & 3) <= base
+
+    def src(i):
+        return word(i) if 0 <= i < src_words else 0
+
+    cur = src(w)
+    below = _field_mask(pos - 16 * w)
+    if kind == DEL:  # __funnelshift_r(cur, next, 2)
+        down = ((src(w + 1) << 32 | cur) >> 2) & M32
+        return (cur & below) | (down & ~below & M32)
+    at = _field_mask(pos + 1 - 16 * w) & ~below & M32
+    b = (base * ODD) & at
+    if kind == SUB:
+        return (cur & ~at & M32) | b
+    up = ((cur << 32 | src(w - 1)) << 2 >> 32) & M32  # __funnelshift_l
+    return (cur & below) | b | (up & ~(below | at) & M32)
+
+
+def emulate_verify(words, row_word, lengths, s_ids, s_ends, b_ids, b_ends,
+                   pairs, small_is_heavy, best, G):
+    """(ok, best, stats) of graft_verify_kernel's schedule with groups of
+    G lanes: both rows found by find_rows, both slots decoded, the
+    variants built G words a pass and compared lengths first, then a
+    pass at a time (all lanes equal), best lowered for a verified pair;
+    stats: the most search rounds and compare passes a pair took."""
+    w32 = (words.numpy().astype(np.int64) & M32).tolist()
+    rw, lens = row_word.tolist(), lengths.tolist()
+    sides = [(s_ends.tolist(), s_ids.tolist()),
+             (b_ends.tolist(), b_ids.tolist())]
+    best = best.clone()
+    ok, most_rounds, most_passes = [], 0, 0
+    for pr in pairs.tolist():
+        pays = [pr >> 32, pr & M32]
+        rounds = []
+        found = _find_rows(sides, pays, G, rounds)
+        most_rounds = max(most_rounds, len(rounds))
+        vs = []
+        for (amp, start), pay in zip(found, pays):
+            n_bases = lens[amp]
+
+            def word(i, at=rw[amp]):
+                return w32[at + i]
+
+            vs.append((_decode(word, n_bases, pay - start, G), word,
+                       (n_bases + 15) >> 4))
+        same = vs[0][0][4] == vs[1][0][4]
+        v_words = (vs[0][0][4] + 15) >> 4
+        passes = 0
+        for w0 in range(0, v_words, G):
+            if not same:
+                break
+            passes += 1
+            same = all(w >= v_words or
+                       _variant_word(vs[0], w) == _variant_word(vs[1], w)
+                       for w in range(w0, w0 + G))
+        most_passes = max(most_passes, passes)
+        ok.append(same)
+        if same:
+            heavy, light = (found[0][0], found[1][0]) if small_is_heavy \
+                else (found[1][0], found[0][0])
+            best[light] = min(int(best[light]), heavy)
+    return torch.tensor(ok, dtype=torch.bool), best, (most_rounds,
+                                                      most_passes)
+
+
+def _verify_case(tmp_path, case):
+    """(db, rows3, sides, pairs, small_is_heavy): a case's two sides (the
+    side of fewer keys as the small one, as the engine takes it), each
+    (ids, ends, keys by payload, owners); the pairs of equal keys
+    (spay << 32) | bpay and 300 pairs of random payloads."""
+    if case == "graft_edge_rows":
+        db, light = _edge_db(tmp_path)
+    else:
+        fastidious_corpus(tmp_path / "f.fasta", n=300, length=60, seed=11)
+        db = read_db(tmp_path / "f.fasta")
+        light = np.random.default_rng(11).random(len(db)) < 0.3
+    heavy, light = np.nonzero(~light)[0], np.nonzero(light)[0]
+    lens = db.lengths.astype(np.int64)
+    small_is_heavy = (7 * lens[heavy] + 4).sum() <= (7 * lens[light] + 4).sum()
+    sides = []
+    for amps in ((heavy, light) if small_is_heavy else (light, heavy)):
+        rows3, keys, owner, _ = _port_side(db, amps)
+        counts = ft.keygen_count(*rows3, torch.from_numpy(amps))
+        sides.append((torch.from_numpy(amps), torch.cumsum(counts.long(), 0),
+                      keys, owner))
+    at = {}
+    for i, k in enumerate(sides[0][2].tolist()):
+        at.setdefault(k, []).append(i)
+    pairs = [(a << 32) | b for b, k in enumerate(sides[1][2].tolist())
+             for a in at.get(k, ())]
+    rng = np.random.default_rng(12)
+    pairs += ((rng.integers(0, sides[0][2].numel(), 300) << 32) |
+              rng.integers(0, sides[1][2].numel(), 300)).tolist()
+    return db, rows3, sides, torch.tensor(pairs), small_is_heavy
+
+
+@pytest.mark.parametrize("lanes", [16, 2])
+@pytest.mark.parametrize("case", ["graft_edge_rows", "fastidious_corpus"])
+def test_verify_kernel_emulation(tmp_path, case, lanes):
+    """The verify kernel's schedule (groups of 16 lanes, as the kernel's,
+    and of 2, whose searches take many rounds and whose compares take
+    many passes) equals verify_reference and best_reference on the
+    pairs of equal keys and on random pairs: edits at positions 0, 15,
+    16, 31, 32 and the last, appended bases, deletions inside runs,
+    unequal lengths, rows of 1 to 50 nt."""
+    db, rows3, sides, pairs, small_is_heavy = _verify_case(tmp_path, case)
+    (s_ids, s_ends, _, _), (b_ids, b_ends, _, _) = sides
+    want = ft.verify_reference(*rows3, s_ids, s_ends, b_ids, b_ends, pairs)
+    want_best = torch.full((len(db),), INT32_MAX, dtype=torch.int32)
+    ft.best_reference(s_ids, s_ends, b_ids, b_ends, pairs[want],
+                      small_is_heavy, want_best)
+    got, got_best, (rounds, passes) = emulate_verify(
+        *rows3, s_ids, s_ends, b_ids, b_ends, pairs, small_is_heavy,
+        torch.full((len(db),), INT32_MAX, dtype=torch.int32), lanes)
+    assert torch.equal(got, want)
+    assert torch.equal(got_best, want_best)
+    n_joined = pairs.numel() - 300
+    assert bool(want[:n_joined].all()) and n_joined > 100
+    assert rounds <= _even_rounds(max(s_ids.numel(), b_ids.numel()),
+                                  lanes) + 1
+    assert passes == -(-((int(db.lengths.max()) + 1 + 15) // 16) // lanes)
+
+
+def _even_rounds(rows, G):
+    """Rounds of G evenly split pivots that take `rows` rows below G: a
+    round takes n to ~n / (G + 1)."""
+    return max(0, int(np.ceil(np.log(rows / G) / np.log(G + 1))))
+
+
+@pytest.mark.parametrize("lengths", ["fastidious", "mixed"])
+def test_verify_row_search_rounds(lengths):
+    """find_rows on a side of 150,000 rows (ends: the key counts 6L + 4 +
+    runs of rows of 142-158 nt, as a fastidious corpus', or of 63-4,879
+    nt, as a mixed one's) picks np.searchsorted's row for 2,000 random
+    payloads; the first round, around the interpolated row, leaves fewer
+    than 16 rows for nearly every payload of the even lengths, and no
+    search takes more than one round beyond an even split's."""
+    rng = np.random.default_rng(13)
+    rows = 150_000
+    L = rng.integers(142, 159, rows) if lengths == "fastidious" else \
+        np.exp(rng.uniform(np.log(63), np.log(4879), rows)).astype(np.int64)
+    ends = np.cumsum(7 * L + 4 - rng.integers(0, L // 4 + 1))
+    ids = rng.permutation(rows)
+    side = (ends.tolist(), ids.tolist())
+    counts = []
+    for pay in rng.integers(0, int(ends[-1]), 2000).tolist():
+        rounds = []
+        (amp, start), _ = _find_rows([side, side], [pay, 0], 16, rounds)
+        r = int(np.searchsorted(ends, pay, side="right"))
+        assert (amp, start) == (ids[r], int(ends[r - 1]) if r else 0)
+        counts.append(sum(more[0] for more in rounds))
+    assert max(counts) <= _even_rounds(rows, 16) + 1
+    if lengths == "fastidious":
+        assert np.mean(np.array(counts) == 1) > 0.99
+
+
+def test_verify_reference_equals_jax_variants(tmp_path):
+    """verify_reference's flag of each pair (pairs of equal keys and
+    random ones, on the word-edge rows) is the equality of JAX's
+    _variant_rows of the two keys."""
+    db, rows3, sides, pairs, _ = _verify_case(tmp_path, "graft_edge_rows")
+    (s_ids, s_ends, skeys, s_owner), (b_ids, b_ends, bkeys, b_owner) = sides
+    jax_rows = {}
+    for amp, variants in _jax_variants(db).items():
+        for key, seq in variants:
+            assert jax_rows.setdefault((amp, key), seq) == seq
+    spay, bpay = (pairs >> 32).tolist(), (pairs & M32).tolist()
+    want = [jax_rows[(int(s_owner[a]), int(skeys[a]))] ==
+            jax_rows[(int(b_owner[b]), int(bkeys[b]))]
+            for a, b in zip(spay, bpay)]
+    got = ft.verify_reference(*rows3, s_ids, s_ends, b_ids, b_ends, pairs)
+    assert got.tolist() == want
+
+
+@pytest.mark.parametrize("ends,pay", [(65, 65), (66, 65)])
+def test_verify_emulation_traps_where_the_kernel_does(ends, pay):
+    """One row of ten A (65 keys): a payload past its side's keys, and a
+    deletion slot past the row's run starts (a side that claims 66
+    keys), trap in the emulation and raise in the plain version."""
+    words, lengths = torch.zeros(4, dtype=torch.int32), torch.tensor(
+        [10], dtype=torch.int32)
+    ids = torch.zeros(1, dtype=torch.int64)
+    side = (ids, torch.tensor([ends]))
+    pairs = torch.tensor([pay << 32])
+    with pytest.raises(_Trap):
+        emulate_verify(words, ids, lengths, *side, *side, pairs, True,
+                       torch.zeros(1, dtype=torch.int32), 16)
+    with pytest.raises(ValueError):
+        ft.verify_reference(words, ids, lengths, *side, *side, pairs)
 
 
 # ---- the dispatch in models/d1.py ----------------------------------------
