@@ -28,7 +28,18 @@ final line:
    empty row, a one-element list), banded_scores on every band B =
    1..20, 21, 40, 63 over ragged lengths and on lengths at the edges of
    the band;
-4. the d=1 kernels d1_keygen (its count and pack pass, which packs the
+4. kernels d2_screen and d2_extract (the d>=2 network engine's qgram
+   screen and the ordered extraction of its survivors) against their
+   plain versions on the card, exactly (the survivor words and each
+   row's count element for element, the pairs in order), on
+   screen_edge_rows at tiles T = 96, 128 and 512 with n one below, at
+   and one above a multiple of T, d = 2, 3 and 5 and lengths exactly d
+   apart, the engine's own run in chunks of 2 steps at T = 128, and the
+   d2_100k (325 steps) and d2_long (15 steps) corpora at T = 4096, timed
+   there (the screen with its int8 tensor-core bound and its popcount
+   bound, beside torch._int_mm of the same tiles; the extraction alone
+   behind a busy kernel and as its wrapper's call reads);
+5. the d=1 kernels d1_keygen (its count and pack pass, which packs the
    code arena into ragged rows, and its emit pass), d1_partition,
    d1_join and d1_verify against their plain versions on the card,
    exactly (packed words, keys, the partitioned keys and owners and
@@ -44,7 +55,7 @@ final line:
    (the parent's grouping step, d1_partition's library call) with both peaks
    of device memory, the plain versions, and the arena's copy to the
    card from pageable and from pinned memory;
-5. the graft kernels graft_keygen (count and emit), graft_join and
+6. the graft kernels graft_keygen (count and emit), graft_join and
    graft_verify against their plain versions on the card, exactly (keys
    and payloads; the join's counts and records a chunk, its pairs in the
    kernel's order, both sides unwritten; flags and each light row's
@@ -66,13 +77,14 @@ final line:
    ~6 tables against big ones of ~50 chunks) and on random sides at the
    asymmetric corpus' scale (its 199 M big keys against 1 small key and
    against its 4.1 M), timed;
-6. main paths through swarm_tpu_torch.main.run, each with a warm-up
+7. main paths through swarm_tpu_torch.main.run, each with a warm-up
    run, then one timed run with every kernel's launch count set to 0
    before it and read after it, then the port's native C engine
    (SWARM_TPU_D2_ENGINE=native at d >= 2, SWARM_TPU_D1_NATIVE_MAX above
    n at d = 1), whose output files the run's must equal byte for byte:
    - d2_100k (99,831 amplicons of 142-158 nt) and d2_long (19,991 of
-     ~400 nt): `swarm -d 2`, the network engine, kernel d2_diffs;
+     ~400 nt): `swarm -d 2`, the network engine, kernels d2_screen,
+     d2_extract and d2_diffs;
    - d2_device (20,808 amplicons of ~400 nt in dense clouds): `swarm
      -d 2` under SWARM_TPU_D2_ENGINE=device, kernel banded_scores;
    - d2_wide (5,204 amplicons, `-d 5 -m 1 -p 20 -g 1 -e 1`, band 70):
@@ -92,7 +104,18 @@ final line:
      the host graft join (SWARM_TPU_GRAFT_PROBE_MAX above its keys), and
      so does one more run of the port, its d=1 engine on the card (the
      -f path before the device graft), whose files must also equal the
-     oracle's.
+     oracle's;
+8. the resident server (python -m swarm_tpu_torch.server, under
+   SWARM_TPU_DB_CACHE=1 and SWARM_TPU_TIMING=1) on the card: for
+   d2_long, d1_1m and d1_fastidious_200k a cold CLI run (bin/swarm-torch
+   in a new process, the kernel library built on disk), the same run
+   with its parts timed (interpreter, import torch, CUDA context, kernel
+   and native libraries, the run), the first forwarded run and a second
+   of the same file (DB cache warm), beside the in-process warm time of
+   phase 7; every forwarded run's files equal the in-process run's, the
+   server's stderr shows the card's engine, and the server exits 0 after
+   --shutdown; then the blake2b digest of d1_1m's arena (swarm_tpu's
+   device-array cache key) beside the server's H2D.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and a C
@@ -102,7 +125,7 @@ To compare two versions of the port on one card, run each in turns:
 
     python3 chip_smoke.py --quick [--tree OTHER_CHECKOUT]
 
-runs only the timed kernel phases (2 to 5 at their timed shapes) and
+runs only the timed kernel phases (2 to 6 at their timed shapes) and
 the d2_100k, d2_device, d2_wide, d1_1m, d1_mixed_1m and
 d1_fastidious_200k main paths of the package under OTHER_CHECKOUT
 (default: this checkout), and ends with one JSON line
@@ -159,6 +182,13 @@ OPS_PER_VERIFY_WORD = 12
 #: few a base compared
 OPS_PER_GRAFT_KEY = 15
 OPS_PER_GRAFT_BASE = 4
+#: the d>=2 screen's bounds: the same dot as int8 products on the tensor
+#: cores (2 * 1024 operations a pair) at the data sheet's dense int8
+#: rate; and, for the kernel's own arithmetic, 32-bit popcounts at 16 a
+#: clock an SM (NVIDIA's arithmetic-instruction throughput for compute
+#: capability 9.0) on 132 SMs at the 1.98 GHz boost clock
+PEAK_INT8_TC_OPS_PER_S = 1.979e15
+PEAK_POPC_PER_S = 16 * 132 * 1.98e9
 
 
 def say(msg):
@@ -1471,6 +1501,173 @@ def phase_graft_kernels(dev, corpus, work, edges):
     return result
 
 
+def _screen_check(name, eng, chunk=None):
+    """The screen kernels against their plain versions on all of the
+    engine's steps: words and row counts element for element, the pairs
+    in order; with `chunk`, also the engine's own run in chunks of that
+    many steps. Returns (tis, tjs, words, counts, reference words, pairs)."""
+    import numpy as np
+    import torch
+
+    from swarm_tpu_torch.ops import d2_network as d2n
+
+    T, dev = eng.TILE, eng.device
+    tis, tjs = (torch.from_numpy(t).to(dev)
+                for t in d2n.tile_steps(eng.n_pad // T))
+    words, counts = d2n.screen_words(eng.prof, eng.lengths, tis, tjs, T,
+                                     eng.n, eng.d)
+    ga, gb = d2n.extract_pairs(words, counts, tis, tjs, T)
+    want = d2n.screen_words_reference(eng.prof, eng.lengths, tis, tjs, T,
+                                      eng.n, eng.d)
+    torch.cuda.synchronize()
+    if not torch.equal(words, want):
+        raise AssertionError(f"d2_screen {name}: words differ from the "
+                             f"plain version's")
+    if not torch.equal(counts, d2n.row_counts_reference(want, T)):
+        raise AssertionError(f"d2_screen {name}: row counts differ")
+    pa, pb = d2n.extract_pairs_reference(want, tis, tjs, T)
+    if not (torch.equal(ga, pa) and torch.equal(gb, pb)):
+        raise AssertionError(f"d2_extract {name}: pairs differ from the "
+                             f"plain version's, or their order")
+    note = ""
+    if chunk is not None:
+        os.environ["SWARM_TPU_D2_CHUNK"] = str(chunk)
+        try:
+            before = d2n.launches["d2_screen"]
+            ca, cb, _ = eng.candidate_pairs()
+            chunks = d2n.launches["d2_screen"] - before
+        finally:
+            del os.environ["SWARM_TPU_D2_CHUNK"]
+        if not (np.array_equal(ca, pa.cpu().numpy())
+                and np.array_equal(cb, pb.cpu().numpy())):
+            raise AssertionError(f"d2_screen {name}: the engine's pairs in "
+                                 f"chunks of {chunk} differ")
+        note = f" chunks={chunks} of {chunk} steps"
+    lens = eng.lengths.cpu().numpy()
+    apart = int((np.abs(lens[pa.cpu().numpy()] - lens[pb.cpu().numpy()])
+                 == eng.d).sum())
+    say(f"kernel d2_screen/d2_extract {name}: n={eng.n} T={T} d={eng.d} "
+        f"steps={len(tis)} pairs={len(pa)} (lengths d apart: {apart})"
+        f"{note} exact")
+    return tis, tjs, words, counts, want, (pa, pb)
+
+
+def screen_timed(name, fasta, dev, busy):
+    """The screen kernels on a main path's corpus at the engine's tile
+    (d = 2), checked, then timed; returns the two kernels' rows."""
+    import torch
+
+    from swarm_tpu_torch.corpora import read_db
+    from swarm_tpu_torch.ops import d2_network as d2n
+    from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
+
+    eng = D2NetworkEngine(read_db(fasta), 2, dev)
+    T, d = eng.TILE, eng.d
+    tis, tjs, words, counts, want, (pa, _) = _screen_check(name, eng)
+    K = len(tis)
+    incl = torch.cumsum(counts, 0, dtype=torch.int64)
+    total = int(incl[-1])
+    offsets = incl - counts
+    screen_ms = cuda_ms(lambda: d2n.screen_words(
+        eng.prof, eng.lengths, tis, tjs, T, eng.n, d), 5)
+    extract_ms = cuda_ms(lambda: d2n.extract_scanned(
+        words, counts, offsets, tis, tjs, T, total), 20, busy)
+    wrapper_ms = cuda_ms(lambda: d2n.extract_pairs(
+        words, counts, tis, tjs, T), 10)
+    plain_screen_ms = cuda_ms(lambda: d2n.screen_words_reference(
+        eng.prof, eng.lengths, tis, tjs, T, eng.n, d), 1)
+    plain_extract_ms = cuda_ms(lambda: d2n.extract_pairs_reference(
+        want, tis, tjs, T), 1)
+    # the library yardstick of the dot: torch._int_mm of the same +-1
+    # int8 tiles, which the plain version (and JAX) multiply
+    pm1 = d2n._unpack_pm1(eng.prof)
+    steps = list(zip(tis.tolist(), tjs.tolist()))
+    int_mm_ms = cuda_ms(lambda: [torch._int_mm(
+        pm1[i * T:(i + 1) * T], pm1[j * T:(j + 1) * T].t())
+        for i, j in steps], 2)
+    del pm1
+    # pairs the kernel's cheaper tests leave to the popcount (triangle,
+    # padding, lengths)
+    idx = torch.arange(T, device=dev)
+    masked = 0
+    for i, j in steps:
+        la = eng.lengths[i * T:(i + 1) * T]
+        lb = eng.lengths[j * T:(j + 1) * T]
+        keep = ((la[:, None] - lb[None, :]).abs() <= d) & \
+            ((j * T + idx) < eng.n)[None, :]
+        if i == j:
+            keep &= idx[:, None] < idx[None, :]
+        masked += int(keep.sum())
+    pairs_all = K * T * T
+    tc_ops = 2 * d2n.PROFILE_BITS * pairs_all
+    n_bytes = eng.n_pad * (128 + 4) + K * T * T // 8 + K * T * 4
+    t_tc = tc_ops / PEAK_INT8_TC_OPS_PER_S * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms, bound_by = max(t_tc, t_bytes), \
+        "operations" if t_tc >= t_bytes else "bytes"
+    popc_ms = masked * (d2n.PROFILE_BITS // 32) / PEAK_POPC_PER_S * 1e3
+    rows_hit = int((counts > 0).sum())
+    ex_bytes = K * T * 4 + rows_hit * (T // 8) + 8 * total
+    ex_bound_ms, ex_bound_by = bound(ex_bytes, 0)
+    say(f"kernel d2_screen {name}: steps={K} T={T} pairs={pairs_all} "
+        f"(cheap masks keep {masked}) survivors={total} kernel_ms="
+        f"{screen_ms:.4f} plain_ms={plain_screen_ms:.3f} int_mm_ms="
+        f"{int_mm_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: int8 tensor "
+        f"cores, {tc_ops} operations; bytes {n_bytes}: {t_bytes:.4f} ms) "
+        f"popcount_bound_ms={popc_ms:.4f} ({masked} pairs x 32 POPC at "
+        f"{PEAK_POPC_PER_S:.3e}/s)")
+    say(f"kernel d2_extract {name}: rows with survivors={rows_hit} of "
+        f"{K * T} pairs={total} alone_ms={extract_ms:.4f} wrapper_ms="
+        f"{wrapper_ms:.4f} (scan, readback, launch) plain_ms="
+        f"{plain_extract_ms:.3f} bytes={ex_bytes} bound_ms="
+        f"{ex_bound_ms:.4f} ({ex_bound_by})")
+    if len(pa) != total:
+        raise AssertionError(f"d2_extract {name}: {len(pa)} pairs against "
+                             f"a total of {total}")
+    return ({"max_abs_err": 0, "ms": screen_ms, "plain_ms": plain_screen_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": int_mm_ms, "popcount_bound_ms": popc_ms,
+             "steps": K, "survivors": total},
+            {"max_abs_err": 0, "ms": extract_ms, "wrapper_ms": wrapper_ms,
+             "plain_ms": plain_extract_ms, "bound_ms": ex_bound_ms,
+             "bound_by": ex_bound_by, "library_ms": None, "pairs": total})
+
+
+def phase_d2_screen(dev, corpus, work, edges):
+    """d2_screen and d2_extract against their plain versions: with
+    `edges`, on SCREEN_CASES (T = 96, 128, 512; n one below, at and one
+    above a multiple of T; d = 2, 3, 5; lengths exactly d apart) and at
+    T = 128 over chunks of 2 steps; then on the d2_100k and d2_long
+    corpora at T = 4096, timed there. Returns the kernels' rows (d2_100k's,
+    with d2_long's beside them under "d2_long")."""
+    from swarm_tpu_torch.corpora import (
+        SCREEN_CASES, make_db, rows_records, screen_edge_rows)
+    from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
+
+    if edges:
+        cases = [(T, n, d, None) for T, n, d in SCREEN_CASES] + \
+            [(128, 383, 3, 2), (128, 384, 2, 2), (128, 385, 5, 2)]
+        for T, n, d, chunk in cases:
+            case = f"T{T}_n{n}_d{d}" + (f"_chunk{chunk}" if chunk else "")
+            (work / case).mkdir()
+            db = make_db(work / case, rows_records(screen_edge_rows(130, n, d)))
+            tile = os.environ.get("SWARM_TPU_D2_TILE")
+            os.environ["SWARM_TPU_D2_TILE"] = str(T)
+            try:
+                eng = D2NetworkEngine(db, d, dev)
+            finally:
+                os.environ.pop("SWARM_TPU_D2_TILE")
+                if tile is not None:
+                    os.environ["SWARM_TPU_D2_TILE"] = tile
+            _screen_check(case, eng, chunk)
+    busy = busy_kernel(dev)
+    screen, extract = screen_timed("d2_100k", corpus["d2_100k"], dev, busy)
+    if "d2_long" in corpus:
+        screen["d2_long"], extract["d2_long"] = screen_timed(
+            "d2_long", corpus["d2_long"], dev, busy)
+    return {"d2_screen": screen, "d2_extract": extract}
+
+
 def run_cli(argv, workdir, env=None):
     """One CLI run of the port in `workdir` with the variables of `env`
     set; returns (seconds, [timing] lines)."""
@@ -1501,19 +1698,22 @@ def run_cli(argv, workdir, env=None):
 
 def kernel_counts():
     from swarm_tpu_torch.ops import (
-        d2_diffs, fastidious_torch, neighbors_sortjoin, nw_scores)
+        d2_diffs, d2_network, fastidious_torch, neighbors_sortjoin,
+        nw_scores)
 
-    return {"d2_diffs": d2_diffs.launches, **nw_scores.launches,
-            **neighbors_sortjoin.launches, **fastidious_torch.launches}
+    return {"d2_diffs": d2_diffs.launches, **d2_network.launches,
+            **nw_scores.launches, **neighbors_sortjoin.launches,
+            **fastidious_torch.launches}
 
 
 def reset_kernel_counts():
     from swarm_tpu_torch.ops import (
-        d2_diffs, fastidious_torch, neighbors_sortjoin, nw_scores)
+        d2_diffs, d2_network, fastidious_torch, neighbors_sortjoin,
+        nw_scores)
 
     d2_diffs.launches = 0
-    for counts in (nw_scores.launches, neighbors_sortjoin.launches,
-                   fastidious_torch.launches):
+    for counts in (d2_network.launches, nw_scores.launches,
+                   neighbors_sortjoin.launches, fastidious_torch.launches):
         for name in counts:
             counts[name] = 0
 
@@ -1532,8 +1732,7 @@ def phase_main_path(name, fasta, flags, work, env, kernels, native_env):
 
     n = sum(1 for ln in open(fasta) if ln.startswith(">"))
     argv = flags + ["-l", "log.txt", str(fasta)]
-    outputs = [flags[i + 1] for i in range(len(flags) - 1)
-               if flags[i] in ("-o", "-s", "-u", "-i", "-w")] + ["log.txt"]
+    outputs = output_files(flags)
     engine = env.get("SWARM_TPU_D2_ENGINE")
     warm_s, _ = run_cli(argv, work / f"{name}_warm", env)
     torch.cuda.synchronize()
@@ -1590,6 +1789,181 @@ def phase_main_path(name, fasta, flags, work, env, kernels, native_env):
     return {"launches": {k: counts[k] for k in kernels}, "warm_s": sec,
             "native_s": native_s, "device_peak_bytes": peak,
             "timing": timing}
+
+
+#: a cold CLI run with its parts timed: the interpreter, `import
+#: torch`, the CUDA context, the kernel and native libraries, then the
+#: launcher's run (which would do the same three lazily); writes a JSON
+#: object of host-clock stamps to the file named by its first argument
+COLD_PROBE = """import json, sys, time
+t0 = time.time()
+import torch
+t1 = time.time()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t2 = time.time()
+from swarm_tpu_torch import _build, _native
+_build.load()
+t3 = time.time()
+import runpy
+out, sys.argv = sys.argv[1], [{launcher!r}] + sys.argv[2:]
+try:
+    runpy.run_path({launcher!r}, run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+t4 = time.time()
+with open(out, "w") as fh:
+    json.dump({{"start": t0, "torch": t1, "context": t2, "libraries": t3,
+               "run": t4}}, fh)
+"""
+#: the server phase's paths and the [timing] line that shows the card's
+#: engine ran in the server
+SERVER_PATHS = {"d2_long": "[timing] d2 network (cuda)",
+                "d1_1m": "[timing] d1 join (cuda)",
+                "d1_fastidious_200k": "[timing] graft (cuda)"}
+
+
+def _launch(args, cwd, env):
+    """Seconds (host clock) of one process of the port; raises on rc."""
+    cwd.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                       capture_output=True, timeout=600)
+    sec = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"{args[:3]} in {cwd.name} returned "
+                             f"{r.returncode}:\n{r.stderr.decode()[-2000:]}")
+    return sec, r
+
+
+def output_files(flags):
+    """The files a main path's flags (and its `-l log.txt`) write."""
+    return [flags[i + 1] for i in range(len(flags) - 1)
+            if flags[i] in ("-o", "-s", "-u", "-i", "-w")] + ["log.txt"]
+
+
+def _same_outputs(name, flags, work, run):
+    outputs = output_files(flags)
+    for out in outputs:
+        a = (work / run / out).read_bytes()
+        if a != (work / f"{name}_torch" / out).read_bytes() or not a:
+            raise AssertionError(f"{run}: {out} differs from the in-process "
+                                 f"run's")
+    return len(outputs)
+
+
+def phase_server(corpus, work, warm):
+    """The resident server on the card (python -m swarm_tpu_torch.server
+    under SWARM_TPU_DB_CACHE=1 and SWARM_TPU_TIMING=1): for each of
+    SERVER_PATHS a cold CLI run (a new process, no server; the kernel
+    library built on disk), the same run with its parts timed, the first
+    forwarded run and a second one of the same file (DB cache warm),
+    beside the main path's in-process warm time `warm`; every forwarded
+    run's files equal the in-process run's byte for byte, and the
+    server's stderr shows the card's engine. Then the digest that
+    swarm_tpu's device-array cache keys its entry by (blake2b of the raw
+    arena) at d1_1m, beside the H2D that a hit would save. Returns the
+    phase's numbers."""
+    import hashlib
+
+    import numpy as np
+
+    from swarm_tpu_torch.corpora import read_db
+
+    launcher = str(REPO / "bin" / "swarm-torch")
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    sock = work / "server.sock"
+    log_path = work / "server_stderr.txt"
+    result = {}
+    with open(log_path, "wb") as log:
+        t0 = time.perf_counter()
+        server = subprocess.Popen(
+            [sys.executable, "-m", "swarm_tpu_torch.server", str(sock)],
+            cwd=REPO, stdout=subprocess.DEVNULL, stderr=log,
+            env={**env, "SWARM_TPU_DB_CACHE": "1", "SWARM_TPU_TIMING": "1"})
+        try:
+            while not sock.exists():
+                if server.poll() is not None or \
+                        time.perf_counter() - t0 > 300:
+                    raise AssertionError("the server did not start:\n"
+                                         + log_path.read_text()[-2000:])
+                time.sleep(0.01)
+            ready_s = time.perf_counter() - t0
+            say(f"server: ready in {ready_s:.3f}s (torch import, CUDA "
+                f"context, kernel and native libraries)")
+            fwd_env = {**env, "SWARM_TORCH_SERVER": str(sock)}
+            for name, marker in SERVER_PATHS.items():
+                flags = MAIN_PATHS[name][2]
+                argv = flags + ["-l", "log.txt", str(corpus[name])]
+                cold_s, _ = _launch([launcher, *argv], work / f"{name}_cold",
+                                    env)
+                stamps = work / f"{name}_cold_split.json"
+                split_s, _ = _launch(
+                    ["-c", COLD_PROBE.format(launcher=launcher),
+                     str(stamps), *argv], work / f"{name}_cold_split", env)
+                t = json.loads(stamps.read_text())
+                split = {
+                    "interpreter_s": split_s - (t["run"] - t["start"]),
+                    "import_torch_s": t["torch"] - t["start"],
+                    "cuda_context_s": t["context"] - t["torch"],
+                    "libraries_s": t["libraries"] - t["context"],
+                    "run_s": t["run"] - t["libraries"]}
+                seen = log_path.read_text().count(marker)
+                fwd = []
+                for k in (1, 2):
+                    sec, r = _launch([launcher, *argv],
+                                     work / f"{name}_fwd{k}", fwd_env)
+                    if b"[timing]" in r.stderr:
+                        raise AssertionError(f"{name}: [timing] lines on the "
+                                             f"forwarded run's stderr")
+                    fwd.append(sec)
+                    n_files = _same_outputs(name, flags, work, f"{name}_fwd{k}")
+                now = log_path.read_text()
+                if now.count(marker) < seen + 2:
+                    raise AssertionError(f"{name}: no '{marker}' line in the "
+                                         f"server's stderr for each run")
+                result[name] = {"cold_s": cold_s, "cold_split": split,
+                                "cold_split_total_s": split_s,
+                                "first_forwarded_s": fwd[0],
+                                "second_forwarded_s": fwd[1],
+                                "warm_in_process_s": warm[name]}
+                say(f"server {name}: cold_s={cold_s:.3f} (split run "
+                    f"{split_s:.3f}s: " + " ".join(
+                        f"{k}={v:.3f}" for k, v in split.items())
+                    + f") first_forwarded_s={fwd[0]:.3f} second_forwarded_s="
+                    f"{fwd[1]:.3f} warm_in_process_s={warm[name]:.3f}; "
+                    f"{n_files} files of each forwarded run byte-identical "
+                    f"to the in-process run's; '{marker}' in the server's "
+                    f"stderr")
+            r = subprocess.run(
+                [sys.executable, "-m", "swarm_tpu_torch.server", str(sock),
+                 "--shutdown"], env=env, cwd=REPO, capture_output=True,
+                timeout=60)
+            rc = server.wait(timeout=60)
+            if r.returncode != 0 or rc != 0:
+                raise AssertionError(f"server shutdown: rc {r.returncode}, "
+                                     f"server exit {rc}")
+        finally:
+            if server.poll() is None:
+                server.kill()
+                server.wait()
+    lines = [ln for ln in log_path.read_text().splitlines()
+             if ln.startswith("[timing] d1 join (cuda) H2D")]
+    say("server: exited 0 after --shutdown; its d1_1m H2D lines: "
+        + "; ".join(ln.split()[-1] for ln in lines))
+    db = read_db(corpus["d1_1m"])
+    t0 = time.perf_counter()
+    h = hashlib.blake2b(db.codes, digest_size=16)
+    h.update(np.ascontiguousarray(db.lengths))
+    h.hexdigest()
+    digest_s = time.perf_counter() - t0
+    say(f"server: blake2b of d1_1m's raw arena ({db.codes.nbytes} bytes "
+        f"and {db.lengths.nbytes} of lengths), swarm_tpu's device-array "
+        f"cache key: {digest_s:.4f}s")
+    result["d1_1m_arena_digest_s"] = digest_s
+    result["d1_1m_server_h2d"] = [ln.split()[-1] for ln in lines]
+    result["ready_s"] = ready_s
+    return result
 
 
 def main():
@@ -1659,6 +2033,7 @@ D1_NATIVE = {"SWARM_TPU_D1_NATIVE_MAX": str(1 << 40)}
 #: insertion_run(length=LONG_RUN): 4,504 rows sharing one key, a bucket
 #: beyond the join kernel's shared-memory tile (its oversized variant)
 LONG_RUN = 1500
+D2_KERNELS = ("d2_screen", "d2_extract", "d2_diffs")
 D1_KERNELS = ("d1_keygen", "d1_partition", "d1_join", "d1_verify")
 GRAFT_KERNELS = ("graft_keygen", "graft_join", "graft_verify")
 #: the native engines of -d 1 -f: the d=1 network and the host graft join
@@ -1691,10 +2066,10 @@ MAIN_PATHS = {
     "d2_100k": ("gen_corpus", {"n": 100_000, "length": 150},
                 ["-d", "2", "-o", "out.txt", "-s", "stats.txt", "-u",
                  "uclust.txt", "-i", "structure.txt", "-w", "seeds.fasta"],
-                {}, ("d2_diffs",), D2_NATIVE),
+                {}, D2_KERNELS, D2_NATIVE),
     "d2_long": ("gen_corpus", {"n": 20_000, "length": 400},
                 ["-d", "2", "-o", "out.txt", "-s", "stats.txt"],
-                {}, ("d2_diffs",), D2_NATIVE),
+                {}, D2_KERNELS, D2_NATIVE),
     "d2_device": ("dense_cloud_corpus",
                   {"n_centers": 4, "cloud": 2600, "length": 400},
                   ["-d", "2", "-o", "out.txt", "-s", "stats.txt", "-i",
@@ -1759,6 +2134,7 @@ def run_quick(dev, work):
     corpus = make_corpora(work, QUICK_PATHS)
     rows = {"d2_diffs": phase_d2_diffs_at_scale(dev, corpus["d2_100k"])}
     rows.update(phase_nw_scores(dev, corpus["d2_device"]))
+    rows.update(phase_d2_screen(dev, corpus, work, edges=False))
     rows.update(phase_d1_kernels(dev, corpus, edges=False))
     rows.update(phase_graft_kernels(dev, corpus, work, edges=False))
     paths = {name: run_main_path(name, corpus, work) for name in QUICK_PATHS}
@@ -1779,14 +2155,17 @@ def run_phases(dev, work):
         rows["full_scores"]["max_abs_err"], phase_full_scores_edges(dev))
     rows["banded_scores"]["max_abs_err"] = max(
         rows["banded_scores"]["max_abs_err"], phase_banded_scores_edges(dev))
+    rows.update(phase_d2_screen(dev, corpus, work, edges=True))
     rows.update(phase_d1_kernels(dev, corpus, edges=True))
     rows.update(phase_graft_kernels(dev, corpus, work, edges=True))
 
-    launches = {}
+    launches, warm = {}, {}
     for name in MAIN_PATHS:
         ran = run_main_path(name, corpus, work)
+        warm[name] = ran["warm_s"]
         for kernel, count in ran["launches"].items():
             launches.setdefault(kernel, count)  # the first path's count
+    say(json.dumps({"server": phase_server(corpus, work, warm)}))
 
     d1 = "swarm_tpu_torch/csrc/d1_join.cu"
     graft = "swarm_tpu_torch/csrc/graft.cu"
@@ -1797,6 +2176,11 @@ def run_phases(dev, work):
                           "swarm_tpu/ops/pallas_nw.py:410"),
         "full_scores": ("swarm_tpu_torch/csrc/nw_scores.cu",
                         "swarm_tpu/ops/pallas_nw.py:240"),
+        # the d>=2 screen and extraction were XLA programs
+        "d2_screen": ("swarm_tpu_torch/csrc/d2_screen.cu",
+                      "swarm_tpu/ops/d2_network.py:52"),
+        "d2_extract": ("swarm_tpu_torch/csrc/d2_screen.cu",
+                       "swarm_tpu/ops/d2_network.py:107"),
         # the d=1 path's device work was XLA programs, not Pallas kernels
         "d1_keygen": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:142"),
         "d1_partition": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:484"),

@@ -116,6 +116,12 @@ def load() -> ctypes.CDLL:
             lib.swarm_d2_max_w.restype = i32
             lib.swarm_d2_packed.argtypes = [i64, i32, i32, i32, i32, i32]
             lib.swarm_d2_packed.restype = i32
+            lib.swarm_d2_screen.argtypes = [
+                vp, vp, vp, vp, i64, i32, i64, i32, vp, vp, vp]
+            lib.swarm_d2_screen.restype = i32
+            lib.swarm_d2_extract.argtypes = [
+                vp, vp, vp, vp, vp, i64, i32, i64, vp, vp, vp]
+            lib.swarm_d2_extract.restype = i32
             lib.swarm_d1_keygen_count.argtypes = [
                 vp, i64, vp, vp, vp, i64, vp, i64, vp, vp]
             lib.swarm_d1_keygen_emit.argtypes = [

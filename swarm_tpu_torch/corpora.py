@@ -25,6 +25,10 @@ run on the card and a run on the CPU see the same sequences.
   ragged layout (1 to 5,003 nt), with their neighbours at distance 1.
 - ``graft_edge_rows``: heavy rows and light rows two edits from them,
   whose graft pairs put the edits on the verify's word edges.
+- ``screen_edge_rows``, ``SCREEN_CASES``: clouds of rows around
+  centres, each centre with a variant exactly d bases longer and one d +
+  1 longer, for the d>=2 screen kernels at small tiles and at n around
+  a multiple of the tile.
 - ``mixed_length_corpus``: gen_corpus' clouds around centres of mixed
   lengths (V4, V3-V4, full-length 16S, long reads, and centres on JAX's
   width-bucket edges): the d1_mixed_1m corpus.
@@ -610,6 +614,45 @@ def graft_edge_rows(seed=20261019, lengths=GRAFT_EDGE_LENGTHS):
                     q = int(rng.integers(0, len(one)))
                     add(edit(one, int(rng.integers(0, 3)), q), True)
     return rows, np.array(light, dtype=bool)
+
+
+#: (T, n, d) cases of the screen kernels on screen_edge_rows: n one
+#: below, at and one above a multiple of T; T = 96 (one warp a block),
+#: 128 (four) and 512 (two column blocks of eight warps)
+SCREEN_CASES = [(128, 255, 2), (128, 256, 3), (128, 257, 5),
+                (96, 200, 3), (512, 700, 5)]
+
+
+def screen_edge_rows(seed, n, d, length=60):
+    """n code rows: clouds of 4-9 variants up to d + 1 edits from a
+    centre, and beside each centre one variant d bases longer (d
+    insertions: lengths exactly d apart, profiles within 10d) and one d
+    + 1 longer (one past the length bound); shuffled, so that a cloud
+    spreads over the tiles."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    while len(rows) < n:
+        base = rng.integers(0, 4, size=length).astype(np.uint8)
+        rows.append(base)
+        for extra in (d, d + 1):
+            v = base
+            for _ in range(extra):
+                v = np.insert(v, int(rng.integers(0, len(v))),
+                              rng.integers(0, 4))
+            rows.append(v.astype(np.uint8))
+        for _ in range(int(rng.integers(4, 10))):
+            v = base.copy()
+            for _ in range(int(rng.integers(0, d + 2))):
+                pos = int(rng.integers(0, len(v)))
+                op = int(rng.integers(0, 3))
+                if op == 0:
+                    v[pos] = rng.integers(0, 4)
+                elif op == 1:
+                    v = np.delete(v, pos)
+                else:
+                    v = np.insert(v, pos, rng.integers(0, 4))
+            rows.append(v.astype(np.uint8))
+    return [rows[i] for i in rng.permutation(n)]
 
 
 def insertion_run(seed=20260822, length=40):

@@ -1,18 +1,27 @@
 """Bulk d>=2 candidate discovery and exact edges on one torch device.
 
 Counterpart of swarm_tpu/ops/d2_network.py (D2NetworkEngine, single
-device). The screen is that module's: Hamming distance between 1024-bit
-qgram parity profiles as an int8 product of +-1 vectors,
+device). The screen is that module's: a pair of amplicons survives when
+the Hamming distance of their 1024-bit qgram parity profiles is at most
+10d and their lengths differ by at most d (JAX writes the first as an
+int8 product of +-1 vectors, dot = 1024 - 2 * hamming >= 1024 - 20d).
+Both are sound lower bounds; the exact diffs (ops/d2_diffs.py or the
+native kernel) reject the rest.
 
-    hamming(a, b) = (1024 - dot(a_pm1, b_pm1)) / 2,
+Tile pairs (I <= J) of T profiles are screened in chunks of
+SWARM_TPU_D2_CHUNK steps (512, as in JAX), in two passes:
 
-so mindiff = ceil(hamming / 10) <= d  <=>  dot >= 1024 - 20d, plus the
-length bound |len_a - len_b| <= d. Both are sound lower bounds; the
-exact diffs (ops/d2_diffs.py or the native kernel) reject the rest.
+- ``screen_words``: each step's survivors bit-packed into T*T/32 words
+  by flat position r*T + c, least significant bit first (JAX's
+  qgram_screen_words), and a survivor count for each row of each step;
+- ``extract_pairs``: an exclusive scan of the counts, one readback of
+  the chunk's total, and the pairs in (step, row, column) order (JAX's
+  extract_pairs), int32.
 
-Tile pairs (I <= J) of T profiles are screened in order; each tile
-pair's survivors are found with torch.nonzero, whose output is sized
-by the survivor count, and decoded to global int64 indices.
+On a CUDA tensor each wrapper launches its kernel (csrc/d2_screen.cu) or
+raises; on a CPU tensor it runs its plain version
+(``screen_words_reference``, ``extract_pairs_reference``), which unpacks
+the profiles to +-1 int8 only where it needs them.
 """
 
 import os
@@ -24,12 +33,184 @@ import torch
 PROFILE_BYTES = 128  # 1024-bit qgram parity vector
 PROFILE_BITS = 1024
 
+#: kernel launches made by the wrappers (CUDA tensors only)
+launches = {"d2_screen": 0, "d2_extract": 0}
+
 
 def _unpack_pm1(prof_bytes):
     """[n, 128] uint8 -> [n, 1024] int8 in {+1, -1} (bit set -> -1)."""
     shifts = torch.arange(8, dtype=torch.uint8, device=prof_bytes.device)
     bits = (prof_bytes[:, :, None] >> shifts) & 1
     return (1 - 2 * bits.to(torch.int8)).reshape(-1, PROFILE_BITS)
+
+
+def _as_int32_words(values):
+    """int64 values in [0, 2^32) -> int32 tensors of the same bits."""
+    return torch.where(values >= 1 << 31, values - (1 << 32),
+                       values).to(torch.int32)
+
+
+def screen_words_reference(prof, lengths, tis, tjs, T, n, d):
+    """JAX's qgram_screen_words: [C, T*T/32] words (uint32 bit patterns
+    held as int32), a step's survivor at flat position r*T + c in word
+    (r*T + c) // 32, bit (r*T + c) % 32.
+
+    prof: [n_pad, 128] uint8 profiles (rows n..n_pad zero); lengths:
+    [n_pad] int32; tis/tjs: [C] tile indices of the steps."""
+    dev = prof.device
+    dot_min = PROFILE_BITS - 20 * d
+    powers = torch.ones(32, dtype=torch.int64, device=dev) << torch.arange(
+        32, dtype=torch.int64, device=dev)
+    idx = torch.arange(T, device=dev)
+    words = torch.empty((len(tis), T * T // 32), dtype=torch.int32,
+                        device=dev)
+    for k, (ti, tj) in enumerate(zip(tis.tolist(), tjs.tolist())):
+        a = _unpack_pm1(prof[ti * T:(ti + 1) * T])
+        b = _unpack_pm1(prof[tj * T:(tj + 1) * T])
+        dot = torch._int_mm(a, b.t())  # [T, T] int32
+        la = lengths[ti * T:(ti + 1) * T]
+        lb = lengths[tj * T:(tj + 1) * T]
+        gi = ti * T + idx
+        gj = tj * T + idx
+        mask = ((dot >= dot_min) & (gi[:, None] < gj[None, :])
+                & (gj < n)[None, :]
+                & ((la[:, None] - lb[None, :]).abs() <= d))
+        words[k] = _as_int32_words(
+            (mask.reshape(-1, 32).to(torch.int64) * powers).sum(1))
+    return words
+
+
+def _word_bits(words):
+    """[..., W] int32 words -> [..., W, 32] bool, bit j at index j."""
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    return ((words.to(torch.int64)[..., None] >> shifts) & 1).bool()
+
+
+def row_counts_reference(words, T):
+    """Survivors of each row of each step: [C * T] int32."""
+    counts = [_word_bits(step).reshape(T, T).sum(1) for step in words]
+    if not counts:
+        return torch.zeros(0, dtype=torch.int32, device=words.device)
+    return torch.cat(counts).to(torch.int32)
+
+
+def extract_pairs_reference(words, tis, tjs, T):
+    """JAX's extract_pairs without its caps: (ga, gb) int32, every
+    survivor of `words` in (step, row, column) order."""
+    ga, gb = [], []
+    for k, (ti, tj) in enumerate(zip(tis.tolist(), tjs.tolist())):
+        flat = torch.nonzero(_word_bits(words[k]).reshape(-1)).squeeze(1)
+        ga.append(ti * T + torch.div(flat, T, rounding_mode="floor"))
+        gb.append(tj * T + flat % T)
+    if not ga:
+        empty = torch.zeros(0, dtype=torch.int32, device=words.device)
+        return empty, empty.clone()
+    return (torch.cat(ga).to(torch.int32), torch.cat(gb).to(torch.int32))
+
+
+def _check_tile(T, n_pad):
+    if T <= 0 or T % 32:
+        raise ValueError(f"tile T={T} is not a positive multiple of 32")
+    if n_pad >= 1 << 31:
+        raise ValueError(f"{n_pad} profiles do not fit int32 pair indices")
+
+
+def screen_words(prof, lengths, tis, tjs, T, n, d):
+    """(words [C, T*T/32] int32, counts [C*T] int32): the steps' survivor
+    words as screen_words_reference gives them, and each row's survivor
+    count. A CUDA tensor launches d2_screen_kernel (csrc/d2_screen.cu)."""
+    _check_tile(T, prof.shape[0])
+    if prof.dtype != torch.uint8 or prof.dim() != 2 or \
+            prof.shape[1] != PROFILE_BYTES or prof.shape[0] % T:
+        raise ValueError("profiles must be [n_pad, 128] uint8, n_pad a "
+                         "multiple of T")
+    if lengths.dtype != torch.int32 or lengths.shape != prof.shape[:1] or \
+            tis.dtype != torch.int32 or tjs.dtype != torch.int32 or \
+            tis.shape != tjs.shape:
+        raise ValueError("lengths and tile indices must be int32, one a "
+                         "profile and one a step")
+    if len({t.device for t in (prof, lengths, tis, tjs)}) != 1:
+        raise ValueError("profiles, lengths and steps must share a device")
+    if prof.device.type == "cpu":
+        words = screen_words_reference(prof, lengths, tis, tjs, T, n, d)
+        return words, row_counts_reference(words, T)
+    if prof.device.type != "cuda":
+        raise ValueError(f"no d2_screen kernel for device {prof.device}")
+
+    from .._build import load
+
+    lib = load()
+    prof, lengths, tis, tjs = (
+        t.contiguous() for t in (prof, lengths, tis, tjs))
+    C = tis.shape[0]
+    words = torch.empty((C, T * T // 32), dtype=torch.int32,
+                        device=prof.device)
+    counts = torch.zeros(C * T, dtype=torch.int32, device=prof.device)
+    if C == 0:
+        return words, counts
+    with torch.cuda.device(prof.device):
+        err = lib.swarm_d2_screen(
+            prof.data_ptr(), lengths.data_ptr(), tis.data_ptr(),
+            tjs.data_ptr(), C, T, int(n), int(d), words.data_ptr(),
+            counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"d2_screen kernel launch failed: CUDA error {err}")
+    launches["d2_screen"] += 1
+    return words, counts
+
+
+def extract_pairs(words, counts, tis, tjs, T):
+    """(ga, gb) int32: every survivor of `words` in (step, row, column)
+    order. A CUDA tensor scans `counts` (int64), reads the chunk's total
+    back once and, for a total above 0, launches d2_extract_kernel
+    (extract_scanned)."""
+    if words.dim() != 2 or words.dtype != torch.int32 or \
+            words.shape[1] != T * T // 32 or counts.dtype != torch.int32 or \
+            counts.shape != (words.shape[0] * T,) or \
+            tis.shape != (words.shape[0],) or tjs.shape != tis.shape:
+        raise ValueError("words, counts or steps do not agree with T")
+    if len({t.device for t in (words, counts, tis, tjs)}) != 1:
+        raise ValueError("words, counts and steps must share a device")
+    if words.device.type == "cpu":
+        return extract_pairs_reference(words, tis, tjs, T)
+    if words.device.type != "cuda":
+        raise ValueError(f"no d2_extract kernel for device {words.device}")
+    incl = torch.cumsum(counts, 0, dtype=torch.int64)
+    total = int(incl[-1]) if incl.numel() else 0
+    return extract_scanned(words, counts, incl - counts, tis, tjs, T, total)
+
+
+def extract_scanned(words, counts, offsets, tis, tjs, T, total):
+    """The pairs of extract_pairs on a CUDA device, from the exclusive
+    scan of the counts (`offsets`, int64) and their `total`: one launch
+    of d2_extract_kernel, none for a total of 0."""
+    from .._build import load
+
+    lib = load()
+    words, counts, offsets, tis, tjs = (
+        t.contiguous() for t in (words, counts, offsets, tis, tjs))
+    ga = torch.empty(total, dtype=torch.int32, device=words.device)
+    gb = torch.empty(total, dtype=torch.int32, device=words.device)
+    if total == 0:
+        return ga, gb
+    with torch.cuda.device(words.device):
+        err = lib.swarm_d2_extract(
+            words.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+            tis.data_ptr(), tjs.data_ptr(), words.shape[0], T, total,
+            ga.data_ptr(), gb.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"d2_extract kernel launch failed: CUDA error {err}")
+    launches["d2_extract"] += 1
+    return ga, gb
+
+
+def tile_steps(n_tiles):
+    """(tis, tjs) int32 arrays of the tile-pair steps I <= J, in JAX's
+    order (I ascending, then J)."""
+    tis, tjs = np.triu_indices(n_tiles)
+    return tis.astype(np.int32), tjs.astype(np.int32)
 
 
 class D2NetworkEngine:
@@ -49,6 +230,7 @@ class D2NetworkEngine:
         self.TILE = int(os.environ.get("SWARM_TPU_D2_TILE", self.TILE))
         T = self.TILE
         self.n_pad = max(T, -(-self.n // T) * T)
+        _check_tile(T, self.n_pad)
         prof_u64 = _native.qgram_profiles_arena(
             db.codes, db.offsets, db.lengths
         )
@@ -60,7 +242,6 @@ class D2NetworkEngine:
         lengths[: self.n] = db.lengths
         self.prof = torch.from_numpy(prof_u8).to(self.device)
         self.lengths = torch.from_numpy(lengths).to(self.device)
-        self.pm1 = _unpack_pm1(self.prof)
         #: host seconds per phase of the last build_adjacency; with
         #: SWARM_TPU_TIMING set, the device is synchronised between phases
         self.timings = {}
@@ -73,36 +254,29 @@ class D2NetworkEngine:
         """(pa, pb, n_screened): unordered candidate pairs (a < b) as
         int64 arrays, in (tile pair, row, column) order."""
         T = self.TILE
-        n_tiles = self.n_pad // T
-        dot_min = PROFILE_BITS - 20 * self.d
+        all_ti, all_tj = tile_steps(self.n_pad // T)
+        C = max(1, int(os.environ.get("SWARM_TPU_D2_CHUNK", "512")))
         t_screen = t_extract = 0.0
         ga_parts, gb_parts = [], []
-        for ti in range(n_tiles):
-            a = self.pm1[ti * T:(ti + 1) * T]
-            la = self.lengths[ti * T:(ti + 1) * T]
-            for tj in range(ti, n_tiles):
-                t0 = time.perf_counter()
-                b = self.pm1[tj * T:(tj + 1) * T]
-                lb = self.lengths[tj * T:(tj + 1) * T]
-                dot = torch._int_mm(a, b.t())  # [T, T] int32
-                mask = (dot >= dot_min) & (
-                    (la[:, None] - lb[None, :]).abs() <= self.d)
-                if ti == tj:  # gi < gj
-                    mask = torch.triu(mask, diagonal=1)
-                if (tj + 1) * T > self.n:  # gj < n
-                    mask[:, self.n - tj * T:] = False
-                self._sync()
-                t1 = time.perf_counter()
-                idx = torch.nonzero(mask)
-                if idx.shape[0]:
-                    ga_parts.append(idx[:, 0] + ti * T)
-                    gb_parts.append(idx[:, 1] + tj * T)
-                t_extract += time.perf_counter() - t1
-                t_screen += t1 - t0
+        for c0 in range(0, len(all_ti), C):
+            t0 = time.perf_counter()
+            tis = torch.from_numpy(all_ti[c0:c0 + C]).to(self.device)
+            tjs = torch.from_numpy(all_tj[c0:c0 + C]).to(self.device)
+            words, counts = screen_words(self.prof, self.lengths, tis, tjs,
+                                         T, self.n, self.d)
+            self._sync()
+            t1 = time.perf_counter()
+            ga, gb = extract_pairs(words, counts, tis, tjs, T)
+            del words, counts
+            if ga.numel():
+                ga_parts.append(ga)
+                gb_parts.append(gb)
+            t_extract += time.perf_counter() - t1
+            t_screen += t1 - t0
         t1 = time.perf_counter()
         if ga_parts:
-            pa = torch.cat(ga_parts).cpu().numpy()
-            pb = torch.cat(gb_parts).cpu().numpy()
+            pa = torch.cat(ga_parts).cpu().numpy().astype(np.int64)
+            pb = torch.cat(gb_parts).cpu().numpy().astype(np.int64)
         else:
             pa = np.zeros(0, dtype=np.int64)
             pb = np.zeros(0, dtype=np.int64)

@@ -14,6 +14,7 @@ from swarm_tpu_torch import _native
 from swarm_tpu_torch.corpora import (
     D2_DIFFS_BAND_CASES,
     D2_DIFFS_KERNEL_CASES,
+    SCREEN_CASES,
     band_edge_cases,
     chain_corpus,
     d1_edge_rows,
@@ -30,8 +31,10 @@ from swarm_tpu_torch.corpora import (
     record_index,
     rows_records,
     score_edge_cases,
+    screen_edge_rows,
 )
 from swarm_tpu_torch.ops import d2_diffs as torch_diffs
+from swarm_tpu_torch.ops import d2_network as d2n
 from swarm_tpu_torch.ops import fastidious_torch as ft
 from swarm_tpu_torch.ops import neighbors_sortjoin as sj
 from swarm_tpu_torch.ops import nw_scores
@@ -125,6 +128,92 @@ def test_screen_on_card_matches_cpu(tmp_path, cuda_device, monkeypatch):
     assert got[2] == want[2] > 0
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+
+
+def _screen_steps(tmp_path, monkeypatch, dev, T, n, d, seed=130):
+    monkeypatch.setenv("SWARM_TPU_D2_TILE", str(T))
+    db = make_db(tmp_path, rows_records(screen_edge_rows(seed, n, d)))
+    eng = D2NetworkEngine(db, d, dev)
+    tis, tjs = (torch.from_numpy(t).to(dev)
+                for t in d2n.tile_steps(eng.n_pad // T))
+    return eng, tis, tjs
+
+
+@pytest.mark.parametrize("T,n,d", SCREEN_CASES)
+def test_d2_screen_kernels_match_reference(tmp_path, cuda_device,
+                                           monkeypatch, T, n, d):
+    """Words and row counts element for element, pairs in order; one
+    launch of each kernel."""
+    eng, tis, tjs = _screen_steps(tmp_path, monkeypatch, cuda_device, T, n, d)
+    before = dict(d2n.launches)
+    words, counts = d2n.screen_words(eng.prof, eng.lengths, tis, tjs, T,
+                                     eng.n, d)
+    ga, gb = d2n.extract_pairs(words, counts, tis, tjs, T)
+    torch.cuda.synchronize()
+    assert d2n.launches == {k: v + 1 for k, v in before.items()}
+    want = d2n.screen_words_reference(eng.prof, eng.lengths, tis, tjs, T,
+                                      eng.n, d)
+    assert torch.equal(words, want)
+    assert torch.equal(counts, d2n.row_counts_reference(want, T))
+    pa, pb = d2n.extract_pairs_reference(want, tis, tjs, T)
+    assert len(pa) > 0
+    assert torch.equal(ga, pa) and torch.equal(gb, pb)
+
+
+@pytest.mark.parametrize("chunk", ["1", "2", "512"])
+def test_d2_screen_chunks_on_card_match_cpu(tmp_path, cuda_device,
+                                            monkeypatch, chunk):
+    monkeypatch.setenv("SWARM_TPU_D2_CHUNK", chunk)
+    eng, _, _ = _screen_steps(tmp_path, monkeypatch, cuda_device, 128, 383, 3)
+    cpu = D2NetworkEngine(eng.db, 3, torch.device("cpu"))
+    got, want = eng.candidate_pairs(), cpu.candidate_pairs()
+    assert got[2] == want[2] > 0
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_d2_extract_decodes_past_int32(cuda_device):
+    """Survivor bits of a late step, whose global bit position passes
+    2^31 (JAX's round-4 wrap), decode exactly."""
+    T, K = 512, 8400
+    wpr = T // 32
+    words = torch.zeros((K, T * wpr), dtype=torch.int32, device=cuda_device)
+    counts = torch.zeros(K * T, dtype=torch.int32, device=cuda_device)
+    planted = [(3, 17, 5), (8300, 8000, 31), (8399, 8191, 31)]
+    for k, w, b in planted:
+        words[k, w] = np.int32(np.uint32(1 << b).view(np.int32))
+        counts[k * T + w // wpr] += 1
+    tis = torch.arange(K, dtype=torch.int32, device=cuda_device) % 11
+    tjs = torch.arange(K, dtype=torch.int32, device=cuda_device) % 13
+    ga, gb = d2n.extract_pairs(words, counts, tis, tjs, T)
+    want = [(k % 11 * T + (w * 32 + b) // T, k % 13 * T + (w * 32 + b) % T)
+            for k, w, b in planted]
+    assert list(zip(ga.tolist(), gb.tolist())) == want
+
+
+def test_d2_screen_empty_chunk_launches_no_extraction(tmp_path, cuda_device,
+                                                     monkeypatch):
+    monkeypatch.setenv("SWARM_TPU_D2_TILE", "128")
+    rng = np.random.default_rng(131)
+    rows = [rng.integers(0, 4, size=200).astype(np.uint8) for _ in range(40)]
+    db = make_db(tmp_path, rows_records(rows))
+    eng = D2NetworkEngine(db, 2, cuda_device)
+    before = dict(d2n.launches)
+    assert eng.candidate_pairs()[2] == 0
+    assert d2n.launches["d2_screen"] == before["d2_screen"] + 1
+    assert d2n.launches["d2_extract"] == before["d2_extract"]
+
+
+def test_d2_screen_refuses_a_tile_it_cannot_take(tmp_path, cuda_device,
+                                                  monkeypatch):
+    eng, tis, tjs = _screen_steps(tmp_path, monkeypatch, cuda_device, 128,
+                                  100, 2)
+    before = dict(d2n.launches)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        d2n.screen_words(eng.prof, eng.lengths, tis, tjs, 64 + 16, eng.n, 2)
+    with pytest.raises(ValueError, match="share a device"):
+        d2n.screen_words(eng.prof, eng.lengths.cpu(), tis, tjs, 128, eng.n, 2)
+    assert d2n.launches == before
 
 
 @pytest.fixture

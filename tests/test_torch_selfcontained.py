@@ -13,6 +13,10 @@ not drifted from swarm_tpu's.
     native wrappers give the same arrays, the corpus generators the same
     records (the CLI cases of tests/test_torch_cli.py hold the outputs
     byte for byte);
+(b') the resident server (swarm_tpu_torch/server.py) serves d = 1, 2
+    and -f on the CPU and ends with neither jax nor swarm_tpu in
+    sys.modules; a forwarding client, and the server module alone,
+    import neither torch nor numpy;
 (d) run() with no device asked raises on a machine without CUDA, and
     runs when the CPU is asked for.
 """
@@ -75,7 +79,8 @@ def test_port_file_list_is_complete():
                  "swarm_tpu_torch/models/general.py",
                  "swarm_tpu_torch/ops/search_torch.py",
                  "swarm_tpu_torch/ops/neighbors_sortjoin.py", "chip_smoke.py",
-                 "bin/swarm-torch", "scripts/device_busy.py"):
+                 "swarm_tpu_torch/server.py", "bin/swarm-torch",
+                 "scripts/device_busy.py"):
         assert must in names
     assert "_host_d1_backend" not in (
         REPO_ROOT / "swarm_tpu_torch" / "main.py").read_text()
@@ -173,6 +178,83 @@ def test_launcher_fastidious_device_graft_holds_no_jax(tmp_path):
     assert r.returncode == 0, r.stderr.decode()
     assert b"[timing] graft (cpu) verify" in r.stderr
     assert b"Made 0 grafts" not in (tmp_path / "log.txt").read_bytes()
+
+
+#: runs the resident server in this interpreter until it is shut down,
+#: then looks at what it imported
+SERVER_PROBE = """import sys
+from swarm_tpu_torch.server import serve
+serve({sock!r})
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "swarm_tpu", "bench"))
+assert not bad, bad[:5]
+assert "torch" in sys.modules
+"""
+
+#: a forwarded run of the launcher: the client imports neither torch
+#: nor numpy
+CLIENT_PROBE = """import runpy, sys
+try:
+    runpy.run_path({launcher!r}, run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("torch", "numpy", "jax", "swarm_tpu"))
+assert not bad, bad[:5]
+"""
+
+
+def test_server_process_holds_no_jax_and_its_client_no_torch(tmp_path):
+    """The server serves -d 2 (network engine), -d 1 (sort-join engine)
+    and -d 1 -f (device graft) on the CPU, and ends with neither jax nor
+    swarm_tpu in sys.modules; each forwarding client imports no torch."""
+    import time
+
+    (tmp_path / "in.fasta").write_text(
+        amplicon_cloud(seed=72, n_centers=4, cloud_size=10, length=60))
+    sock = tmp_path / "s.sock"
+    env = {**os.environ, "PYTHONPATH": str(REPO_ROOT)}
+    server = subprocess.Popen(
+        [sys.executable, "-c", SERVER_PROBE.format(sock=str(sock))],
+        stderr=subprocess.PIPE, env={
+            **env, "SWARM_TORCH_DEVICE": "cpu",
+            "SWARM_TPU_D2_ENGINE": "network", "SWARM_TPU_D2_TILE": "128",
+            "SWARM_TPU_D1_NATIVE_MAX": "0", "SWARM_TPU_GRAFT_PROBE_MAX": "0"})
+    try:
+        deadline = time.time() + 120
+        while not sock.exists():
+            assert server.poll() is None and time.time() < deadline, \
+                server.stderr.read().decode()
+            time.sleep(0.05)
+        probe = CLIENT_PROBE.format(
+            launcher=str(REPO_ROOT / "bin" / "swarm-torch"))
+        for flags in (["-d", "2"], ["-d", "1"], ["-d", "1", "-f"]):
+            r = subprocess.run(
+                [sys.executable, "-c", probe, *flags, "-o", "out.txt",
+                 "in.fasta"], cwd=tmp_path, capture_output=True,
+                timeout=300, env={**env, "SWARM_TORCH_SERVER": str(sock)})
+            assert r.returncode == 0, r.stderr.decode()
+            assert (tmp_path / "out.txt").stat().st_size > 0
+        subprocess.run([sys.executable, "-m", "swarm_tpu_torch.server",
+                        str(sock), "--shutdown"], env=env, timeout=60,
+                       check=True)
+        assert server.wait(timeout=60) == 0, server.stderr.read().decode()
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+
+
+def test_server_module_imports_only_the_standard_library():
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, swarm_tpu_torch.server\n"
+         "bad = [m for m in ('torch', 'numpy', 'jax', 'swarm_tpu')\n"
+         "       if m in sys.modules]\n"
+         "assert not bad, bad"],
+        capture_output=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(REPO_ROOT)})
+    assert r.returncode == 0, r.stderr.decode()
 
 
 # ---- (c) the copies against the originals -------------------------------
