@@ -34,11 +34,15 @@ final line:
    row's count element for element, the pairs in order), on
    screen_edge_rows at tiles T = 96, 128 and 512 with n one below, at
    and one above a multiple of T, d = 2, 3 and 5 and lengths exactly d
-   apart, the engine's own run in chunks of 2 steps at T = 128, and the
-   d2_100k (325 steps) and d2_long (15 steps) corpora at T = 4096, timed
-   there (the screen with its int8 tensor-core bound and its popcount
-   bound, beside torch._int_mm of the same tiles; the extraction alone
-   behind a busy kernel and as its wrapper's call reads);
+   apart, at T = 32, 160 and 4096 with n below T and on a tile's edge,
+   at d = 20, the engine's own run in chunks of 2 steps at T = 128, and
+   the d2_100k (325 steps) and d2_long (15 steps) corpora and the first
+   chunk (512 steps) of the d1_1m corpus at d = 2, T = 4096, timed there
+   (the screen with its int8 tensor-core bound and share, beside the
+   popcount bound of the XOR-popcount form and torch._int_mm of the same
+   tiles; the extraction alone behind a busy kernel and as its wrapper's
+   call reads, also on the dense words of two tiles of one repeated
+   profile; ptxas' registers and spills of both);
 5. the d=1 kernels d1_keygen (its count and pack pass, which packs the
    code arena into ragged rows, and its emit pass), d1_partition,
    d1_join and d1_verify against their plain versions on the card,
@@ -136,6 +140,7 @@ import argparse
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -189,6 +194,33 @@ OPS_PER_GRAFT_BASE = 4
 #: capability 9.0) on 132 SMs at the 1.98 GHz boost clock
 PEAK_INT8_TC_OPS_PER_S = 1.979e15
 PEAK_POPC_PER_S = 16 * 132 * 1.98e9
+#: the steps of the d>=2 screen on the d1_1m corpus: one chunk of the
+#: engine's (SWARM_TPU_D2_CHUNK), the n^2 regime at 1M amplicons
+D1_1M_SCREEN_STEPS = 512
+
+#: nvcc's messages of the kernel build (-Xptxas -v), set by main()
+BUILD_LOG = ""
+
+
+def ptxas_report(kernel):
+    """{registers, spill_stores, spill_loads} of the kernel whose mangled
+    name holds `kernel`, from ptxas' report in BUILD_LOG."""
+    lines = BUILD_LOG.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and kernel in ln:
+            out = {}
+            for nxt in lines[i + 1:i + 6]:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", nxt)
+                if m:
+                    out["spill_stores"] = int(m.group(1))
+                    out["spill_loads"] = int(m.group(2))
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    out["registers"] = int(m.group(1))
+                    break
+            return out
+    raise AssertionError(f"no ptxas report of {kernel} in the build log")
 
 
 def say(msg):
@@ -1501,18 +1533,19 @@ def phase_graft_kernels(dev, corpus, work, edges):
     return result
 
 
-def _screen_check(name, eng, chunk=None):
-    """The screen kernels against their plain versions on all of the
-    engine's steps: words and row counts element for element, the pairs
-    in order; with `chunk`, also the engine's own run in chunks of that
-    many steps. Returns (tis, tjs, words, counts, reference words, pairs)."""
+def _screen_check(name, eng, chunk=None, steps=None):
+    """The screen kernels against their plain versions on the engine's
+    steps (the first `steps` of them, or all): words and row counts
+    element for element, the pairs in order; with `chunk`, also the
+    engine's own run in chunks of that many steps. Returns (tis, tjs,
+    words, counts, reference words, pairs)."""
     import numpy as np
     import torch
 
     from swarm_tpu_torch.ops import d2_network as d2n
 
     T, dev = eng.TILE, eng.device
-    tis, tjs = (torch.from_numpy(t).to(dev)
+    tis, tjs = (torch.from_numpy(t[:steps]).to(dev)
                 for t in d2n.tile_steps(eng.n_pad // T))
     words, counts = d2n.screen_words(eng.prof, eng.lengths, tis, tjs, T,
                                      eng.n, eng.d)
@@ -1552,9 +1585,10 @@ def _screen_check(name, eng, chunk=None):
     return tis, tjs, words, counts, want, (pa, pb)
 
 
-def screen_timed(name, fasta, dev, busy):
+def screen_timed(name, fasta, dev, busy, steps=None):
     """The screen kernels on a main path's corpus at the engine's tile
-    (d = 2), checked, then timed; returns the two kernels' rows."""
+    (d = 2; its first `steps` tile pairs, or all), checked, then timed;
+    returns the two kernels' rows."""
     import torch
 
     from swarm_tpu_torch.corpora import read_db
@@ -1563,7 +1597,8 @@ def screen_timed(name, fasta, dev, busy):
 
     eng = D2NetworkEngine(read_db(fasta), 2, dev)
     T, d = eng.TILE, eng.d
-    tis, tjs, words, counts, want, (pa, _) = _screen_check(name, eng)
+    tis, tjs, words, counts, want, (pa, _) = _screen_check(name, eng,
+                                                           steps=steps)
     K = len(tis)
     incl = torch.cumsum(counts, 0, dtype=torch.int64)
     total = int(incl[-1])
@@ -1582,9 +1617,12 @@ def screen_timed(name, fasta, dev, busy):
     # int8 tiles, which the plain version (and JAX) multiply
     pm1 = d2n._unpack_pm1(eng.prof)
     steps = list(zip(tis.tolist(), tjs.tolist()))
-    int_mm_ms = cuda_ms(lambda: [torch._int_mm(
-        pm1[i * T:(i + 1) * T], pm1[j * T:(j + 1) * T].t())
-        for i, j in steps], 2)
+
+    def int_mm():  # each product dropped at once: one step's 64 MB live
+        for i, j in steps:
+            torch._int_mm(pm1[i * T:(i + 1) * T], pm1[j * T:(j + 1) * T].t())
+
+    int_mm_ms = cuda_ms(int_mm, 2)
     del pm1
     # pairs the kernel's cheaper tests leave to the popcount (triangle,
     # padding, lengths)
@@ -1598,54 +1636,118 @@ def screen_timed(name, fasta, dev, busy):
         if i == j:
             keep &= idx[:, None] < idx[None, :]
         masked += int(keep.sum())
-    pairs_all = K * T * T
-    tc_ops = 2 * d2n.PROFILE_BITS * pairs_all
+    # pairs the function needs, gi < gj < n: a diagonal step's upper
+    # triangle, an off-diagonal one's columns below n
+    pairs_all, needed = K * T * T, 0
+    for i, j in steps:
+        m = max(0, min(T, eng.n - j * T))
+        needed += m * (m - 1) // 2 if i == j else T * m
+    tc_ops = 2 * d2n.PROFILE_BITS * needed
     n_bytes = eng.n_pad * (128 + 4) + K * T * T // 8 + K * T * 4
     t_tc = tc_ops / PEAK_INT8_TC_OPS_PER_S * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     bound_ms, bound_by = max(t_tc, t_bytes), \
         "operations" if t_tc >= t_bytes else "bytes"
+    # the popcount form's own bound (the XOR-popcount screen before the
+    # tensor cores): 32 POPC a pair past the cheap tests
     popc_ms = masked * (d2n.PROFILE_BITS // 32) / PEAK_POPC_PER_S * 1e3
     rows_hit = int((counts > 0).sum())
     ex_bytes = K * T * 4 + rows_hit * (T // 8) + 8 * total
     ex_bound_ms, ex_bound_by = bound(ex_bytes, 0)
+    regs = {k: ptxas_report(f"{k}_kernel") for k in ("d2_screen",
+                                                     "d2_extract")}
     say(f"kernel d2_screen {name}: steps={K} T={T} pairs={pairs_all} "
-        f"(cheap masks keep {masked}) survivors={total} kernel_ms="
+        f"(gi < gj < n: {needed}; the length test too: {masked}) "
+        f"survivors={total} kernel_ms="
         f"{screen_ms:.4f} plain_ms={plain_screen_ms:.3f} int_mm_ms="
         f"{int_mm_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: int8 tensor "
         f"cores, {tc_ops} operations; bytes {n_bytes}: {t_bytes:.4f} ms) "
-        f"popcount_bound_ms={popc_ms:.4f} ({masked} pairs x 32 POPC at "
-        f"{PEAK_POPC_PER_S:.3e}/s)")
+        f"tensor_core_share={bound_ms / screen_ms:.3f} popcount_bound_ms="
+        f"{popc_ms:.4f} ({masked} pairs x 32 POPC at "
+        f"{PEAK_POPC_PER_S:.3e}/s) ptxas={regs['d2_screen']}")
     say(f"kernel d2_extract {name}: rows with survivors={rows_hit} of "
         f"{K * T} pairs={total} alone_ms={extract_ms:.4f} wrapper_ms="
         f"{wrapper_ms:.4f} (scan, readback, launch) plain_ms="
         f"{plain_extract_ms:.3f} bytes={ex_bytes} bound_ms="
-        f"{ex_bound_ms:.4f} ({ex_bound_by})")
+        f"{ex_bound_ms:.4f} ({ex_bound_by}) share="
+        f"{ex_bound_ms / extract_ms:.3f} ptxas={regs['d2_extract']}")
     if len(pa) != total:
         raise AssertionError(f"d2_extract {name}: {len(pa)} pairs against "
                              f"a total of {total}")
     return ({"max_abs_err": 0, "ms": screen_ms, "plain_ms": plain_screen_ms,
              "bound_ms": bound_ms, "bound_by": bound_by,
              "library_ms": int_mm_ms, "popcount_bound_ms": popc_ms,
-             "steps": K, "survivors": total},
+             "tensor_core_share": bound_ms / screen_ms,
+             "ptxas": regs["d2_screen"], "steps": K, "survivors": total},
             {"max_abs_err": 0, "ms": extract_ms, "wrapper_ms": wrapper_ms,
              "plain_ms": plain_extract_ms, "bound_ms": ex_bound_ms,
-             "bound_by": ex_bound_by, "library_ms": None, "pairs": total})
+             "bound_by": ex_bound_by, "library_ms": None,
+             "ptxas": regs["d2_extract"], "pairs": total})
+
+
+def extract_dense(dev, busy):
+    """d2_extract on the densest words: two tiles of one repeated profile
+    (T = 4096, n = 8,192, d = 2: every pair survives, rows of up to 4,096
+    pairs, 33,550,336 in all, so every pass is staged), the screen's
+    words and counts and the pairs checked against the plain versions,
+    then the extraction timed alone behind the busy kernel. Returns its
+    row."""
+    import numpy as np
+    import torch
+
+    from swarm_tpu_torch.ops import d2_network as d2n
+
+    T, n = 4096, 8192
+    row = torch.from_numpy(np.random.default_rng(132).integers(
+        0, 256, 128, dtype=np.uint8))
+    prof = row.repeat(n, 1).to(dev)
+    lengths = torch.full((n,), 150, dtype=torch.int32, device=dev)
+    tis, tjs = (torch.from_numpy(t).to(dev) for t in d2n.tile_steps(2))
+    words, counts = d2n.screen_words(prof, lengths, tis, tjs, T, n, 2)
+    want = d2n.screen_words_reference(prof, lengths, tis, tjs, T, n, 2)
+    incl = torch.cumsum(counts, 0, dtype=torch.int64)
+    total = int(incl[-1])
+    offsets = incl - counts
+    ga, gb = d2n.extract_scanned(words, counts, offsets, tis, tjs, T, total)
+    pa, pb = d2n.extract_pairs_reference(want, tis, tjs, T)
+    if not (torch.equal(words, want) and torch.equal(ga, pa)
+            and torch.equal(gb, pb)) or total != n * (n - 1) // 2:
+        raise AssertionError("d2_screen/d2_extract dense: differ from the "
+                             "plain versions")
+    ms = cuda_ms(lambda: d2n.extract_scanned(
+        words, counts, offsets, tis, tjs, T, total), 20, busy)
+    rows_hit = int((counts > 0).sum())
+    n_bytes = len(tis) * T * 4 + rows_hit * (T // 8) + 8 * total
+    bound_ms, bound_by = bound(n_bytes, 0)
+    say(f"kernel d2_extract dense: steps={len(tis)} T={T} rows with "
+        f"survivors={rows_hit} pairs={total} exact alone_ms={ms:.4f} "
+        f"bytes={n_bytes} bound_ms={bound_ms:.4f} ({bound_by})")
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "pairs": total}
 
 
 def phase_d2_screen(dev, corpus, work, edges):
     """d2_screen and d2_extract against their plain versions: with
     `edges`, on SCREEN_CASES (T = 96, 128, 512; n one below, at and one
-    above a multiple of T; d = 2, 3, 5; lengths exactly d apart) and at
-    T = 128 over chunks of 2 steps; then on the d2_100k and d2_long
-    corpora at T = 4096, timed there. Returns the kernels' rows (d2_100k's,
-    with d2_long's beside them under "d2_long")."""
-    from swarm_tpu_torch.corpora import (
-        SCREEN_CASES, make_db, rows_records, screen_edge_rows)
+    above a multiple of T; d = 2, 3, 5; lengths exactly d apart), on
+    SCREEN_EDGE_CASES (T = 32, 160, 4096 with n below T and on a tile's
+    edge; d = 20) and at T = 128 over chunks of 2 steps; then on the
+    d2_100k and d2_long corpora at T = 4096 and on the first chunk (512
+    steps) of the d1_1m corpus at d = 2, timed there, and the extraction
+    on dense words (extract_dense). Returns the kernels' rows (d2_100k's,
+    with the others beside them under "d2_long", "d1_1m_chunk" and
+    "dense")."""
+    import torch
+
     from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
 
     if edges:
-        cases = [(T, n, d, None) for T, n, d in SCREEN_CASES] + \
+        from swarm_tpu_torch.corpora import (
+            SCREEN_CASES, SCREEN_EDGE_CASES, make_db, rows_records,
+            screen_edge_rows)
+
+        cases = [(T, n, d, None) for T, n, d in
+                 SCREEN_CASES + SCREEN_EDGE_CASES] + \
             [(128, 383, 3, 2), (128, 384, 2, 2), (128, 385, 5, 2)]
         for T, n, d, chunk in cases:
             case = f"T{T}_n{n}_d{d}" + (f"_chunk{chunk}" if chunk else "")
@@ -1665,6 +1767,14 @@ def phase_d2_screen(dev, corpus, work, edges):
     if "d2_long" in corpus:
         screen["d2_long"], extract["d2_long"] = screen_timed(
             "d2_long", corpus["d2_long"], dev, busy)
+    if "d1_1m" in corpus:
+        screen["d1_1m_chunk"], extract["d1_1m_chunk"] = screen_timed(
+            "d1_1m_chunk", corpus["d1_1m"], dev, busy,
+            steps=D1_1M_SCREEN_STEPS)
+    extract["dense"] = extract_dense(dev, busy)
+    # the phase's cached blocks (the chunks' words, the plain versions'
+    # tiles) back to the card: the server phase's processes need them
+    torch.cuda.empty_cache()
     return {"d2_screen": screen, "d2_extract": extract}
 
 
@@ -2000,7 +2110,8 @@ def main():
     from swarm_tpu_torch.device import device_name
 
     t1 = time.perf_counter()
-    log = _build.build(verbose=True)
+    global BUILD_LOG
+    log = BUILD_LOG = _build.build(verbose=True)
     _build.load()
     t2 = time.perf_counter()
     say(f"build: native library {t1 - t0:.1f}s "

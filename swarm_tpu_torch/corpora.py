@@ -25,10 +25,10 @@ run on the card and a run on the CPU see the same sequences.
   ragged layout (1 to 5,003 nt), with their neighbours at distance 1.
 - ``graft_edge_rows``: heavy rows and light rows two edits from them,
   whose graft pairs put the edits on the verify's word edges.
-- ``screen_edge_rows``, ``SCREEN_CASES``: clouds of rows around
-  centres, each centre with a variant exactly d bases longer and one d +
-  1 longer, for the d>=2 screen kernels at small tiles and at n around
-  a multiple of the tile.
+- ``screen_edge_rows``, ``SCREEN_CASES``, ``SCREEN_EDGE_CASES``: clouds
+  of rows around centres, each centre with a variant exactly d bases
+  longer and one d + 1 longer, for the d>=2 screen kernels at small
+  tiles and at n around a multiple of the tile.
 - ``mixed_length_corpus``: gen_corpus' clouds around centres of mixed
   lengths (V4, V3-V4, full-length 16S, long reads, and centres on JAX's
   width-bucket edges): the d1_mixed_1m corpus.
@@ -617,10 +617,20 @@ def graft_edge_rows(seed=20261019, lengths=GRAFT_EDGE_LENGTHS):
 
 
 #: (T, n, d) cases of the screen kernels on screen_edge_rows: n one
-#: below, at and one above a multiple of T; T = 96 (one warp a block),
-#: 128 (four) and 512 (two column blocks of eight warps)
+#: below, at and one above a multiple of T; T = 96 (an item of 96 of its
+#: 128 columns, a ragged second row tile of 64), 128 (one item a step,
+#: two row tiles) and 512 (four items, eight row tiles)
 SCREEN_CASES = [(128, 255, 2), (128, 256, 3), (128, 257, 5),
                 (96, 200, 3), (512, 700, 5)]
+
+#: (T, n, d) cases at the edges of the tensor-core screen's schedule:
+#: T = 32 (a quarter of an item's columns, half a row tile), 160 (a
+#: ragged second item and third row tile) and 4096 (the engine's tile)
+#: with n below T and on a tile's edge, and d = 20 (threshold 624: dense
+#: words)
+SCREEN_EDGE_CASES = [(32, 20, 2), (32, 64, 2), (32, 75, 2), (160, 100, 3),
+                     (160, 320, 3), (4096, 3000, 2), (4096, 4096, 2),
+                     (128, 200, 20)]
 
 
 def screen_edge_rows(seed, n, d, length=60):

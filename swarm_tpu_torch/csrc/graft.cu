@@ -120,7 +120,7 @@
 // cores. What bounds it: bytes, 8 a key of both sides read, 4 a payload
 // of a key that pairs, 8 a pair written; on an H100 the count pass runs
 // at ~30% of that, held by each chunk's table work and barriers, not by
-// its reads (scripts/graft_ab.py times it without small keys).
+// its reads (scripts/phase_ab.py --phase graft times it without small keys).
 //
 // Verify. A group of kVerifyLanes (16) lanes a pair, two pairs a warp.
 // A pair is a chain of round trips to memory, each needing the one

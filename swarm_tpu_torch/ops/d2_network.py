@@ -18,7 +18,10 @@ SWARM_TPU_D2_CHUNK steps (512, as in JAX), in two passes:
   the chunk's total, and the pairs in (step, row, column) order (JAX's
   extract_pairs), int32.
 
-On a CUDA tensor each wrapper launches its kernel (csrc/d2_screen.cu) or
+On a CUDA tensor each wrapper launches its kernel (csrc/d2_screen.cu:
+the screen's dot as int8 products of the +-1 profiles on the tensor
+cores, expanded from the packed bits on chip, with the masks in the
+epilogue; the extraction reading only the rows that hold survivors) or
 raises; on a CPU tensor it runs its plain version
 (``screen_words_reference``, ``extract_pairs_reference``), which unpacks
 the profiles to +-1 int8 only where it needs them.

@@ -15,6 +15,7 @@ from swarm_tpu_torch.corpora import (
     D2_DIFFS_BAND_CASES,
     D2_DIFFS_KERNEL_CASES,
     SCREEN_CASES,
+    SCREEN_EDGE_CASES,
     band_edge_cases,
     chain_corpus,
     d1_edge_rows,
@@ -139,25 +140,59 @@ def _screen_steps(tmp_path, monkeypatch, dev, T, n, d, seed=130):
     return eng, tis, tjs
 
 
+def _screen_kernels_agree(prof, lengths, tis, tjs, T, n, d):
+    """Both kernels against their plain versions: words and row counts
+    element for element, pairs in order, one launch of each; returns
+    the pairs."""
+    before = dict(d2n.launches)
+    words, counts = d2n.screen_words(prof, lengths, tis, tjs, T, n, d)
+    ga, gb = d2n.extract_pairs(words, counts, tis, tjs, T)
+    torch.cuda.synchronize()
+    assert d2n.launches == {k: v + 1 for k, v in before.items()}
+    want = d2n.screen_words_reference(prof, lengths, tis, tjs, T, n, d)
+    assert torch.equal(words, want)
+    assert torch.equal(counts, d2n.row_counts_reference(want, T))
+    pa, pb = d2n.extract_pairs_reference(want, tis, tjs, T)
+    assert torch.equal(ga, pa) and torch.equal(gb, pb)
+    return ga, gb
+
+
 @pytest.mark.parametrize("T,n,d", SCREEN_CASES)
 def test_d2_screen_kernels_match_reference(tmp_path, cuda_device,
                                            monkeypatch, T, n, d):
     """Words and row counts element for element, pairs in order; one
     launch of each kernel."""
     eng, tis, tjs = _screen_steps(tmp_path, monkeypatch, cuda_device, T, n, d)
-    before = dict(d2n.launches)
-    words, counts = d2n.screen_words(eng.prof, eng.lengths, tis, tjs, T,
-                                     eng.n, d)
-    ga, gb = d2n.extract_pairs(words, counts, tis, tjs, T)
-    torch.cuda.synchronize()
-    assert d2n.launches == {k: v + 1 for k, v in before.items()}
-    want = d2n.screen_words_reference(eng.prof, eng.lengths, tis, tjs, T,
-                                      eng.n, d)
-    assert torch.equal(words, want)
-    assert torch.equal(counts, d2n.row_counts_reference(want, T))
-    pa, pb = d2n.extract_pairs_reference(want, tis, tjs, T)
-    assert len(pa) > 0
-    assert torch.equal(ga, pa) and torch.equal(gb, pb)
+    ga, _ = _screen_kernels_agree(eng.prof, eng.lengths, tis, tjs, T, eng.n,
+                                  d)
+    assert len(ga) > 0
+
+
+@pytest.mark.parametrize("T,n,d", SCREEN_EDGE_CASES)
+def test_d2_screen_kernels_on_the_edges_of_their_schedule(
+        tmp_path, cuda_device, monkeypatch, T, n, d):
+    """T = 32, 160 and 4096 with n below T and on a tile's edge (items
+    and row tiles past T, columns past n), and d = 20 (dense words)."""
+    eng, tis, tjs = _screen_steps(tmp_path, monkeypatch, cuda_device, T, n, d)
+    ga, _ = _screen_kernels_agree(eng.prof, eng.lengths, tis, tjs, T, eng.n,
+                                  d)
+    assert len(ga) > 0
+
+
+def test_d2_screen_steps_of_identical_profiles(cuda_device):
+    """Every pair passes: full words, rows of 4,096 survivors in the
+    off-diagonal step for the extraction, the triangle in the diagonal
+    ones."""
+    T, n = 4096, 8192
+    row = torch.from_numpy(np.random.default_rng(132).integers(
+        0, 256, 128, dtype=np.uint8))
+    prof = row.repeat(n, 1).to(cuda_device)
+    lengths = torch.full((n,), 150, dtype=torch.int32, device=cuda_device)
+    tis, tjs = (torch.from_numpy(t).to(cuda_device)
+                for t in d2n.tile_steps(2))
+    ga, _ = _screen_kernels_agree(prof, lengths, tis, tjs, T, n, 2)
+    assert len(ga) == n * (n - 1) // 2
+    assert int(torch.bincount(ga.long()).max()) == n - 1  # row 0
 
 
 @pytest.mark.parametrize("chunk", ["1", "2", "512"])
