@@ -109,7 +109,19 @@ final line:
      so does one more run of the port, its d=1 engine on the card (the
      -f path before the device graft), whose files must also equal the
      oracle's;
-8. the resident server (python -m swarm_tpu_torch.server, under
+8. the sharded engines (swarm_tpu_torch/parallel) on the card: d1_1m,
+   d1_fastidious_200k and d2_long again under SWARM_TORCH_SHARDS=4 (four
+   in-process shards on this card; the d=1 network, the graft and the
+   d>=2 screen split over them), each path's kernels launched in that
+   run and its files byte-identical to phase 7's single-device run
+   (itself equal to the native engine's); the d2_100k candidate pairs
+   over 4 shards equal to one device's in order; d1_full_100k as a
+   one-rank NCCL group (bin/swarm-torch in a new process under the rank
+   variables), its files equal to the in-process run's; each exchange's
+   bytes and time against its bound (2 x bytes over the memory rate),
+   each shard's phases and each path's peak device memory, and one
+   {"sharded": ...} JSON line;
+9. the resident server (python -m swarm_tpu_torch.server, under
    SWARM_TPU_DB_CACHE=1 and SWARM_TPU_TIMING=1) on the card: for
    d2_long, d1_1m and d1_fastidious_200k a cold CLI run (bin/swarm-torch
    in a new process, the kernel library built on disk), the same run
@@ -1962,6 +1974,151 @@ def _same_outputs(name, flags, work, run):
     return len(outputs)
 
 
+#: the main paths run again over SHARDS in-process shards on the card
+SHARDED_PATHS = ("d1_1m", "d1_fastidious_200k", "d2_long")
+SHARDS = 4
+#: the main path run again as a one-rank NCCL group in a new process
+NCCL_PATH = "d1_full_100k"
+#: the start of the line in which a run reports its kernels' launches
+LAUNCHES = "[timing] launches "
+
+
+def shard_summary(name):
+    """The exchange (its bytes, time and bound: 2 x bytes over the
+    card's memory rate, read once and written once) and each shard's
+    phases of the last sharded run of engine `name` (mesh.last_run)."""
+    from swarm_tpu_torch.parallel import mesh
+
+    run = mesh.last_run[name]
+    nbytes = run["exchange_bytes"]
+    return {"shards": run["shards"], "exchanges": run["exchanges"],
+            "exchange_bytes": nbytes, "exchange_ms": run["exchange_s"] * 1e3,
+            "exchange_bound_ms": 2 * nbytes / PEAK_BYTES_PER_S * 1e3,
+            "phases_ms": {key: {p: round(sec * 1e3, 4)
+                                for p, sec in spent.items()}
+                          for key, spent in run["phases"].items()}}
+
+
+def phase_sharded(dev, corpus, work):
+    """The sharded engines (swarm_tpu_torch/parallel) on the card: each
+    of SHARDED_PATHS again under SWARM_TORCH_SHARDS=SHARDS (every shard
+    on this card), its kernels' launches counted from 0 and its files
+    equal to the single-device run's of phase 7 (which equal the native
+    engine's); the d2_100k candidate pairs over SHARDS shards equal to
+    one device's in order (no writers); and NCCL_PATH as a one-rank NCCL
+    group (bin/swarm-torch in a new process under the rank variables),
+    its files equal to the in-process run's. Prints each exchange's
+    bytes and time against its bound, each shard's phases and each
+    path's peak device memory; returns them."""
+    import numpy as np
+    import torch
+
+    from swarm_tpu_torch.corpora import read_db
+    from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
+    from swarm_tpu_torch.parallel import mesh
+    from swarm_tpu_torch.parallel.dryrun import free_port
+    from swarm_tpu_torch.parallel.mesh import LocalShards
+
+    t_phase = time.perf_counter()
+    result = {}
+    for name in SHARDED_PATHS:
+        flags, _, kernels, _ = MAIN_PATHS[name][2:]
+        engines = ["d2"] if flags[1] == "2" else \
+            ["d1", "graft"] if "-f" in flags else ["d1"]
+        mesh.last_run.clear()
+        reset_kernel_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sec, _ = run_cli(flags + ["-l", "log.txt", str(corpus[name])],
+                         work / f"{name}_shards",
+                         {"SWARM_TORCH_SHARDS": str(SHARDS)})
+        counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for kernel in kernels:
+            if counts[kernel] < 1:
+                raise AssertionError(f"{name} over shards: kernel {kernel} "
+                                     "never launched")
+        if sorted(mesh.last_run) != sorted(engines):
+            raise AssertionError(f"{name}: the sharded engines did not run "
+                                 f"({sorted(mesh.last_run)})")
+        n_out = _same_outputs(name, flags, work, f"{name}_shards")
+        row = {"s": sec, "device_peak_bytes": peak,
+               "launches": {k: counts[k] for k in kernels},
+               **{e: shard_summary(e) for e in engines}}
+        say(f"sharded {name}: {SHARDS} shards on {dev} s={sec:.3f} "
+            f"device_peak_bytes={peak} launches={row['launches']}; {n_out} "
+            f"output files byte-identical to the single-device run's and "
+            f"the native engine's")
+        for e in engines:
+            x = row[e]
+            say(f"  {name} {e}: {x['exchanges']} exchanges "
+                f"{x['exchange_bytes']} bytes {x['exchange_ms']:.4f} ms "
+                f"(bound {x['exchange_bound_ms']:.4f} ms) "
+                f"phases_ms={x['phases_ms']}")
+        result[name] = row
+
+    db = read_db(corpus["d2_100k"])
+    eng = D2NetworkEngine(db, 2, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = eng.candidate_pairs()
+    t1 = time.perf_counter()
+    reset_kernel_counts()
+    got = eng.candidate_pairs_sharded(LocalShards(SHARDS, dev))
+    t2 = time.perf_counter()
+    if got[2] != want[2] or not (np.array_equal(got[0], want[0])
+                                 and np.array_equal(got[1], want[1])):
+        raise AssertionError("d2_100k: the sharded pairs differ from one "
+                             "device's")
+    result["d2_100k_pairs"] = {"pairs": int(want[2]), "one_device_s": t1 - t0,
+                               "sharded_s": t2 - t1,
+                               "launches": {k: kernel_counts()[k] for k in
+                                            ("d2_screen", "d2_extract")},
+                               "d2": shard_summary("d2")}
+    say(f"sharded d2_100k pairs: {want[2]} pairs over {SHARDS} shards equal "
+        f"one device's in order; one device {t1 - t0:.3f} s, sharded "
+        f"{t2 - t1:.3f} s, phases_ms="
+        f"{result['d2_100k_pairs']['d2']['phases_ms']}")
+    del eng, db
+
+    name = NCCL_PATH
+    flags, _, kernels, _ = MAIN_PATHS[name][2:]
+    sec, r = _launch(
+        [str(REPO / "bin" / "swarm-torch"), *flags, "-l", "log.txt",
+         str(corpus[name])], work / f"{name}_nccl",
+        {**os.environ, "PYTHONPATH": str(REPO),
+         "SWARM_TPU_COORDINATOR": f"127.0.0.1:{free_port()}",
+         "SWARM_TPU_NUM_PROCESSES": "1", "SWARM_TPU_PROCESS_ID": "0"})
+    err = r.stderr.decode().splitlines()
+    lines = [ln for ln in err if ln.startswith("[timing] d1 shards (cuda)")]
+    if not any("exchange" in ln for ln in lines):
+        raise AssertionError(f"{name}: the one-rank NCCL run did not take "
+                             "the sharded engine")
+    # the new process counts its launches from 0 and reports them at the
+    # end of its run (main.py, under SWARM_TPU_TIMING)
+    counted = [json.loads(ln[len(LAUNCHES):]) for ln in err
+               if ln.startswith(LAUNCHES)]
+    if len(counted) != 1:
+        raise AssertionError(f"{name}: the one-rank NCCL run reported its "
+                             f"launches {len(counted)} times")
+    launches = {k: counted[0].get(k, 0) for k in kernels}
+    for kernel, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"{name} as one NCCL rank: kernel {kernel} "
+                                 "never launched")
+    n_out = _same_outputs(name, flags, work, f"{name}_nccl")
+    result[name + "_nccl"] = {"s": sec, "launches": launches,
+                              "timing": lines}
+    say(f"one-rank NCCL {name}: a new process, {sec:.3f} s, "
+        f"launches={launches}; {n_out} output files byte-identical to the "
+        f"in-process run's")
+    for ln in lines:
+        say(f"  {name} nccl {ln}")
+    result["phase_s"] = time.perf_counter() - t_phase
+    say(f"sharded phase: {result['phase_s']:.1f} s")
+    return result
+
+
 def phase_server(corpus, work, warm):
     """The resident server on the card (python -m swarm_tpu_torch.server
     under SWARM_TPU_DB_CACHE=1 and SWARM_TPU_TIMING=1): for each of
@@ -2276,6 +2433,7 @@ def run_phases(dev, work):
         warm[name] = ran["warm_s"]
         for kernel, count in ran["launches"].items():
             launches.setdefault(kernel, count)  # the first path's count
+    say(json.dumps({"sharded": phase_sharded(dev, corpus, work)}))
     say(json.dumps({"server": phase_server(corpus, work, warm)}))
 
     d1 = "swarm_tpu_torch/csrc/d1_join.cu"

@@ -14,9 +14,18 @@ The run uses the first CUDA device and raises when there is none; the
 CPU is used only when the caller passes ``device`` (in process) or sets
 SWARM_TORCH_DEVICE=cpu (the launcher).
 
+Shards (swarm_tpu_torch/parallel): SWARM_TORCH_SHARDS=k splits the
+d=1 network, -f's graft and the d>=2 screen over k shards in this
+process. Under the rank variables (SWARM_TPU_COORDINATOR,
+SWARM_TPU_NUM_PROCESSES, SWARM_TPU_PROCESS_ID) every rank runs the same
+argv on the same input: the run joins the process group first, takes
+cuda:(rank % device_count), and only rank 0 writes; the other ranks'
+outputs and log go to os.devnull.
+
 SWARM_TPU_PROFILE_DIR records a torch.profiler trace of the run
 (trace.json in that directory); SWARM_TPU_TIMING=1 prints per-phase
-wall times.
+wall times and, at the end of the run, one `[timing] launches {...}`
+line: each kernel's launches in this process, as JSON.
 """
 
 import contextlib
@@ -67,6 +76,29 @@ def run(argv, progname: str, device=None) -> int:
     # after the options (help, version and option errors need no card),
     # before any output file is opened
     device = default_device() if device is None else torch.device(device)
+    from .parallel import distributed
+
+    rank = distributed.maybe_initialize(device)
+    try:
+        if distributed.env_config() is not None:
+            device = distributed.rank_device(device, rank)
+            if not distributed.is_primary():
+                _quiet(p)
+        return _run(p, device)
+    finally:
+        distributed.finalize()
+
+
+def _quiet(p: Parameters) -> None:
+    """A rank other than 0: every output, and the log, to os.devnull."""
+    p.opt_output_file = p.opt_log = os.devnull
+    for name in ("opt_network_file", "opt_internal_structure", "opt_seeds",
+                 "opt_statistics_file", "opt_uclust_file"):
+        if getattr(p, name):
+            setattr(p, name, os.devnull)
+
+
+def _run(p: Parameters, device) -> int:
     open_files(p)
     p.logfile.write(HEADER_MESSAGE)
     args_show(p, p.logfile)
@@ -91,7 +123,24 @@ def run(argv, progname: str, device=None) -> int:
 
     close_files(p)
     trace_dump()
+    if os.environ.get("SWARM_TPU_TIMING"):
+        _report_launches()
     return 0
+
+
+def _report_launches() -> None:
+    """`[timing] launches {...}`: each kernel wrapper's launches in
+    this process so far (a run in a new process, such as a rank's,
+    counts from 0)."""
+    import json
+
+    from .ops import (d2_diffs, d2_network, fastidious_torch,
+                      neighbors_sortjoin, nw_scores)
+
+    counts = {"d2_diffs": d2_diffs.launches, **d2_network.launches,
+              **nw_scores.launches, **neighbors_sortjoin.launches,
+              **fastidious_torch.launches}
+    sys.__stderr__.write(f"[timing] launches {json.dumps(counts)}\n")
 
 
 def main() -> int:

@@ -425,9 +425,13 @@ def _device_graft(device, min_side_keys: int) -> bool:
     join on every corpus measured, from 11 light reads up
     (scripts/graft_dispatch.py). On the CPU, or with the variable set, it
     does when the smaller side has more variant keys than that threshold
-    (default 2<<20, JAX's), and the host join serves below it."""
-    from .. import _native
+    (default 2<<20, JAX's), and the host join serves below it. A run
+    that asks for shards (swarm_tpu_torch/parallel) always takes the
+    sharded device engine."""
+    from .. import _native, parallel
 
+    if parallel.requested():
+        return True
     if device.type == "cuda" and \
             "SWARM_TPU_GRAFT_PROBE_MAX" not in os.environ:
         return True
@@ -552,13 +556,20 @@ def _fastidious(p, db, progress, st, index, swarmcount, largest):
         int((7 * lengths_i64[light_amps] + 4).sum()),
     )
     if _device_graft(index.device, min_side_keys):
-        # the device engine (ops/fastidious_torch.py) on the d=1
-        # engine's packed rows when it ran; it raises on any failure
+        # the device engine (ops/fastidious_torch.py), or its sharded
+        # form (parallel/mesh.py), on the d=1 engine's packed rows when
+        # it ran; it raises on any failure
+        from .. import parallel
         from ..ops.fastidious_torch import GraftEngine
 
-        res = GraftEngine(db, index.device, rows).graft_candidates(
-            heavy_amps, light_amps
-        )
+        shards = parallel.shards_for(index.device)
+        if shards is not None:
+            from ..parallel.mesh import ShardedGraftEngine
+
+            engine = ShardedGraftEngine(db, shards, rows)
+        else:
+            engine = GraftEngine(db, index.device, rows)
+        res = engine.graft_candidates(heavy_amps, light_amps)
     else:
         # host paths (asymmetric probe / radix sort-join, see
         # _native.graft_join); the python join below serves when the

@@ -81,9 +81,11 @@ def algo_run(p: Parameters, db: Db, progress: Progress,
 
     progress.init("Find qgram vects: ", n)
     if engine == "network":
+        from .. import parallel
         from ..ops.d2_network import D2NetworkEngine
 
-        eng = D2NetworkEngine(db, d, device, threads=p.opt_threads)
+        eng = D2NetworkEngine(db, d, device, threads=p.opt_threads,
+                              shards=parallel.shards_for(device))
     elif engine == "native":
         # offset-based arena throughout: no [n, round_up(longest)]
         # matrix, so one multi-Mnt sequence costs only its own bytes

@@ -217,13 +217,18 @@ def tile_steps(n_tiles):
 
 
 class D2NetworkEngine:
-    """qgram screen -> exact diffs -> directed CSR edges, on `device`."""
+    """qgram screen -> exact diffs -> directed CSR edges, on `device`;
+    with `shards` (swarm_tpu_torch/parallel) the screen and extraction
+    run over them (candidate_pairs_sharded) and the exact diffs on
+    `device`."""
 
     TILE = 4096
 
-    def __init__(self, db, d: int, device: torch.device, threads: int = 1):
+    def __init__(self, db, d: int, device: torch.device, threads: int = 1,
+                 shards=None):
         from .. import _native
 
+        self.shards = shards
         self.db = db
         self.d = int(d)
         self.device = torch.device(device)
@@ -287,6 +292,14 @@ class D2NetworkEngine:
         self.timings["extract"] = t_extract + time.perf_counter() - t1
         return pa, pb, len(pa)
 
+    def candidate_pairs_sharded(self, shards):
+        """candidate_pairs over `shards`: each screens a contiguous range
+        of the steps, and their pairs concatenate in the steps' order
+        (parallel/mesh.py: sharded_candidate_pairs)."""
+        from ..parallel.mesh import sharded_candidate_pairs
+
+        return sharded_candidate_pairs(self, shards)
+
     def build_adjacency(self, mismatch, gapopen, gapextend, no_break):
         """Directed CSR adjacency (adj_start, adj_count, adj_to,
         adj_diff) of exact accepted edges, targets ascending, plus the
@@ -294,7 +307,10 @@ class D2NetworkEngine:
         from .. import _native
 
         db = self.db
-        pa, pb, n_screened = self.candidate_pairs()
+        if self.shards is not None:
+            pa, pb, n_screened = self.candidate_pairs_sharded(self.shards)
+        else:
+            pa, pb, n_screened = self.candidate_pairs()
         if len(pa):
             # loud invariant: a decode bug (such as an int32 wrap of the
             # global index) must fail here, not corrupt clusters

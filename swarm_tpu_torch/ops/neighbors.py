@@ -189,7 +189,12 @@ class NeighborIndex:
     (SWARM_TPU_D1_NATIVE_MAX overrides it, as in swarm_tpu); the torch
     sort-join engine takes the rest, whatever their mix of lengths (its
     rows are ragged: swarm_tpu's width buckets have no counterpart), and
-    a failure there raises.
+    a failure there raises. When the run asks for shards
+    (swarm_tpu_torch/parallel: SWARM_TORCH_SHARDS or the rank
+    variables), the sharded engine (parallel/mesh.py:
+    SortJoinShardedEngine) takes every n >= 1 instead, with no native
+    threshold, as swarm_tpu's jax_shard backend does; it raises on any
+    failure too.
     """
 
     #: the native host builder takes n below this
@@ -228,8 +233,26 @@ class NeighborIndex:
     def seq_hashes(self) -> np.ndarray:
         return sequence_hashes(self.padded, self.lengths, self.zob)
 
+    def _device_engine(self):
+        from .. import parallel
+        from ..device import default_device
+
+        shards = parallel.shards_for(
+            default_device() if self.device is None else self.device)
+        if shards is not None:
+            from ..parallel.mesh import SortJoinShardedEngine
+
+            return SortJoinShardedEngine(self.db, shards)
+        from .neighbors_sortjoin import SortJoinNeighborEngine
+
+        return SortJoinNeighborEngine(self.db, self.device)
+
     def uses_native(self) -> bool:
         """Whether the native host builder makes the network."""
+        from .. import parallel
+
+        if parallel.requested():
+            return False
         native_max = int(
             os.environ.get("SWARM_TPU_D1_NATIVE_MAX", str(self.NATIVE_MAX))
         )
@@ -242,9 +265,7 @@ class NeighborIndex:
         the native builder."""
         if len(self.lengths) == 0 or self.uses_native():
             return
-        from .neighbors_sortjoin import SortJoinNeighborEngine
-
-        self._engine = SortJoinNeighborEngine(self.db, self.device)
+        self._engine = self._device_engine()
         self._engine.start()
 
     def build_network(self, no_break: bool, abundances: np.ndarray,
@@ -267,9 +288,7 @@ class NeighborIndex:
             )
             metrics.record(d1_join_comparisons=int(len(ef)))
             return ef, et
-        from .neighbors_sortjoin import SortJoinNeighborEngine
-
-        engine = self._engine or SortJoinNeighborEngine(self.db, self.device)
+        engine = self._engine or self._device_engine()
         self._engine = None
         edges = engine.build_network(no_break, abundances)
         if keep_rows:

@@ -31,8 +31,11 @@ server refuses to start without one. On the card it creates the CUDA
 context and loads the kernel and native libraries before it listens.
 
 A request runs in the server's environment, not the client's: variables
-such as SWARM_TPU_D2_ENGINE, SWARM_TPU_D1_NATIVE_MAX, SWARM_TPU_TIMING
-or SWARM_TPU_DB_CACHE take the values the server was started with.
+such as SWARM_TPU_D2_ENGINE, SWARM_TPU_D1_NATIVE_MAX, SWARM_TPU_TIMING,
+SWARM_TPU_DB_CACHE or SWARM_TORCH_SHARDS (in-process shards) take the
+values the server was started with. A rank run (SWARM_TPU_COORDINATOR
+set) does not go through a server: the server refuses to start under
+the rank variables, and bin/swarm-torch does not forward under them.
 Output files named in argv are written by the server (paths resolved
 against the client's cwd); only stdout and stderr travel over the
 socket, byte for byte. Outputs sent to '-' share one stream in the
@@ -188,6 +191,9 @@ def server_device():
     from .device import default_device
     from .models import d1, derep, general  # noqa: F401
 
+    if os.environ.get("SWARM_TPU_COORDINATOR"):
+        raise RuntimeError("a rank run does not go through the server: "
+                           "unset SWARM_TPU_COORDINATOR")
     name = os.environ.get("SWARM_TORCH_DEVICE")
     device = torch.device(name) if name else default_device()
     if device.type == "cuda":

@@ -1088,3 +1088,100 @@ def test_graft_kernels_trap_on_a_layout_that_does_not_fit(cuda_device):
 
 def test_graft_join_traps_on_more_pairs_than_counted(cuda_device):
     assert _traps(GRAFT_JOIN_TRAP_PROBE)
+
+
+# ---- the sharded engines (swarm_tpu_torch/parallel) ----------------------
+
+SHARDED_D1_CASES = ["ragged_edge_rows", "gen_corpus", "long_insertion_run",
+                    "one_row"]
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("case", SHARDED_D1_CASES)
+def test_d1_sharded_engine_on_card_matches_one_device(tmp_path, cuda_device,
+                                                      case, k):
+    """k in-process shards on cuda:0 against SortJoinNeighborEngine, both
+    ways of cluster breaking; the shards launch the d=1 kernels."""
+    from swarm_tpu_torch.parallel.mesh import (
+        LocalShards,
+        SortJoinShardedEngine,
+    )
+
+    db = _d1_db(tmp_path, case)
+    ab = db.abundances.astype(np.int64)
+    for no_break in (False, True):
+        want = sj.SortJoinNeighborEngine(db, cuda_device).build_network(
+            no_break, ab)
+        before = dict(sj.launches)
+        got = SortJoinShardedEngine(db, LocalShards(k, cuda_device)) \
+            .build_network(no_break, ab)
+        # the count pass, and the emit of each shard that holds rows
+        assert 2 <= sj.launches["d1_keygen"] - before["d1_keygen"] <= 1 + k
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("case", ["ragged_edge_rows", "graft_edge_rows",
+                                  "fastidious_corpus", "empty_side"])
+def test_graft_sharded_engine_on_card_matches_one_device(
+        tmp_path, cuda_device, case, k):
+    """k in-process shards on cuda:0 against GraftEngine: count and
+    candidates, with the sides as given and swapped, and in strips of
+    50,000 keys (several on every case; strips of 5,000, as GraftEngine's
+    card test takes, make hundreds on the 3,000-row corpus, each with its
+    readbacks, and this test ran for minutes)."""
+    from swarm_tpu_torch.parallel.mesh import LocalShards, ShardedGraftEngine
+
+    db, heavy, light = _graft_case(tmp_path, case)
+    for sides in ((heavy, light), (light, heavy)):
+        want = ft.GraftEngine(db, cuda_device).graft_candidates(*sides)
+        for strip_keys in (None, 50_000):
+            eng = ShardedGraftEngine(db, LocalShards(k, cuda_device))
+            eng.MAX_STRIP_KEYS = strip_keys
+            got = eng.graft_candidates(*sides)
+            assert got[0] == want[0]
+            np.testing.assert_array_equal(got[1], want[1])
+        assert (want[0] > 0) == (case != "empty_side")
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("T,n,d", SCREEN_EDGE_CASES)
+def test_d2_sharded_screen_on_card_matches_one_device(
+        tmp_path, cuda_device, monkeypatch, T, n, d, k):
+    """The screen over k in-process shards on cuda:0: the same pairs in
+    the same order as one device's, over chunks of 2 steps."""
+    from swarm_tpu_torch.parallel.mesh import LocalShards
+
+    eng, _, _ = _screen_steps(tmp_path, monkeypatch, cuda_device, T, n, d)
+    monkeypatch.setenv("SWARM_TPU_D2_CHUNK", "2")
+    want = eng.candidate_pairs()
+    before = dict(d2n.launches)
+    got = eng.candidate_pairs_sharded(LocalShards(k, cuda_device))
+    assert d2n.launches["d2_screen"] > before["d2_screen"]
+    assert got[2] == want[2] > 0
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_one_rank_nccl_group_matches_one_device(cuda_device, monkeypatch):
+    """A one-rank NCCL group (NCCL takes one rank a card): its d=1
+    edges, graft and d>=2 pairs equal the single-device engines'."""
+    from swarm_tpu_torch.parallel import distributed, dryrun
+
+    monkeypatch.setenv("SWARM_TPU_COORDINATOR",
+                       f"127.0.0.1:{dryrun.free_port()}")
+    monkeypatch.setenv("SWARM_TPU_NUM_PROCESSES", "1")
+    monkeypatch.setenv("SWARM_TPU_PROCESS_ID", "0")
+    assert distributed.maybe_initialize(cuda_device) == 0
+    try:
+        import torch.distributed as dist
+
+        assert dist.get_backend() == "nccl"
+        db = dryrun.planted_db()
+        got = dryrun.run_engines(db, cuda_device,
+                                 distributed.RankShards(cuda_device))
+    finally:
+        distributed.finalize()
+    assert got == dryrun.run_engines(db, cuda_device, None)
+    assert len(got["edges"][0]) > 0 and got["graft"][0] > 0

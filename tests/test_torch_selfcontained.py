@@ -7,8 +7,9 @@ not drifted from swarm_tpu's.
 (b) in a running process: bin/swarm-torch for d = 0, 1, 2 on the CPU
     ends with neither jax nor swarm_tpu in sys.modules, d = 1 also with
     its sort-join engine forced (SWARM_TPU_D1_NATIVE_MAX=0), on a
-    uniform and on a mixed-length corpus, and -f with its device graft
-    forced (SWARM_TPU_GRAFT_PROBE_MAX=0);
+    uniform and on a mixed-length corpus, -f with its device graft
+    forced (SWARM_TPU_GRAFT_PROBE_MAX=0), and -d 1 -f and -d 2 over 3
+    in-process shards (SWARM_TORCH_SHARDS=3);
 (c) the copies against the originals on seeded corpora: db_read and the
     native wrappers give the same arrays, the corpus generators the same
     records (the CLI cases of tests/test_torch_cli.py hold the outputs
@@ -23,6 +24,7 @@ not drifted from swarm_tpu's.
 
 import ast
 import io
+import json
 import os
 import subprocess
 import sys
@@ -80,6 +82,8 @@ def test_port_file_list_is_complete():
                  "swarm_tpu_torch/ops/search_torch.py",
                  "swarm_tpu_torch/ops/neighbors_sortjoin.py", "chip_smoke.py",
                  "swarm_tpu_torch/server.py", "bin/swarm-torch",
+                 "swarm_tpu_torch/parallel/mesh.py",
+                 "swarm_tpu_torch/parallel/distributed.py",
                  "scripts/device_busy.py"):
         assert must in names
     assert "_host_d1_backend" not in (
@@ -178,6 +182,38 @@ def test_launcher_fastidious_device_graft_holds_no_jax(tmp_path):
     assert r.returncode == 0, r.stderr.decode()
     assert b"[timing] graft (cpu) verify" in r.stderr
     assert b"Made 0 grafts" not in (tmp_path / "log.txt").read_bytes()
+
+
+@pytest.mark.parametrize("flags,engines", [
+    (["-d", "1", "-f"], (b"d1 shards (cpu)", b"graft shards (cpu)")),
+    (["-d", "2"], (b"d2 shards (cpu)",))], ids=["d1f", "d2"])
+def test_launcher_sharded_engines_hold_no_jax(tmp_path, flags, engines):
+    """-d 1 -f and -d 2 (network engine) over 3 in-process shards: the
+    sharded engines run (their [timing] lines show them) and import
+    nothing of the JAX side; the run's last [timing] line counts every
+    kernel's launches, none on the CPU."""
+    from test_torch_cli import graft_fasta
+
+    (tmp_path / "in.fasta").write_text(graft_fasta())
+    probe = LAUNCHER_PROBE.format(
+        launcher=str(REPO_ROOT / "bin" / "swarm-torch"))
+    r = subprocess.run(
+        [sys.executable, "-c", probe, *flags, "-o", "out.txt", "-l",
+         "log.txt", "in.fasta"],
+        cwd=tmp_path, capture_output=True, timeout=300,
+        env={**os.environ, "SWARM_TORCH_DEVICE": "cpu",
+             "SWARM_TORCH_SHARDS": "3", "SWARM_TPU_D2_ENGINE": "network",
+             "SWARM_TPU_D2_TILE": "128", "SWARM_TPU_TIMING": "1",
+             "PYTHONPATH": str(REPO_ROOT)})
+    assert r.returncode == 0, r.stderr.decode()
+    for engine in engines:
+        assert b"[timing] " + engine + b" shard 2/3" in r.stderr
+    launches = [ln for ln in r.stderr.decode().splitlines()
+                if ln.startswith("[timing] launches ")]
+    assert len(launches) == 1
+    counts = json.loads(launches[0][len("[timing] launches "):])
+    assert len(counts) == 12 and set(counts.values()) == {0}
+    assert (tmp_path / "out.txt").stat().st_size > 0
 
 
 #: runs the resident server in this interpreter until it is shut down,
