@@ -128,10 +128,26 @@ final line:
    with its parts timed (interpreter, import torch, CUDA context, kernel
    and native libraries, the run), the first forwarded run and a second
    of the same file (DB cache warm), beside the in-process warm time of
-   phase 7; every forwarded run's files equal the in-process run's, the
+   phase 7 (the split run, which holds the card before the launcher
+   runs, forced to the network engine the cold run took and reported
+   beside it); every forwarded run's files equal the in-process run's, the
    server's stderr shows the card's engine, and the server exits 0 after
    --shutdown; then the blake2b digest of d1_1m's arena (swarm_tpu's
-   device-array cache key) beside the server's H2D.
+   device-array cache key) beside the server's H2D;
+10. the dispatch rules set by scripts/dispatch_sweep.py, each at its
+   threshold - 1 and at it: the d=1 network's NATIVE_MAX and the d>=2
+   engine's NETWORK_MIN in this process (which holds the card), their
+   NATIVE_MAX_COLD and NETWORK_MIN_COLD in a fresh process each
+   (bin/swarm-torch), on the first records of the d1_1m and d2_100k
+   corpora; under -f (whose graft takes the card) NATIVE_MAX in this
+   process and NATIVE_MAX_GRAFT in a fresh one, on those of
+   d1_fastidious_200k's; the
+   network engine's DEVICE_DIFFS_MIN and DEVICE_DIFFS_MIN_THREADED on
+   its own candidate pairs in this process (where the d2_diffs kernel
+   has run), their _COLD forms in a fresh process each (where it has
+   not): the engine the rule names (its [timing] line, or the d2_diffs
+   kernel's launches), files (arrays) equal to the native engine's, and
+   one {"dispatch": ...} JSON line.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and a C
@@ -2162,12 +2178,22 @@ def phase_server(corpus, work, warm):
             for name, marker in SERVER_PATHS.items():
                 flags = MAIN_PATHS[name][2]
                 argv = flags + ["-l", "log.txt", str(corpus[name])]
-                cold_s, _ = _launch([launcher, *argv], work / f"{name}_cold",
+                cold_s, r = _launch([launcher, *argv], work / f"{name}_cold",
                                     env)
+                # the split run holds the card before the launcher runs,
+                # where the dispatch rules would read it warm: it takes
+                # the network engine the cold run took
+                net_marker, card_env, host_env = SERVER_NETWORK[name]
+                on_card = net_marker in r.stderr.decode()
                 stamps = work / f"{name}_cold_split.json"
-                split_s, _ = _launch(
+                split_s, r = _launch(
                     ["-c", COLD_PROBE.format(launcher=launcher),
-                     str(stamps), *argv], work / f"{name}_cold_split", env)
+                     str(stamps), *argv], work / f"{name}_cold_split",
+                    {**env, **(card_env if on_card else host_env)})
+                if (net_marker in r.stderr.decode()) != on_card:
+                    raise AssertionError(f"{name}: the split run took another "
+                                         f"network engine than the cold run")
+                engine = "card" if on_card else "host"
                 t = json.loads(stamps.read_text())
                 split = {
                     "interpreter_s": split_s - (t["run"] - t["start"]),
@@ -2191,11 +2217,12 @@ def phase_server(corpus, work, warm):
                                          f"server's stderr for each run")
                 result[name] = {"cold_s": cold_s, "cold_split": split,
                                 "cold_split_total_s": split_s,
+                                "cold_network_engine": engine,
                                 "first_forwarded_s": fwd[0],
                                 "second_forwarded_s": fwd[1],
                                 "warm_in_process_s": warm[name]}
-                say(f"server {name}: cold_s={cold_s:.3f} (split run "
-                    f"{split_s:.3f}s: " + " ".join(
+                say(f"server {name}: cold_s={cold_s:.3f} (network on the "
+                    f"{engine}; split run {split_s:.3f}s: " + " ".join(
                         f"{k}={v:.3f}" for k, v in split.items())
                     + f") first_forwarded_s={fwd[0]:.3f} second_forwarded_s="
                     f"{fwd[1]:.3f} warm_in_process_s={warm[name]:.3f}; "
@@ -2230,6 +2257,200 @@ def phase_server(corpus, work, warm):
     result["d1_1m_arena_digest_s"] = digest_s
     result["d1_1m_server_h2d"] = [ln.split()[-1] for ln in lines]
     result["ready_s"] = ready_s
+    return result
+
+
+def _first_records(src, k, dst):
+    """The first k records of FASTA file `src` (two lines a record, as
+    corpora.py writes them) into `dst`: k distinct amplicons."""
+    lines = src.read_bytes().split(b"\n")
+    if len(lines) < 2 * k:
+        raise AssertionError(f"{src.name} holds fewer than {k} records")
+    dst.write_bytes(b"\n".join(lines[:2 * k]) + b"\n")
+
+
+def dispatch_cli(name, thresholds, source, work):
+    """The auto run of rule `name` (DISPATCH_CLI) at each of its
+    `thresholds` (the warm one, then the cold one) - 1 and at it, on the
+    first records of `source`: at the warm one in this process (which
+    holds the card), at the cold one in a fresh process each
+    (bin/swarm-torch, all started together). The host engine below the
+    threshold, the card's (its [timing] line) from it up; the files
+    byte-identical to the native engine's run."""
+    flags, marker, native_env = DISPATCH_CLI[name]
+    warm_at, cold_at = thresholds
+    runs, procs = {}, {}
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    env.pop("SWARM_TORCH_SERVER", None)
+    try:
+        for state, at in (("cold", cold_at), ("warm", warm_at)):
+            for k in (at - 1, at):
+                run = f"dispatch_{name}_{state}_{k}"
+                fasta = work / f"{run}.fasta"
+                _first_records(source, k, fasta)
+                argv = flags + ["-l", "log.txt", str(fasta)]
+                runs[run] = (state, at, k, argv)
+                if state == "cold":
+                    (work / run).mkdir()
+                    procs[run] = subprocess.Popen(
+                        [sys.executable, str(REPO / "bin" / "swarm-torch"),
+                         *argv], cwd=work / run, env=env,
+                        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                        text=True)
+                else:
+                    _, timing = run_cli(argv, work / run)
+                    runs[run] += (timing,)
+        for run, proc in procs.items():
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"{run} returned {proc.returncode}:\n"
+                                     f"{err[-2000:]}")
+            runs[run] += (err.splitlines(),)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    got = {}
+    for run, (state, at, k, argv, timing) in runs.items():
+        card = any(ln.startswith(marker) for ln in timing)
+        if card != (k >= at):
+            raise AssertionError(f"dispatch {name} ({state}): n={k} took "
+                                 f"the {'card' if card else 'host'} engine")
+        native_s, _ = run_cli(argv, work / f"{run}_native", native_env)
+        for out in output_files(flags):
+            a = (work / run / out).read_bytes()
+            b = (work / f"{run}_native" / out).read_bytes()
+            if a != b or not a:
+                raise AssertionError(f"{run}: {out} differs from the native "
+                                     f"engine's")
+        got.setdefault(state, {"threshold": at, "points": {}})["points"][
+            k] = "card" if card else "host"
+    return got
+
+
+#: the device-diffs rule before the d2_diffs kernel's first launch: a
+#: fresh process that prints dispatch_diffs' record for one -t
+DIFFS_COLD = """import json, sys
+sys.path.insert(0, {repo!r})
+import torch
+import chip_smoke
+print(json.dumps(chip_smoke.dispatch_diffs(
+    torch.device("cuda", 0), {source!r}, "cold", {threads})))
+"""
+
+
+def dispatch_diffs(dev, source, state, threads):
+    """D2NetworkEngine.build_adjacency under the auto rule on the card,
+    on one below and at its threshold of a corpus' own candidate pairs
+    (repeated to the count), with `threads` host threads: 1 reads
+    DEVICE_DIFFS_MIN, more DEVICE_DIFFS_MIN_THREADED, "cold" (the
+    d2_diffs kernel not yet launched in this process) their _COLD forms.
+    The native diffs below, the d2_diffs kernel from the threshold up;
+    the adjacency equal to the native diffs'."""
+    import numpy as np
+
+    from swarm_tpu_torch.corpora import read_db
+    from swarm_tpu_torch.ops import d2_diffs
+    from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
+
+    if d2_diffs.warm != (state == "warm"):
+        raise AssertionError(f"dispatch diffs ({state}): the kernel has "
+                             f"{'not ' if state == 'warm' else ''}run")
+    eng = D2NetworkEngine(read_db(Path(source)), 2, dev, threads=threads)
+    pa, pb, _ = eng.candidate_pairs()
+    at = getattr(eng, "DEVICE_DIFFS_MIN"
+                 + ("_THREADED" if threads > 1 else "")
+                 + ("_COLD" if state == "cold" else ""))
+    rec = {"threshold": at, "points": {}}
+    for k in (at - 1, at):
+        qa, qb = np.resize(pa, k), np.resize(pb, k)
+        eng.candidate_pairs = lambda: (qa, qb, k)
+        adj = {}
+        for mode in ("auto", "native"):
+            os.environ["SWARM_TPU_D2_DIFFS"] = mode
+            eng.__dict__.pop("_diff_engine", None)
+            d2_diffs.launches = 0
+            adj[mode] = eng.build_adjacency(18, 24, 13, False)
+            if mode == "auto":
+                card = d2_diffs.launches > 0
+        os.environ.pop("SWARM_TPU_D2_DIFFS")
+        if card != (k >= at):
+            raise AssertionError(
+                f"dispatch diffs ({state}): -t {threads}, {k} pairs took "
+                f"the {'card' if card else 'host'} diffs")
+        if not all(np.array_equal(x, y)
+                   for x, y in zip(adj["auto"], adj["native"])):
+            raise AssertionError(f"dispatch diffs ({state}): -t {threads}, "
+                                 f"{k} pairs: the adjacency differs from "
+                                 f"the native diffs'")
+        rec["points"][k] = "card" if card else "host"
+    return rec
+
+
+def phase_dispatch(dev, corpus, work):
+    """The dispatch rules whose thresholds scripts/dispatch_sweep.py
+    set, each at its threshold - 1 and at it: the d=1 network
+    (NATIVE_MAX, NATIVE_MAX_COLD) on the first records of the d1_1m
+    corpus, and under -f (NATIVE_MAX, NATIVE_MAX_GRAFT) on those of
+    d1_fastidious_200k's, the d>=2 engine (NETWORK_MIN,
+    NETWORK_MIN_COLD) and the device diffs (DEVICE_DIFFS_MIN and
+    DEVICE_DIFFS_MIN_THREADED, warm in this process, cold in a fresh
+    one each) on those of the d2_100k corpus; the engine the rule
+    names, and files (or arrays) equal to the native engine's. Returns
+    the phase's record."""
+    from swarm_tpu_torch.device import card_ready
+    from swarm_tpu_torch.models import general
+    from swarm_tpu_torch.ops.neighbors import NeighborIndex
+
+    if not card_ready():
+        raise AssertionError("the dispatch phase needs the card held")
+    t0 = time.perf_counter()
+    diffs_src = work / "dispatch_diffs.fasta"
+    _first_records(corpus["d2_100k"], 2_000, diffs_src)
+    threads = (1, max(2, len(os.sched_getaffinity(0))))
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    env.pop("SWARM_TORCH_SERVER", None)
+    cold = {t: subprocess.Popen(
+        [sys.executable, "-c", DIFFS_COLD.format(
+            repo=str(REPO), source=str(diffs_src), threads=t)],
+        cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for t in threads}
+    try:
+        result = {
+            "d1": dispatch_cli("d1", (NeighborIndex.NATIVE_MAX,
+                                      NeighborIndex.NATIVE_MAX_COLD),
+                               corpus["d1_1m"], work),
+            "d1f": dispatch_cli("d1f", (NeighborIndex.NATIVE_MAX,
+                                        NeighborIndex.NATIVE_MAX_GRAFT),
+                                corpus["d1_fastidious_200k"], work),
+            "d2": dispatch_cli("d2", (general.NETWORK_MIN,
+                                      general.NETWORK_MIN_COLD),
+                               corpus["d2_100k"], work),
+            "diffs": {f"warm -t {t}": dispatch_diffs(dev, diffs_src, "warm", t)
+                      for t in threads},
+        }
+        for t, proc in cold.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"dispatch diffs (cold): -t {t} "
+                                     f"returned {proc.returncode}:\n"
+                                     f"{err[-2000:]}")
+            rec = json.loads(out.strip().splitlines()[-1])
+            rec["points"] = {int(k): v for k, v in rec["points"].items()}
+            result["diffs"][f"cold -t {t}"] = rec
+    finally:
+        for proc in cold.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    result["phase_s"] = time.perf_counter() - t0
+    for rule in ("d1", "d1f", "d2", "diffs"):
+        for case, rec in result[rule].items():
+            say(f"dispatch {rule} ({case}): threshold {rec['threshold']}: "
+                + "; ".join(f"{k} -> {v}" for k, v in rec["points"].items())
+                + ", equal to the native engine's")
+    say(f"dispatch phase: {result['phase_s']:.1f} s")
     return result
 
 
@@ -2327,6 +2548,27 @@ RANDOM_PAIRS = {"seed": 20261019, "pairs": 4096}
 #: bench.py's config 4 (d1_fastidious) and the writers
 FASTIDIOUS_FLAGS = ["-d", "1", "-f", "-y", "12", "-o", "out.txt", "-s",
                     "stats.txt", "-i", "structure.txt"]
+
+#: the dispatch phase's CLI rules: name -> (flags, the [timing] line of
+#: the card's engine, the native engine's variables)
+DISPATCH_CLI = {
+    "d1": (["-d", "1", "-o", "out.txt", "-s", "stats.txt"],
+           "[timing] d1 join (cuda)", D1_NATIVE),
+    "d1f": (["-d", "1", "-f", "-o", "out.txt", "-s", "stats.txt"],
+            "[timing] d1 join (cuda)", GRAFT_NATIVE),
+    "d2": (["-d", "2", "-o", "out.txt", "-s", "stats.txt"],
+           "[timing] d2 network (cuda)", D2_NATIVE),
+}
+#: the server phase's paths: the [timing] line of the card's network
+#: engine, and the variables that force the card's and the host's
+SERVER_NETWORK = {
+    "d2_long": ("[timing] d2 network (cuda)",
+                {"SWARM_TPU_D2_ENGINE": "network"}, D2_NATIVE),
+    "d1_1m": ("[timing] d1 join (cuda)", {"SWARM_TPU_D1_NATIVE_MAX": "0"},
+              D1_NATIVE),
+    "d1_fastidious_200k": ("[timing] d1 join (cuda)",
+                           {"SWARM_TPU_D1_NATIVE_MAX": "0"}, D1_NATIVE),
+}
 
 #: name -> (corpus maker, its arguments, CLI flags, environment, kernels,
 #: environment of the native engine)
@@ -2435,6 +2677,7 @@ def run_phases(dev, work):
             launches.setdefault(kernel, count)  # the first path's count
     say(json.dumps({"sharded": phase_sharded(dev, corpus, work)}))
     say(json.dumps({"server": phase_server(corpus, work, warm)}))
+    say(json.dumps({"dispatch": phase_dispatch(dev, corpus, work)}))
 
     d1 = "swarm_tpu_torch/csrc/d1_join.cu"
     graft = "swarm_tpu_torch/csrc/graft.cu"

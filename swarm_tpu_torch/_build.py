@@ -100,6 +100,11 @@ def build(verbose: bool = False) -> str:
     return "".join(log) + r.stdout + r.stderr
 
 
+def loaded() -> bool:
+    """Whether this process has loaded the kernel library."""
+    return _lib is not None
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use and bound once."""
     global _lib

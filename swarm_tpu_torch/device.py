@@ -22,6 +22,18 @@ def default_device() -> torch.device:
     return torch.device("cuda", 0)
 
 
+def card_ready() -> bool:
+    """Whether this process already holds the CUDA context and the
+    loaded kernel library: the resident server, or a run after another
+    in one process. A process that does not pays for both at its first
+    use of a card engine, so the dispatch rules of the d=1 network
+    (ops/neighbors.py) and of the d>=2 engine (models/general.py) move
+    to the card at a larger size then."""
+    from . import _build
+
+    return torch.cuda.is_initialized() and _build.loaded()
+
+
 def device_name() -> str:
     """torch.cuda.get_device_name(0), or "cpu" without a CUDA device."""
     return torch.cuda.get_device_name(0) if device_available() else "cpu"

@@ -5,10 +5,16 @@ src/swarm.cc:633-675), with the same CLI and output streams:
 
 - d = 0: models/derep.py (host);
 - d = 1: models/d1.py, whose network comes from the torch sort-join
-  engine on the device from 65,536 amplicons up (the native C code
-  below), and the native BFS;
-- d >= 2: models/general.py, whose network and device engines run on
-  the torch device.
+  engine on the device from ops/neighbors.py's NATIVE_MAX amplicons up
+  in a process that already holds the card (4,096: the resident
+  server, a run after another), from NATIVE_MAX_GRAFT in a fresh -f
+  run, whose graft takes the card anyway (65,536), from NATIVE_MAX_COLD
+  in another fresh run (262,144), and from the native C code below, and
+  the native BFS;
+- d >= 2: models/general.py, whose network engine runs on the torch
+  device from NETWORK_MIN amplicons up (4,096; NETWORK_MIN_COLD,
+  16,384, in a fresh process) and its device engine when asked for,
+  the native C engine otherwise.
 
 The run uses the first CUDA device and raises when there is none; the
 CPU is used only when the caller passes ``device`` (in process) or sets

@@ -2,8 +2,11 @@
 
 Counterpart of swarm_tpu/models/d1.py: the exact 1-difference network
 comes from ops/neighbors.py: NeighborIndex (the native C code below
-NATIVE_MAX amplicons, the torch sort-join engine on the device above
-it, started before the duplicate check) and feeds a host breadth-first
+its threshold, the torch sort-join engine on the device from it up,
+started before the duplicate check: NATIVE_MAX amplicons in a process
+that holds the card already, NATIVE_MAX_GRAFT in a fresh -f run, whose
+graft takes the card anyway, NATIVE_MAX_COLD otherwise) and feeds a
+host breadth-first
 cluster growth that replicates the reference's ordering rules:
   - amplicons processed in abundance-sorted order;
   - per generation, new members attach in ascending amplicon order;
@@ -166,7 +169,11 @@ def algo_d1_run(p: Parameters, db: Db, progress: Progress, device) -> None:
     # start the device join before the host-side hashing phase: the
     # device works while the host runs the duplicate check (a dup fatal
     # just abandons the speculative work: it produces no output)
-    index = NeighborIndex(db, threads=p.opt_threads, device=device)
+    # -f's graft takes the card whatever n: the network's rule knows it
+    # (NeighborIndex.graft_on_card)
+    index = NeighborIndex(
+        db, threads=p.opt_threads, device=device,
+        graft_on_card=p.opt_fastidious and _graft_on_card(device))
     index.start_network()
 
     progress.init("Hashing sequences:", n)
@@ -419,23 +426,28 @@ def _diff_cumsum(db: Db):
     return c
 
 
-def _device_graft(device, min_side_keys: int) -> bool:
-    """Whether -f's graft runs on the device engine. On a CUDA device it
-    does unless SWARM_TPU_GRAFT_PROBE_MAX is set: the H100 beat the host
-    join on every corpus measured, from 11 light reads up
-    (scripts/graft_dispatch.py). On the CPU, or with the variable set, it
-    does when the smaller side has more variant keys than that threshold
-    (default 2<<20, JAX's), and the host join serves below it. A run
-    that asks for shards (swarm_tpu_torch/parallel) always takes the
-    sharded device engine."""
-    from .. import _native, parallel
+def _graft_on_card(device) -> bool:
+    """Whether -f's graft takes the device engine whatever its sides:
+    on a CUDA device unless SWARM_TPU_GRAFT_PROBE_MAX is set (the H100
+    beat the host join on every corpus measured, from 11 light reads up:
+    scripts/graft_dispatch.py), and in a run that asks for shards
+    (swarm_tpu_torch/parallel: the sharded device engine)."""
+    from .. import parallel
 
-    if parallel.requested():
-        return True
-    if device.type == "cuda" and \
-            "SWARM_TPU_GRAFT_PROBE_MAX" not in os.environ:
-        return True
-    return min_side_keys > _native.graft_probe_max_table_keys()
+    return parallel.requested() or (
+        device.type == "cuda" and
+        "SWARM_TPU_GRAFT_PROBE_MAX" not in os.environ)
+
+
+def _device_graft(device, min_side_keys: int) -> bool:
+    """Whether -f's graft runs on the device engine: as _graft_on_card
+    says, else (on the CPU, or with the variable set) when the smaller
+    side has more variant keys than that threshold (default 2<<20,
+    JAX's); the host join serves below it."""
+    from .. import _native
+
+    return _graft_on_card(device) or \
+        min_side_keys > _native.graft_probe_max_table_keys()
 
 
 def _fastidious(p, db, progress, st, index, swarmcount, largest):

@@ -41,20 +41,40 @@ from ..params import Parameters
 from ..progress import Progress, replay_range, replay_values
 
 ENGINES = ("auto", "network", "native", "device", "python")
+#: the network engine serves n from these up in the 8-bit regime on a
+#: CUDA device, the native engine below: NETWORK_MIN when the process
+#: already holds the card (device.card_ready), else NETWORK_MIN_COLD.
+#: scripts/dispatch_sweep.py on an NVIDIA H100 80GB HBM3 at 700 W
+#: (PERF.md §5), `swarm -d D -o -s` at D = 2, 3, 4, 6 on
+#: gen_corpus(length=150) and gen_corpus(length=400): with the card
+#: held, the network engine won from 1,024 (the sweep's smallest) at
+#: d = 2 and 3 and from 4,096 at every d (below, at d = 4 and 6, the
+#: native diffs of its 8,000-16,000 pairs hold it back); in a fresh
+#: process, whose first use of the card adds 0.1-1.1 s, the host won
+#: up to 8,192 and the card from 16,384 at d = 2 and 6 (medians of
+#: three fresh processes in turns, and two single-sample series; one
+#: single sample of the 400 nt corpus at d = 2 had the host ahead at
+#: 16,384)
+NETWORK_MIN = 4_096
+NETWORK_MIN_COLD = 16_384
 
 
 def choose_engine(n: int, bit_mode: int, device: torch.device) -> str:
-    """The engine for n amplicons: "network" in the 8-bit regime from
-    16384 amplicons on a CUDA device, else "native"; "device" and
-    "python" only when asked for."""
+    """The engine for n amplicons: "network" in the 8-bit regime on a
+    CUDA device from NETWORK_MIN amplicons (NETWORK_MIN_COLD in a
+    process that does not hold the card yet), else "native"; "device"
+    and "python" only when asked for."""
     engine = os.environ.get("SWARM_TPU_D2_ENGINE", "auto")
     if engine not in ENGINES:
         raise ValueError(
             f"SWARM_TPU_D2_ENGINE={engine!r}: swarm_tpu_torch runs "
             f"{', '.join(ENGINES)}")
     if engine == "auto":
+        from ..device import card_ready
+
+        at = NETWORK_MIN if card_ready() else NETWORK_MIN_COLD
         engine = "network" if (
-            bit_mode == 8 and n >= 16384 and device.type == "cuda"
+            bit_mode == 8 and n >= at and device.type == "cuda"
         ) else "native"
     if engine == "network" and bit_mode != 8:
         # the network formulation needs the pure-pair 8-bit semantics

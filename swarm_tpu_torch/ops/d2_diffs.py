@@ -22,6 +22,9 @@ INF = 1 << 28
 
 #: kernel launches made by ``d2_diffs`` (CUDA tensors only)
 launches = 0
+#: whether the kernel has launched in this process, its first use paid:
+#: the device-diffs rule of ops/d2_network.py reads it
+warm = False
 
 
 def d2_diffs_reference(tq, td, qlens, dlens, B, Lmax, mismatch, go, ge, d):
@@ -125,7 +128,7 @@ def d2_diffs(rows, lens, tq, td, B, mismatch, go, ge, d):
     rows in place, 16 bytes at a time: a matrix whose row stride is not
     a multiple of 16 bytes is copied into one that is (row_stride_16).
     """
-    global launches
+    global launches, warm
     if rows.dim() != 2 or rows.dtype != torch.uint8:
         raise ValueError("rows must be a [n, Lmax] uint8 tensor")
     if lens.dtype != torch.int32 or tq.dtype != torch.int64 or \
@@ -162,6 +165,7 @@ def d2_diffs(rows, lens, tq, td, B, mismatch, go, ge, d):
     if err != 0:
         raise RuntimeError(f"d2_diffs kernel launch failed: CUDA error {err}")
     launches += 1
+    warm = True
     return out
 
 

@@ -223,6 +223,24 @@ class D2NetworkEngine:
     `device`."""
 
     TILE = 4096
+    #: the exact diffs run on the card from this many candidate pairs up,
+    #: the native ones below: DEVICE_DIFFS_MIN on one host thread and
+    #: DEVICE_DIFFS_MIN_THREADED when -t gives the native diffs more,
+    #: once the d2_diffs kernel has launched in this process
+    #: (d2_diffs.warm: the resident server, a run after another), the
+    #: _COLD numbers before. scripts/dispatch_sweep.py on an NVIDIA H100
+    #: 80GB HBM3 at 700 W (PERF.md §5), build_adjacency on the engine's
+    #: own pairs of gen_corpus(n=32,768, length=150 and 400) at d = 2
+    #: and 6, cut or repeated to 512-65,536 pairs (131,072 in a fresh
+    #: process): once the kernel had run the card won from 1,024 pairs
+    #: at -t 1 and from 2,048-8,192 at -t 8; its first use adds 8-21 ms
+    #: (the context and library already up: the screen ran), and before
+    #: it the host won up to 8,192 pairs and the card from 16,384 at -t
+    #: 1, up to 32,768 and from 65,536 at -t 8
+    DEVICE_DIFFS_MIN = 1_024
+    DEVICE_DIFFS_MIN_COLD = 16_384
+    DEVICE_DIFFS_MIN_THREADED = 8_192
+    DEVICE_DIFFS_MIN_THREADED_COLD = 65_536
 
     def __init__(self, db, d: int, device: torch.device, threads: int = 1,
                  shards=None):
@@ -322,17 +340,25 @@ class D2NetworkEngine:
                     f"(min={lo}, max={hi}, n={self.n})"
                 )
         # exact diffs: the device kernel once the pair count amortizes
-        # its dispatch; SWARM_TPU_D2_DIFFS=native|device overrides
+        # its launch, and its first use before it has run in this
+        # process; SWARM_TPU_D2_DIFFS=native|device overrides
+        from . import d2_diffs
+
         t0 = time.perf_counter()
         mode = os.environ.get("SWARM_TPU_D2_DIFFS", "auto")
+        if self.threads == 1:
+            at = self.DEVICE_DIFFS_MIN if d2_diffs.warm else \
+                self.DEVICE_DIFFS_MIN_COLD
+        else:
+            at = self.DEVICE_DIFFS_MIN_THREADED if d2_diffs.warm else \
+                self.DEVICE_DIFFS_MIN_THREADED_COLD
         use_device = mode == "device" or (
-            mode == "auto" and len(pa) >= 8192 and self.device.type == "cuda"
+            mode == "auto" and len(pa) >= at and self.device.type == "cuda"
         )
         if use_device:
-            from .d2_diffs import DeviceDiffEngine
-
             if not hasattr(self, "_diff_engine"):
-                self._diff_engine = DeviceDiffEngine(db, self.d, self.device)
+                self._diff_engine = d2_diffs.DeviceDiffEngine(
+                    db, self.d, self.device)
             diff_ab, diff_ba = self._diff_engine.diffs_pairs(
                 pa, pb, mismatch, gapopen, gapextend, no_break,
             )

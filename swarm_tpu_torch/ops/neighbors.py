@@ -7,8 +7,10 @@ mathematics is expressed as dense batched array ops — three gathers into
 a Zobrist table, XOR prefix/suffix scans, and a binary-search join
 against the sorted amplicon hash array. Counterpart of
 swarm_tpu/ops/neighbors.py: NeighborIndex builds the d=1 network with
-the native C code below NATIVE_MAX amplicons and with the torch
-sort-join engine (ops/neighbors_sortjoin.py) above it, and the batched
+the native C code below NATIVE_MAX amplicons (NATIVE_MAX_GRAFT or
+NATIVE_MAX_COLD in a process that does not hold the card yet) and with
+the torch sort-join
+engine (ops/neighbors_sortjoin.py) from there up, and the batched
 hashes serve the fastidious python join.
 
 Canonical variant set of a length-L sequence s (identical to the
@@ -184,9 +186,14 @@ class NeighborIndex:
 
     Counterpart of swarm_tpu's NeighborIndex under its auto backend,
     with the device join on the torch `device`. The rule, decided before
-    anything is launched: the native host builder (swarm_native.c:
-    d1_network) takes fewer than NATIVE_MAX amplicons
-    (SWARM_TPU_D1_NATIVE_MAX overrides it, as in swarm_tpu); the torch
+    anything is launched: the native host builder
+    (swarm_native.c: d1_network) takes fewer than NATIVE_MAX amplicons
+    when the process already holds the CUDA context and the kernel
+    library (device.card_ready: the resident server, a run after another
+    in one process), fewer than NATIVE_MAX_GRAFT when it does not but
+    the run takes the card anyway (`graft_on_card`: -f's graft on a CUDA
+    device), and fewer than NATIVE_MAX_COLD otherwise
+    (SWARM_TPU_D1_NATIVE_MAX overrides all three, as in swarm_tpu); the torch
     sort-join engine takes the rest, whatever their mix of lengths (its
     rows are ragged: swarm_tpu's width buckets have no counterpart), and
     a failure there raises. When the run asks for shards
@@ -197,11 +204,31 @@ class NeighborIndex:
     failure too.
     """
 
-    #: the native host builder takes n below this
-    NATIVE_MAX = 65_536
+    #: the native host builder takes n below these, the card's engine
+    #: from them up. scripts/dispatch_sweep.py on an NVIDIA H100 80GB
+    #: HBM3 at 700 W (PERF.md §5), `swarm -d 1 -o -s` on
+    #: gen_corpus(length=150) and mixed_length_corpus at -t 1 and -t 8:
+    #: with the card held, the card's engine won at every size from
+    #: 4,096 (the sweep's smallest) to 131,072; in a fresh process, whose
+    #: first use of the card adds 0.2-1.0 s, the host won up to 131,072
+    #: and the card from 262,144 (mixed lengths: from 65,536-131,072).
+    #: A fresh -f run pays the context and the library for its graft
+    #: anyway: `swarm -d 1 -f -o -s` on fastidious_corpus at -t 1 and 8
+    #: and its small-light-side form at -t 1 (medians of three fresh
+    #: processes in turns), the host won up to 4,096-16,384 and the card
+    #: from 16,384-65,536; 65,536 itself was a tie in single samples,
+    #: 131,072 and more the card's in every sample
+    NATIVE_MAX = 4_096
+    NATIVE_MAX_GRAFT = 65_536
+    NATIVE_MAX_COLD = 262_144
 
-    def __init__(self, db, threads: int = 1, device=None):
+    def __init__(self, db, threads: int = 1, device=None,
+                 graft_on_card: bool = False):
         self.db = db
+        #: -f's graft takes the card in this run whatever builds the
+        #: network, so a fresh process pays the CUDA context and the
+        #: kernel library either way: NATIVE_MAX_GRAFT applies there
+        self.graft_on_card = graft_on_card
         self.max_len = max(int(db.longest), 1)
         self.lengths = db.lengths.astype(np.int64)
         self.threads = max(int(threads), 1)
@@ -248,14 +275,19 @@ class NeighborIndex:
         return SortJoinNeighborEngine(self.db, self.device)
 
     def uses_native(self) -> bool:
-        """Whether the native host builder makes the network."""
+        """Whether the native host builder makes the network. (A process
+        goes from cold to holding the card, never back, and NATIVE_MAX
+        <= NATIVE_MAX_GRAFT <= NATIVE_MAX_COLD: once the engine is chosen
+        it stays so.)"""
         from .. import parallel
+        from ..device import card_ready
 
         if parallel.requested():
             return False
-        native_max = int(
-            os.environ.get("SWARM_TPU_D1_NATIVE_MAX", str(self.NATIVE_MAX))
-        )
+        at = self.NATIVE_MAX if card_ready() else \
+            self.NATIVE_MAX_GRAFT if self.graft_on_card else \
+            self.NATIVE_MAX_COLD
+        native_max = int(os.environ.get("SWARM_TPU_D1_NATIVE_MAX", at))
         return len(self.lengths) < native_max
 
     def start_network(self) -> None:

@@ -33,8 +33,15 @@ class DeviceAligner:
     screens of one seed against a list of targets."""
 
     #: lists shorter than this stay on the host (models/general.py).
-    #: Carried over from swarm_tpu's DeviceAligner, where it was set for
-    #: another device; not re-measured for CUDA yet.
+    #: scripts/dispatch_sweep.py on an NVIDIA H100 80GB HBM3 at 700 W
+    #: (PERF.md §5) timed one seed's list of 256 to 16,384 targets, the
+    #: scores and the host's rescoring of what they accept against the
+    #: host's exact diffs of the whole list, on d2_device's and d2_wide's
+    #: corpus shape: no size from which the card won at every larger
+    #: one. Every target of a dense family lies within the cutoff, so
+    #: the card's side is the host's rescoring of the whole list plus
+    #: the scores: it won at some sizes and lost at the next (host over
+    #: card 0.90-1.50), and lost at 16,384 on both. The value stays.
     MIN_DEVICE_BATCH = 2048
 
     def __init__(self, padded_np: np.ndarray, lengths_np: np.ndarray,

@@ -28,6 +28,7 @@ engine: tests/test_torch_d1_ragged.py.
 """
 
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -540,6 +541,19 @@ def test_native_below_native_max_engine_above(monkeypatch):
     np.testing.assert_array_equal(got[1], want[1])
     monkeypatch.setenv("SWARM_TPU_D1_NATIVE_MAX", str(len(db) + 1))
     assert NeighborIndex(db, device="cpu").uses_native()
+
+    # the rule at its thresholds, measured on the card
+    # (scripts/dispatch_sweep.py, PERF.md §5): in a fresh process, and in
+    # one that holds the card already
+    from swarm_tpu_torch import device
+
+    monkeypatch.delenv("SWARM_TPU_D1_NATIVE_MAX")
+    for ready, at in ((False, 262_144), (True, 4_096)):
+        monkeypatch.setattr(device, "card_ready", lambda: ready)
+        for n, native in ((at - 1, True), (at, False)):
+            rows = types.SimpleNamespace(longest=150,
+                                         lengths=np.full(n, 150))
+            assert NeighborIndex(rows, device="cpu").uses_native() == native
 
 
 def test_mixed_lengths_take_the_engine(monkeypatch, tmp_path):

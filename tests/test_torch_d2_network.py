@@ -111,12 +111,18 @@ def test_out_of_range_pair_fails_loudly(monkeypatch):
 
 
 def test_engine_choice(monkeypatch):
+    from swarm_tpu_torch import device
+
     cuda = torch.device("cuda", 0)
     monkeypatch.delenv("SWARM_TPU_D2_ENGINE", raising=False)
-    assert choose_engine(16384, 8, cuda) == "network"
-    assert choose_engine(16383, 8, cuda) == "native"
-    assert choose_engine(16384, 16, cuda) == "native"
-    assert choose_engine(100_000, 8, CPU) == "native"
+    # measured on the card (scripts/dispatch_sweep.py, PERF.md §5): in a
+    # fresh process, and in one that holds the card already
+    for ready, at in ((False, 16384), (True, 4096)):
+        monkeypatch.setattr(device, "card_ready", lambda: ready)
+        assert choose_engine(at, 8, cuda) == "network"
+        assert choose_engine(at - 1, 8, cuda) == "native"
+        assert choose_engine(at, 16, cuda) == "native"
+        assert choose_engine(100_000, 8, CPU) == "native"
     monkeypatch.setenv("SWARM_TPU_D2_ENGINE", "network")
     assert choose_engine(10, 8, CPU) == "network"
     assert choose_engine(10, 16, CPU) == "native"

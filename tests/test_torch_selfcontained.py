@@ -2,8 +2,8 @@
 not drifted from swarm_tpu's.
 
 (a) statically: no module of the port, nor chip_smoke.py, nor the
-    launcher, nor scripts/device_busy.py imports swarm_tpu, jax, bench
-    or a tests/ module;
+    launcher, nor scripts/device_busy.py and scripts/dispatch_sweep.py
+    imports swarm_tpu, jax, bench or a tests/ module;
 (b) in a running process: bin/swarm-torch for d = 0, 1, 2 on the CPU
     ends with neither jax nor swarm_tpu in sys.modules, d = 1 also with
     its sort-join engine forced (SWARM_TPU_D1_NATIVE_MAX=0), on a
@@ -42,7 +42,8 @@ PORT_FILES = sorted(
     [*(REPO_ROOT / "swarm_tpu_torch").rglob("*.py"),
      REPO_ROOT / "chip_smoke.py",
      REPO_ROOT / "bin" / "swarm-torch",
-     REPO_ROOT / "scripts" / "device_busy.py"])
+     REPO_ROOT / "scripts" / "device_busy.py",
+     REPO_ROOT / "scripts" / "dispatch_sweep.py"])
 
 #: top-level module names the port must not import: the JAX package and
 #: JAX itself, the benchmark script, and every module under tests/
@@ -84,7 +85,7 @@ def test_port_file_list_is_complete():
                  "swarm_tpu_torch/server.py", "bin/swarm-torch",
                  "swarm_tpu_torch/parallel/mesh.py",
                  "swarm_tpu_torch/parallel/distributed.py",
-                 "scripts/device_busy.py"):
+                 "scripts/device_busy.py", "scripts/dispatch_sweep.py"):
         assert must in names
     assert "_host_d1_backend" not in (
         REPO_ROOT / "swarm_tpu_torch" / "main.py").read_text()
