@@ -28,16 +28,30 @@ argv on the same input: the run joins the process group first, takes
 cuda:(rank % device_count), and only rank 0 writes; the other ranks'
 outputs and log go to os.devnull.
 
+Each run keeps a record (metrics.py), started anew when the run starts
+and readable in process after it: its spans (each progress phase, and
+the d>=2 network engine's and writers' steps: `d2_network.build` and
+its children `d2_network.screen`, `.to_host`, `.diffs`, `.csr`, then
+`general.cluster_graph` and `general.write_*`), each with its name,
+start and end (time.perf_counter), parent and the run's id, and its
+counters (`metrics.last_run`). SWARM_TPU_TRACE=FILE, read when the run
+ends, writes the record there as a chrome trace: one "X" event a span,
+the run id and parent in its "args", the counters under "counters".
+While a torch.profiler is active, every span is also a
+record_function range of its name in the profiler's trace.
+
 SWARM_TPU_PROFILE_DIR records a torch.profiler trace of the run
-(trace.json in that directory); SWARM_TPU_TIMING=1 prints per-phase
-wall times and, at the end of the run, one `[timing] launches {...}`
-line: each kernel's launches in this process, as JSON.
+(trace.json in that directory; it holds the spans as ranges);
+SWARM_TPU_TIMING=1 prints per-phase wall times and, at the end of the
+run, one `[timing] launches {...}` line: each kernel's launches in this
+process, as JSON.
 """
 
 import contextlib
 import os
 import sys
 
+from . import metrics
 from .cli import (
     args_check,
     args_init,
@@ -50,7 +64,7 @@ from .device import default_device
 from .fatal import FatalError
 from .messages import HEADER_MESSAGE
 from .params import Parameters, set_alignment_scoring_system
-from .progress import Progress, trace_dump
+from .progress import Progress
 
 
 @contextlib.contextmanager
@@ -105,6 +119,7 @@ def _quiet(p: Parameters) -> None:
 
 
 def _run(p: Parameters, device) -> int:
+    metrics.reset()
     open_files(p)
     p.logfile.write(HEADER_MESSAGE)
     args_show(p, p.logfile)
@@ -128,7 +143,7 @@ def _run(p: Parameters, device) -> int:
             algo_run(p, db, progress, device)
 
     close_files(p)
-    trace_dump()
+    metrics.dump()
     if os.environ.get("SWARM_TPU_TIMING"):
         _report_launches()
     return 0

@@ -57,6 +57,10 @@ ENGINES = ("auto", "network", "native", "device", "python")
 #: 16,384)
 NETWORK_MIN = 4_096
 NETWORK_MIN_COLD = 16_384
+#: the run's spans (metrics.py) of the -i, -u, -s, -o and -w writers
+WRITER_SPANS = ("general.write_structure", "general.write_uclust",
+                "general.write_stats", "general.write_swarms",
+                "general.write_seeds")
 
 
 def choose_engine(n: int, bit_mode: int, device: torch.device) -> str:
@@ -450,9 +454,8 @@ def _algo_run_network(p, db, progress, eng, n, d):
     produce the directed edge list; the graph-driven C replay
     (swarm_native.c: algo_cluster_graph) reproduces algo_cluster's
     attachment order exactly; output writers are shared. With
-    SWARM_TPU_TIMING set, prints the engine's phases and the host time
-    after them (algo_cluster_graph and the writers)."""
-    t0 = time.perf_counter()
+    SWARM_TPU_TIMING set, prints the seconds of the run's spans of the
+    engine's steps, the replay and the writers."""
     want_structure = bool(p.opt_internal_structure or p.uclustfile is not None)
     adj_start, adj_count, adj_to, adj_diff, n_screened, n_survivors = (
         eng.build_adjacency(
@@ -460,19 +463,21 @@ def _algo_run_network(p, db, progress, eng, n, d):
             p.opt_no_cluster_breaking,
         )
     )
-    res = _native.algo_cluster_graph(
-        adj_start, adj_count, adj_to, adj_diff, db.abundances,
-        want_structure,
-    )
+    with metrics.span("general.cluster_graph"):
+        res = _native.algo_cluster_graph(
+            adj_start, adj_count, adj_to, adj_diff, db.abundances,
+            want_structure,
+        )
     metrics.record(
         qgram_screen_comparisons=n * (n - 1) // 2,
         alignment_comparisons=n_survivors,
     )
     _write_d2_results(p, db, progress, res, n)
-    total = time.perf_counter() - t0
-    _timing(f"d2 network ({eng.device.type})", {
-        **eng.timings,
-        "cluster_graph+writers": total - sum(eng.timings.values())})
+    spent = {step: metrics.seconds(f"d2_network.{step}")
+             for step in ("screen", "to_host", "diffs", "csr")}
+    spent["cluster_graph"] = metrics.seconds("general.cluster_graph")
+    spent["writers"] = metrics.seconds(*WRITER_SPANS)
+    _timing(f"d2 network ({eng.device.type})", spent)
 
 
 def _algo_run_native(p, db, progress, padded, profiles, bit_mode, n, d):
@@ -513,87 +518,91 @@ def _write_d2_results(p, db, progress, res, n):
     swarmcount = res["swarmcount"]
 
     if p.opt_internal_structure:
-        out = []
-        sid = 0
-        bounds = res["swarm_bound"]
-        child_cum = np.cumsum(res["swarm_size"] - 1)
-        for k in range(len(res["struct_parent"])):
-            while sid < swarmcount and k >= child_cum[sid]:
-                sid += 1
-            out.append(
-                f"{db.print_id_noabundance(int(res['struct_parent'][k]), ua)}\t"
-                f"{db.print_id_noabundance(int(res['struct_child'][k]), ua)}\t"
-                f"{int(res['struct_diff'][k])}\t{sid + 1}\t"
-                f"{int(res['struct_gen'][k])}\n"
-            )
-        p.internal_structure_file.write("".join(out))
+        with metrics.span("general.write_structure"):
+            out = []
+            sid = 0
+            bounds = res["swarm_bound"]
+            child_cum = np.cumsum(res["swarm_size"] - 1)
+            for k in range(len(res["struct_parent"])):
+                while sid < swarmcount and k >= child_cum[sid]:
+                    sid += 1
+                out.append(
+                    f"{db.print_id_noabundance(int(res['struct_parent'][k]), ua)}\t"
+                    f"{db.print_id_noabundance(int(res['struct_child'][k]), ua)}\t"
+                    f"{int(res['struct_diff'][k])}\t{sid + 1}\t"
+                    f"{int(res['struct_gen'][k])}\n"
+                )
+            p.internal_structure_file.write("".join(out))
 
     if p.uclustfile is not None:
-        out = []
-        child_off = 0
-        for s in range(swarmcount):
-            seed_amp = int(res["swarm_seed"][s])
-            size = int(res["swarm_size"][s])
-            seed_id_str = db.print_id(seed_amp, ua, aa)
-            out.append(f"C\t{s}\t{size}\t*\t*\t*\t*\t*\t{seed_id_str}\t*\n")
-            out.append(
-                f"S\t{s}\t{lengths[seed_amp]}\t*\t*\t*\t*\t*\t"
-                f"{seed_id_str}\t*\n"
-            )
-            qseq = db.sequence_codes(seed_amp)
-            for k in range(child_off, child_off + size - 1):
-                hit = int(res["struct_child"][k])
-                dseq = db.sequence_codes(hit)
-                nwdiff, alen, cigar = nw(
-                    dseq, qseq, p.penalty_mismatch, p.penalty_gapopen,
-                    p.penalty_gapextend,
-                )
-                percentid = 100.0 * (alen - nwdiff) / alen
+        with metrics.span("general.write_uclust"):
+            out = []
+            child_off = 0
+            for s in range(swarmcount):
+                seed_amp = int(res["swarm_seed"][s])
+                size = int(res["swarm_size"][s])
+                seed_id_str = db.print_id(seed_amp, ua, aa)
+                out.append(f"C\t{s}\t{size}\t*\t*\t*\t*\t*\t{seed_id_str}\t*\n")
                 out.append(
-                    f"H\t{s}\t{lengths[hit]}\t{percentid:.1f}\t+\t0\t0\t"
-                    f"{cigar if nwdiff > 0 else '='}\t"
-                    f"{db.print_id(hit, ua, aa)}\t{seed_id_str}\n"
+                    f"S\t{s}\t{lengths[seed_amp]}\t*\t*\t*\t*\t*\t"
+                    f"{seed_id_str}\t*\n"
                 )
-            child_off += size - 1
-        p.uclustfile.write("".join(out))
+                qseq = db.sequence_codes(seed_amp)
+                for k in range(child_off, child_off + size - 1):
+                    hit = int(res["struct_child"][k])
+                    dseq = db.sequence_codes(hit)
+                    nwdiff, alen, cigar = nw(
+                        dseq, qseq, p.penalty_mismatch, p.penalty_gapopen,
+                        p.penalty_gapextend,
+                    )
+                    percentid = 100.0 * (alen - nwdiff) / alen
+                    out.append(
+                        f"H\t{s}\t{lengths[hit]}\t{percentid:.1f}\t+\t0\t0\t"
+                        f"{cigar if nwdiff > 0 else '='}\t"
+                        f"{db.print_id(hit, ua, aa)}\t{seed_id_str}\n"
+                    )
+                child_off += size - 1
+            p.uclustfile.write("".join(out))
 
     if p.statsfile is not None:
-        out = []
-        for s in range(swarmcount):
-            seed_amp = int(res["swarm_seed"][s])
-            out.append(
-                f"{int(res['swarm_size'][s])}\t{int(res['swarm_copies'][s])}\t"
-                f"{db.print_id_noabundance(seed_amp, ua)}\t"
-                f"{int(db.abundances[seed_amp])}\t"
-                f"{int(res['swarm_singletons'][s])}\t"
-                f"{int(res['swarm_maxgen'][s])}\t{int(res['swarm_maxrad'][s])}\n"
-            )
-        p.statsfile.write("".join(out))
+        with metrics.span("general.write_stats"):
+            out = []
+            for s in range(swarmcount):
+                seed_amp = int(res["swarm_seed"][s])
+                out.append(
+                    f"{int(res['swarm_size'][s])}\t{int(res['swarm_copies'][s])}\t"
+                    f"{db.print_id_noabundance(seed_amp, ua)}\t"
+                    f"{int(db.abundances[seed_amp])}\t"
+                    f"{int(res['swarm_singletons'][s])}\t"
+                    f"{int(res['swarm_maxgen'][s])}\t{int(res['swarm_maxrad'][s])}\n"
+                )
+            p.statsfile.write("".join(out))
 
     # swarms output
     if n != 0:
-        if p.opt_mothur:
-            out = [f"swarm_{p.opt_differences}\t{swarmcount}\t"]
-            previous_id = swarmid_arr[0]
-            out.append(db.print_id(int(order[0]), ua, aa))
-            for i in range(1, n):
-                current_id = swarmid_arr[i]
-                out.append("," if current_id == previous_id else "\t")
-                out.append(db.print_id(int(order[i]), ua, aa))
-                previous_id = current_id
-            out.append("\n")
-            p.outfile.write("".join(out))
-        else:
-            bounds = np.concatenate(
-                ([0], np.asarray(res["swarm_bound"], dtype=np.int64))
-            )
-            attached = np.zeros(swarmcount, dtype=np.uint8)
-            data = _native.write_swarms_plain(
-                _native.HeaderArena(db), aa, ua, order, bounds, attached
-            )
-            from ..cli import write_blob
+        with metrics.span("general.write_swarms"):
+            if p.opt_mothur:
+                out = [f"swarm_{p.opt_differences}\t{swarmcount}\t"]
+                previous_id = swarmid_arr[0]
+                out.append(db.print_id(int(order[0]), ua, aa))
+                for i in range(1, n):
+                    current_id = swarmid_arr[i]
+                    out.append("," if current_id == previous_id else "\t")
+                    out.append(db.print_id(int(order[i]), ua, aa))
+                    previous_id = current_id
+                out.append("\n")
+                p.outfile.write("".join(out))
+            else:
+                bounds = np.concatenate(
+                    ([0], np.asarray(res["swarm_bound"], dtype=np.int64))
+                )
+                attached = np.zeros(swarmcount, dtype=np.uint8)
+                data = _native.write_swarms_plain(
+                    _native.HeaderArena(db), aa, ua, order, bounds, attached
+                )
+                from ..cli import write_blob
 
-            write_blob(p.outfile, data)
+                write_blob(p.outfile, data)
 
     if p.opt_seeds and n != 0:
         _write_seeds(p, db, progress, order, swarmid_arr, n)
@@ -644,40 +653,41 @@ def _write_seeds(p, db, progress, order, swarmid_arr, n):
     such ties is defined by std::sort's algorithm itself. We replicate
     libstdc++'s introsort exactly (C fast path sort_seeds_stdcxx;
     Python mirror in stdcxx_sort.py)."""
-    ua = p.opt_usearch_abundance
+    with metrics.span("general.write_seeds"):
+        ua = p.opt_usearch_abundance
 
-    progress.init("Collecting seeds:    ", n)
-    seeds = []
-    mass = 0
-    previous_id = swarmid_arr[0]
-    seed = int(order[0])
-    mass += int(db.abundances[seed])
-    for i in range(1, n):
-        current_id = swarmid_arr[i]
-        if current_id != previous_id:
-            seeds.append((seed, mass))
-            mass = 0
-            seed = int(order[i])
-        mass += int(db.abundances[int(order[i])])
-        previous_id = current_id
-        progress.update(i)
-    seeds.append((seed, mass))
-    # the reference's collect_seeds never calls progress_done
-    # (src/algo.cc:123-158): no "100%" line in -l mode, no newline on
-    # stderr — the next phase's init overwrites the line in place
+        progress.init("Collecting seeds:    ", n)
+        seeds = []
+        mass = 0
+        previous_id = swarmid_arr[0]
+        seed = int(order[0])
+        mass += int(db.abundances[seed])
+        for i in range(1, n):
+            current_id = swarmid_arr[i]
+            if current_id != previous_id:
+                seeds.append((seed, mass))
+                mass = 0
+                seed = int(order[i])
+            mass += int(db.abundances[int(order[i])])
+            previous_id = current_id
+            progress.update(i)
+        seeds.append((seed, mass))
+        # the reference's collect_seeds never calls progress_done
+        # (src/algo.cc:123-158): no "100%" line in -l mode, no newline on
+        # stderr — the next phase's init overwrites the line in place
 
-    progress.init("Sorting seeds:    ", len(seeds))
-    seeds = _sort_seeds_stdcxx(db, seeds)
-    progress.done()
+        progress.init("Sorting seeds:    ", len(seeds))
+        seeds = _sort_seeds_stdcxx(db, seeds)
+        progress.done()
 
-    progress.init("Writing seeds:    ", len(seeds))
-    out = []
-    for ticker, (seed, swarm_mass) in enumerate(seeds):
-        out.append(">")
-        out.append(db.print_id_with_new_abundance(seed, swarm_mass, ua))
-        out.append("\n")
-        out.append(db.sequence_string(seed))
-        out.append("\n")
-        progress.update(ticker)
-    p.seeds_file.write("".join(out))
-    progress.done()
+        progress.init("Writing seeds:    ", len(seeds))
+        out = []
+        for ticker, (seed, swarm_mass) in enumerate(seeds):
+            out.append(">")
+            out.append(db.print_id_with_new_abundance(seed, swarm_mass, ua))
+            out.append("\n")
+            out.append(db.sequence_string(seed))
+            out.append("\n")
+            progress.update(ticker)
+        p.seeds_file.write("".join(out))
+        progress.done()

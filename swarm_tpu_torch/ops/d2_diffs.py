@@ -18,6 +18,8 @@ result equals _native.d2_diffs_pairs.
 import numpy as np
 import torch
 
+from .. import metrics
+
 INF = 1 << 28
 
 #: kernel launches made by ``d2_diffs`` (CUDA tensors only)
@@ -180,6 +182,16 @@ def row_stride_16(rows):
     return store[:, :L]
 
 
+def directions(abundances, pa, pb, no_break):
+    """(need_ab, need_ba) bool arrays: the directions of the pairs that
+    the abundance rule admits (swarm_native.c: d2_diffs_pairs), every
+    one under no_break."""
+    if no_break:
+        return np.full(len(pa), True), np.full(len(pa), True)
+    ab = np.asarray(abundances)
+    return ab[pa] >= ab[pb], ab[pb] >= ab[pa]
+
+
 class DeviceDiffEngine:
     """Directed diff tasks through d2_diffs on one device.
 
@@ -216,12 +228,11 @@ class DeviceDiffEngine:
         P = len(pa)
         cutoff = self.d * max(mismatch, go + ge)
         B = self.band_for_exact(cutoff, go, ge)
-        ab = self.abundances
-        need_ab = np.full(P, True) if no_break else ab[pa] >= ab[pb]
-        need_ba = np.full(P, True) if no_break else ab[pb] >= ab[pa]
+        need_ab, need_ba = directions(self.abundances, pa, pb, no_break)
         tq = np.concatenate([pa[need_ab], pb[need_ba]]).astype(np.int64)
         td = np.concatenate([pb[need_ab], pa[need_ba]]).astype(np.int64)
         n_ab = int(need_ab.sum())
+        metrics.record(**{"d2_network.alignments": len(tq)})
         diffs = d2_diffs(
             self.rows, self.lens,
             torch.from_numpy(tq).to(self.device),

@@ -25,13 +25,21 @@ epilogue; the extraction reading only the rows that hold survivors) or
 raises; on a CPU tensor it runs its plain version
 (``screen_words_reference``, ``extract_pairs_reference``), which unpacks
 the profiles to +-1 int8 only where it needs them.
+
+``D2NetworkEngine.build_adjacency`` is the run's span ``d2_network.build``
+(metrics.py), its steps the spans ``d2_network.screen`` (the chunk loop),
+``.to_host`` (the pairs' copy to the host), ``.diffs`` (the exact diffs)
+and ``.csr`` (the edge sort and CSR on the host); it counts the directed
+alignments the exact diffs run (``d2_network.alignments``) and the edges
+they accept (``d2_network.edges``). No step synchronises the device.
 """
 
 import os
-import time
 
 import numpy as np
 import torch
+
+from .. import metrics
 
 PROFILE_BYTES = 128  # 1024-bit qgram parity vector
 PROFILE_BITS = 1024
@@ -209,6 +217,23 @@ def extract_scanned(words, counts, offsets, tis, tjs, T, total):
     return ga, gb
 
 
+def pairs_to_host(ga, gb, n):
+    """(pa, pb): the device pairs (ga, gb) as int64 host arrays. Raises
+    where an index lies outside [0, n): a decode bug (such as an int32
+    wrap of the global index) must fail here, not corrupt clusters."""
+    pa = ga.cpu().numpy().astype(np.int64)
+    pb = gb.cpu().numpy().astype(np.int64)
+    if len(pa):
+        hi = max(int(pa.max()), int(pb.max()))
+        lo = min(int(pa.min()), int(pb.min()))
+        if hi >= n or lo < 0:
+            raise AssertionError(
+                f"d2 screen produced out-of-range pair index "
+                f"(min={lo}, max={hi}, n={n})"
+            )
+    return pa, pb
+
+
 def tile_steps(n_tiles):
     """(tis, tjs) int32 arrays of the tile-pair steps I <= J, in JAX's
     order (I ascending, then J)."""
@@ -268,13 +293,6 @@ class D2NetworkEngine:
         lengths[: self.n] = db.lengths
         self.prof = torch.from_numpy(prof_u8).to(self.device)
         self.lengths = torch.from_numpy(lengths).to(self.device)
-        #: host seconds per phase of the last build_adjacency; with
-        #: SWARM_TPU_TIMING set, the device is synchronised between phases
-        self.timings = {}
-
-    def _sync(self):
-        if self.device.type == "cuda" and os.environ.get("SWARM_TPU_TIMING"):
-            torch.cuda.synchronize(self.device)
 
     def candidate_pairs(self):
         """(pa, pb, n_screened): unordered candidate pairs (a < b) as
@@ -282,32 +300,22 @@ class D2NetworkEngine:
         T = self.TILE
         all_ti, all_tj = tile_steps(self.n_pad // T)
         C = max(1, int(os.environ.get("SWARM_TPU_D2_CHUNK", "512")))
-        t_screen = t_extract = 0.0
-        ga_parts, gb_parts = [], []
-        for c0 in range(0, len(all_ti), C):
-            t0 = time.perf_counter()
-            tis = torch.from_numpy(all_ti[c0:c0 + C]).to(self.device)
-            tjs = torch.from_numpy(all_tj[c0:c0 + C]).to(self.device)
-            words, counts = screen_words(self.prof, self.lengths, tis, tjs,
-                                         T, self.n, self.d)
-            self._sync()
-            t1 = time.perf_counter()
-            ga, gb = extract_pairs(words, counts, tis, tjs, T)
-            del words, counts
-            if ga.numel():
-                ga_parts.append(ga)
-                gb_parts.append(gb)
-            t_extract += time.perf_counter() - t1
-            t_screen += t1 - t0
-        t1 = time.perf_counter()
-        if ga_parts:
-            pa = torch.cat(ga_parts).cpu().numpy().astype(np.int64)
-            pb = torch.cat(gb_parts).cpu().numpy().astype(np.int64)
-        else:
-            pa = np.zeros(0, dtype=np.int64)
-            pb = np.zeros(0, dtype=np.int64)
-        self.timings["screen"] = t_screen
-        self.timings["extract"] = t_extract + time.perf_counter() - t1
+        empty = torch.zeros(0, dtype=torch.int32, device=self.device)
+        ga_parts, gb_parts = [empty], [empty]
+        with metrics.span("d2_network.screen"):
+            for c0 in range(0, len(all_ti), C):
+                tis = torch.from_numpy(all_ti[c0:c0 + C]).to(self.device)
+                tjs = torch.from_numpy(all_tj[c0:c0 + C]).to(self.device)
+                words, counts = screen_words(self.prof, self.lengths, tis,
+                                             tjs, T, self.n, self.d)
+                ga, gb = extract_pairs(words, counts, tis, tjs, T)
+                del words, counts
+                if ga.numel():
+                    ga_parts.append(ga)
+                    gb_parts.append(gb)
+        with metrics.span("d2_network.to_host"):
+            pa, pb = pairs_to_host(torch.cat(ga_parts), torch.cat(gb_parts),
+                                   self.n)
         return pa, pb, len(pa)
 
     def candidate_pairs_sharded(self, shards):
@@ -322,29 +330,28 @@ class D2NetworkEngine:
         """Directed CSR adjacency (adj_start, adj_count, adj_to,
         adj_diff) of exact accepted edges, targets ascending, plus the
         screened-candidate count and the survivor count."""
-        from .. import _native
+        with metrics.span("d2_network.build"):
+            if self.shards is not None:
+                pa, pb, n_screened = self.candidate_pairs_sharded(
+                    self.shards)
+            else:
+                pa, pb, n_screened = self.candidate_pairs()
+            with metrics.span("d2_network.diffs"):
+                diff_ab, diff_ba = self._diffs(
+                    pa, pb, mismatch, gapopen, gapextend, no_break)
+            with metrics.span("d2_network.csr"):
+                adj = self._csr(pa, pb, diff_ab, diff_ba)
+        return (*adj, n_screened, len(pa))
 
-        db = self.db
-        if self.shards is not None:
-            pa, pb, n_screened = self.candidate_pairs_sharded(self.shards)
-        else:
-            pa, pb, n_screened = self.candidate_pairs()
-        if len(pa):
-            # loud invariant: a decode bug (such as an int32 wrap of the
-            # global index) must fail here, not corrupt clusters
-            hi = max(int(pa.max()), int(pb.max()))
-            lo = min(int(pa.min()), int(pb.min()))
-            if hi >= self.n or lo < 0:
-                raise AssertionError(
-                    f"d2 screen produced out-of-range pair index "
-                    f"(min={lo}, max={hi}, n={self.n})"
-                )
-        # exact diffs: the device kernel once the pair count amortizes
-        # its launch, and its first use before it has run in this
-        # process; SWARM_TPU_D2_DIFFS=native|device overrides
+    def _diffs(self, pa, pb, mismatch, gapopen, gapextend, no_break):
+        """(diff_ab, diff_ba) of every pair: the device kernel once the
+        pair count amortizes its launch, and its first use before it has
+        run in this process; SWARM_TPU_D2_DIFFS=native|device
+        overrides."""
+        from .. import _native
         from . import d2_diffs
 
-        t0 = time.perf_counter()
+        db = self.db
         mode = os.environ.get("SWARM_TPU_D2_DIFFS", "auto")
         if self.threads == 1:
             at = self.DEVICE_DIFFS_MIN if d2_diffs.warm else \
@@ -359,16 +366,23 @@ class D2NetworkEngine:
             if not hasattr(self, "_diff_engine"):
                 self._diff_engine = d2_diffs.DeviceDiffEngine(
                     db, self.d, self.device)
-            diff_ab, diff_ba = self._diff_engine.diffs_pairs(
+            return self._diff_engine.diffs_pairs(
                 pa, pb, mismatch, gapopen, gapextend, no_break,
             )
-        else:
-            diff_ab, diff_ba = _native.d2_diffs_pairs(
-                db.codes, db.offsets, db.lengths, db.abundances, pa, pb,
-                self.d, mismatch, gapopen, gapextend, no_break,
-                nthreads=self.threads,
-            )
-        self.timings["diffs"] = time.perf_counter() - t0
+        need_ab, need_ba = d2_diffs.directions(db.abundances, pa, pb,
+                                               no_break)
+        metrics.record(**{"d2_network.alignments":
+                          np.count_nonzero(need_ab)
+                          + np.count_nonzero(need_ba)})
+        return _native.d2_diffs_pairs(
+            db.codes, db.offsets, db.lengths, db.abundances, pa, pb,
+            self.d, mismatch, gapopen, gapextend, no_break,
+            nthreads=self.threads,
+        )
+
+    def _csr(self, pa, pb, diff_ab, diff_ba):
+        """(adj_start, adj_count, adj_to, adj_diff) of the accepted
+        directed edges, sources ascending, then targets."""
         keep_ab = diff_ab >= 0
         keep_ba = diff_ba >= 0
         ef = np.concatenate([pa[keep_ab], pb[keep_ba]])
@@ -382,4 +396,5 @@ class D2NetworkEngine:
         adj_start = np.zeros(n, dtype=np.int64)
         if n:
             np.cumsum(adj_count[:-1], out=adj_start[1:])
-        return adj_start, adj_count, et, ediff, n_screened, len(pa)
+        metrics.record(**{"d2_network.edges": len(et)})
+        return adj_start, adj_count, et, ediff

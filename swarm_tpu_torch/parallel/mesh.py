@@ -234,9 +234,6 @@ class _Clock:
         spent[phase] = spent.get(phase, 0.0) + now - self.t
         self.t = now
 
-    def total(self, phase) -> float:
-        return sum(p.get(phase, 0.0) for p in self.phases.values())
-
     def exchange(self, sends):
         """shards.exchange(sends)'s received tensors, counted."""
         if self.on:
@@ -564,37 +561,39 @@ def sharded_candidate_pairs(engine, shards):
     the contiguous tile-pair steps [j K / k, (j + 1) K / k) of the K
     steps, in chunks of SWARM_TPU_D2_CHUNK, with the profiles replicated
     (one copy a device); the pairs, gathered in shard order, come in the
-    steps' order. Sets engine.timings' screen and extract."""
+    steps' order. The run's spans d2_network.screen and .to_host (the
+    gather and the copy to the host) hold the two parts."""
     T = engine.TILE
     all_ti, all_tj = d2n.tile_steps(engine.n_pad // T)
     K = len(all_ti)
     C = max(1, int(os.environ.get("SWARM_TPU_D2_CHUNK", "512")))
     clock = _Clock("d2", shards)
-    profiles = {dev: (engine.prof.to(dev), engine.lengths.to(dev))
-                for dev in shards.replicas()}
     ga_parts, gb_parts = [], []
-    for i, j in enumerate(shards.owned):
-        dev = shards.devices[i]
-        prof, lengths = profiles[dev]
-        ga_j, gb_j = [_empty(torch.int32, dev)], [_empty(torch.int32, dev)]
-        s1 = (j + 1) * K // shards.count
-        for c0 in range(j * K // shards.count, s1, C):
-            tis = torch.from_numpy(all_ti[c0:min(c0 + C, s1)]).to(dev)
-            tjs = torch.from_numpy(all_tj[c0:min(c0 + C, s1)]).to(dev)
-            words, counts = d2n.screen_words(prof, lengths, tis, tjs, T,
-                                             engine.n, engine.d)
-            clock.mark(i, "screen")
-            ga, gb = d2n.extract_pairs(words, counts, tis, tjs, T)
-            del words, counts
-            ga_j.append(ga)
-            gb_j.append(gb)
-            clock.mark(i, "extract")
-        ga_parts.append(torch.cat(ga_j))
-        gb_parts.append(torch.cat(gb_j))
-    pa = shards.gather(ga_parts).cpu().numpy().astype(np.int64)
-    pb = shards.gather(gb_parts).cpu().numpy().astype(np.int64)
-    clock.mark(None, "gather")
-    engine.timings["screen"] = clock.total("screen")
-    engine.timings["extract"] = clock.total("extract") + clock.total("gather")
+    with metrics.span("d2_network.screen"):
+        profiles = {dev: (engine.prof.to(dev), engine.lengths.to(dev))
+                    for dev in shards.replicas()}
+        for i, j in enumerate(shards.owned):
+            dev = shards.devices[i]
+            prof, lengths = profiles[dev]
+            ga_j = [_empty(torch.int32, dev)]
+            gb_j = [_empty(torch.int32, dev)]
+            s1 = (j + 1) * K // shards.count
+            for c0 in range(j * K // shards.count, s1, C):
+                tis = torch.from_numpy(all_ti[c0:min(c0 + C, s1)]).to(dev)
+                tjs = torch.from_numpy(all_tj[c0:min(c0 + C, s1)]).to(dev)
+                words, counts = d2n.screen_words(prof, lengths, tis, tjs, T,
+                                                 engine.n, engine.d)
+                clock.mark(i, "screen")
+                ga, gb = d2n.extract_pairs(words, counts, tis, tjs, T)
+                del words, counts
+                ga_j.append(ga)
+                gb_j.append(gb)
+                clock.mark(i, "extract")
+            ga_parts.append(torch.cat(ga_j))
+            gb_parts.append(torch.cat(gb_j))
+    with metrics.span("d2_network.to_host"):
+        pa, pb = d2n.pairs_to_host(shards.gather(ga_parts),
+                                   shards.gather(gb_parts), engine.n)
+        clock.mark(None, "gather")
     clock.report()
     return pa, pb, len(pa)

@@ -4,52 +4,20 @@ Two modes, chosen by whether -l redirects logging to a file:
  - stderr mode: "<prompt> 0%" at init, "  \\r<prompt> NN%" at milestones
    (200 steps), "  \\r<prompt> 100%\\n" when done;
  - logfile mode: "<prompt>" at init, " 100%\\n" when done (no updates).
+
+Each phase, from its init to its done() or to the next init, is a span
+of the run's record (metrics.py), named by its prompt.
 """
 
 import os
 import sys
 import time
 
+from . import metrics
+
 GRANULARITY = 200
 
 _TIMING = bool(os.environ.get("SWARM_TPU_TIMING"))
-
-# SWARM_TPU_TRACE=FILE collects per-phase spans and dumps a
-# chrome://tracing-compatible JSON artifact at the end of the run
-# (main.py writes it) — the reference's PROFILE build-mode analog with
-# a structured artifact instead of stderr text
-_TRACE = os.environ.get("SWARM_TPU_TRACE")
-_trace_events = []
-
-
-def trace_dump() -> None:
-    """Write the collected phase spans to $SWARM_TPU_TRACE (chrome
-    trace-event format: load in chrome://tracing or Perfetto)."""
-    if not _TRACE or not _trace_events:
-        return
-    import json
-
-    events = list(_trace_events)
-    _trace_events.clear()  # one artifact per run (resident server)
-    with open(_TRACE, "w") as fh:
-        json.dump(
-            {
-                "traceEvents": [
-                    {
-                        "name": name,
-                        "ph": "X",
-                        "ts": int(t0 * 1e6),
-                        "dur": int((t1 - t0) * 1e6),
-                        "pid": os.getpid(),
-                        "tid": 0,
-                        "cat": "phase",
-                    }
-                    for name, t0, t1 in events
-                ],
-                "displayTimeUnit": "ms",
-            },
-            fh,
-        )
 
 
 class Progress:
@@ -61,6 +29,7 @@ class Progress:
         self.chunk = 1
         self.next = 1
         self._t0 = 0.0
+        self._span = None
 
     _last_done = 0.0
 
@@ -69,8 +38,10 @@ class Progress:
         self.size = size
         self.chunk = 1 if size < GRANULARITY else size // GRANULARITY
         self.next = 1
-        if _TRACE:
-            self._t0 = time.perf_counter()
+        # a phase without done() (swarm's collect_seeds) ends here
+        if self._span is not None:
+            metrics.end(self._span)
+        self._span = metrics.begin(prompt.strip())
         if _TIMING:
             self._t0 = time.perf_counter()
             if Progress._last_done:
@@ -101,10 +72,9 @@ class Progress:
         else:
             self.logfile.write(f"  \r{self.prompt} 100%\n")
         self.logfile.flush()
-        if _TRACE:
-            _trace_events.append(
-                (self.prompt.strip(), self._t0, time.perf_counter())
-            )
+        if self._span is not None:
+            metrics.end(self._span)
+            self._span = None
         if _TIMING:
             Progress._last_done = time.perf_counter()
             sys.__stderr__.write(

@@ -101,11 +101,15 @@ def test_engine_state_matches_jax():
 
 
 def test_out_of_range_pair_fails_loudly(monkeypatch):
+    """A pair index outside [0, n) from the extraction (a decode bug)
+    fails where the pairs reach the host."""
+    from swarm_tpu_torch.ops import d2_network
+
     db = _clouds(81, 4, 10, 40, 2)
     eng = D2NetworkEngine(db, 2, CPU)
-    bad = np.array([0, len(db)], dtype=np.int64)
-    monkeypatch.setattr(eng, "candidate_pairs",
-                        lambda: (bad[:1], bad[1:], 1))
+    bad = torch.tensor([0, len(db)], dtype=torch.int32)
+    monkeypatch.setattr(d2_network, "extract_pairs",
+                        lambda *args: (bad[:1], bad[1:]))
     with pytest.raises(AssertionError, match="out-of-range"):
         eng.build_adjacency(4, 12, 4, False)
 

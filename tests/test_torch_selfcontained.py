@@ -406,9 +406,59 @@ def test_native_library_is_the_ports_own():
     "models/derep"])
 def test_unchanged_host_layers_equal_their_originals(name):
     """These layers needed no change beyond their place in the package:
-    the copy is the original, byte for byte."""
+    the copy is the original, byte for byte. The two that also hold the
+    run's record (metrics: its spans and counters; progress: each phase
+    a span) write and count what the original does."""
+    if name in RECORD_LAYERS:
+        RECORD_LAYERS[name]()
+        return
     assert (REPO_ROOT / "swarm_tpu_torch" / f"{name}.py").read_bytes() == (
         REPO_ROOT / "swarm_tpu" / f"{name}.py").read_bytes()
+
+
+def _progress_writes(package, log_to_file):
+    """What one package's Progress writes for a fixed sequence of
+    phases: updates, both replays, a phase superseded without done()."""
+    progress = __import__(f"{package}.progress", fromlist=["Progress"])
+    out = io.StringIO()
+    pr = progress.Progress(out, log_to_file)
+    pr.init("Reading sequences: ", 1_000)
+    for k in range(0, 1_000, 7):
+        pr.update(k)
+    pr.done()
+    pr.init("Find qgram vects: ", 450)
+    progress.replay_range(pr, 450)
+    pr.done()
+    pr.init("Collecting seeds:    ", 300)
+    progress.replay_values(pr, np.arange(0, 300, 3))
+    pr.init("Sorting seeds:    ", 5)
+    pr.done()
+    return out.getvalue()
+
+
+def _progress_writes_the_originals():
+    for log_to_file in (False, True):
+        assert _progress_writes("swarm_tpu_torch", log_to_file) == \
+            _progress_writes("swarm_tpu", log_to_file)
+
+
+def _metrics_count_the_originals():
+    counts = []
+    for package in ("swarm_tpu", "swarm_tpu_torch"):
+        metrics = __import__(f"{package}.metrics", fromlist=["record"])
+        metrics.reset()
+        metrics.record(d1_join_comparisons=5, graft_join_comparisons=2)
+        metrics.record(d1_join_comparisons=np.int64(3), d2_host_batches=1)
+        counts.append((dict(metrics.last_run), metrics.total_comparisons()))
+        metrics.reset()
+        assert metrics.last_run == {}
+    assert counts[0] == counts[1] == (
+        {"d1_join_comparisons": 8, "graft_join_comparisons": 2,
+         "d2_host_batches": 1}, 10)
+
+
+RECORD_LAYERS = {"progress": _progress_writes_the_originals,
+                 "metrics": _metrics_count_the_originals}
 
 
 def test_corpus_generators_equal_their_originals(tmp_path):

@@ -1,0 +1,251 @@
+"""The run's record (swarm_tpu_torch/metrics.py) on the CPU, with the
+d>=2 network engine forced (a 128-profile tile): the spans of the engine,
+the graph replay and the writers, nested under their parents inside the
+run; the progress phases, "Collecting seeds:" included; the counters;
+the SWARM_TPU_TRACE file; the ranges in a torch.profiler trace; and the
+benchmark's readers of them (swarmbench/metrics) on hand-built
+contexts."""
+
+import json
+import os
+import time
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from genfasta import amplicon_cloud
+from swarm_tpu_torch import metrics
+from swarm_tpu_torch.main import run
+from swarmbench.harness import metric_reader
+
+#: the spans of every network run, each with its parent
+ENGINE = {"d2_network.build": None,
+          "d2_network.screen": "d2_network.build",
+          "d2_network.to_host": "d2_network.build",
+          "d2_network.diffs": "d2_network.build",
+          "d2_network.csr": "d2_network.build",
+          "general.cluster_graph": None}
+#: each writer's option and span
+WRITERS = {"-i": "general.write_structure", "-u": "general.write_uclust",
+           "-s": "general.write_stats", "-o": "general.write_swarms",
+           "-w": "general.write_seeds"}
+SEED_PHASES = ("Collecting seeds:", "Sorting seeds:", "Writing seeds:")
+ALL_OUTPUTS = ["-o", "-s", "-i", "-u", "-w"]
+
+
+@pytest.fixture
+def corpus(tmp_path, monkeypatch):
+    for key in list(os.environ):
+        if key.startswith(("SWARM_TPU_", "SWARM_TORCH_")):
+            monkeypatch.delenv(key)
+    monkeypatch.setenv("SWARM_TPU_D2_ENGINE", "network")
+    monkeypatch.setenv("SWARM_TPU_D2_TILE", "128")
+    (tmp_path / "in.fasta").write_text(
+        amplicon_cloud(seed=41, n_centers=6, cloud_size=15, length=70))
+    return tmp_path
+
+
+def cluster(root, outputs=("-o",)):
+    """One in-process -d 2 run; (start, end) on perf_counter around it."""
+    argv = ["-d", "2", "-l", str(root / "log.txt")]
+    for flag in outputs:
+        argv += [flag, str(root / f"out{flag}")]
+    argv.append(str(root / "in.fasta"))
+    t0 = time.perf_counter()
+    assert run(argv, "swarm", device="cpu") == 0
+    return t0, time.perf_counter()
+
+
+def by_name():
+    return {s.name: s for s in metrics.spans}
+
+
+@pytest.mark.parametrize("outputs", [["-o"], ALL_OUTPUTS],
+                         ids=["o", "all"])
+def test_spans_once_a_run_nested_inside_the_run(corpus, outputs):
+    t0, t1 = cluster(corpus, outputs)
+    names = [s.name for s in metrics.spans]
+    want = {**ENGINE, **{WRITERS[f]: None for f in outputs}}
+    for name, parent in want.items():
+        assert names.count(name) == 1, name
+    for flag, name in WRITERS.items():
+        assert (name in names) == (flag in outputs), name
+    spans = by_name()
+    for s in metrics.spans:
+        assert t0 <= s.start <= s.end <= t1, s.name
+        assert s.run == metrics.run_id
+        if s.name in want:
+            assert s.parent == want[s.name], s.name
+        if s.parent is not None:
+            up = spans[s.parent]
+            assert up.start <= s.start <= s.end <= up.end, s.name
+
+
+def test_engine_steps_lie_within_the_build_in_order(corpus):
+    cluster(corpus)
+    spans = by_name()
+    build = spans["d2_network.build"]
+    steps = [spans[f"d2_network.{step}"]
+             for step in ("screen", "to_host", "diffs", "csr")]
+    at = build.start
+    for s in steps:
+        assert at <= s.start <= s.end
+        at = s.end
+    assert at <= build.end <= spans["general.cluster_graph"].start
+
+
+def test_collecting_seeds_ends_where_sorting_starts(corpus):
+    cluster(corpus, ["-o", "-w"])
+    spans = by_name()
+    for name in SEED_PHASES:
+        assert spans[name].parent == "general.write_seeds"
+    collecting, sorting = spans["Collecting seeds:"], spans["Sorting seeds:"]
+    assert collecting.end is not None
+    assert collecting.end <= sorting.start
+    # the log holds swarm's own lines: no "100%" after collecting
+    log = (corpus / "log.txt").read_text()
+    assert "Collecting seeds:    Sorting seeds:" in log
+
+
+def test_counters_repeat_and_a_raising_run_leaves_nothing(corpus,
+                                                          monkeypatch):
+    from swarm_tpu_torch.models import general
+
+    cluster(corpus)
+    first = dict(metrics.last_run)
+    names = [s.name for s in metrics.spans]
+    assert 0 < first["d2_network.edges"] <= first["d2_network.alignments"]
+    cluster(corpus)
+    assert metrics.last_run == first
+    assert [s.name for s in metrics.spans] == names
+
+    def raising(*args):
+        raise RuntimeError("a writer failed")
+
+    writer = general._write_d2_results
+    monkeypatch.setattr(general, "_write_d2_results", raising)
+    with pytest.raises(RuntimeError, match="a writer failed"):
+        cluster(corpus)
+    assert "d2_network.build" in by_name()
+    monkeypatch.setattr(general, "_write_d2_results", writer)
+    failed = metrics.run_id
+    cluster(corpus)
+    assert metrics.run_id == failed + 1
+    assert metrics.last_run == first
+    assert [s.name for s in metrics.spans] == names
+    assert {s.run for s in metrics.spans} == {metrics.run_id}
+
+
+def test_alignments_count_alike_on_both_diffs_paths(corpus, monkeypatch):
+    counts = []
+    for mode in ("native", "device"):
+        monkeypatch.setenv("SWARM_TPU_D2_DIFFS", mode)
+        cluster(corpus)
+        counts.append(dict(metrics.last_run))
+    assert counts[0] == counts[1]
+    assert counts[0]["d2_network.alignments"] > 0
+
+
+def test_trace_file_holds_the_record(corpus, monkeypatch):
+    path = corpus / "trace.json"
+    # set after the program was imported: read when the file is written
+    monkeypatch.setenv("SWARM_TPU_TRACE", str(path))
+    cluster(corpus, ALL_OUTPUTS)
+    data = json.loads(path.read_text())
+    events = data["traceEvents"]
+    assert all(e["ph"] == "X" and e["dur"] >= 0 and isinstance(e["ts"], int)
+               for e in events)
+    assert [e["name"] for e in events] == [s.name for s in metrics.spans]
+    assert {e["args"]["run"] for e in events} == {metrics.run_id}
+    assert [e["args"]["parent"] for e in events] == [
+        s.parent for s in metrics.spans]
+    assert data["counters"] == metrics.last_run
+    assert data["counters"]["d2_network.edges"] > 0
+
+
+def test_profiler_trace_holds_the_spans_as_ranges(corpus, tmp_path,
+                                                  monkeypatch):
+    # no profiler: no range is entered
+    entered = []
+    record_function = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function", entered.append)
+    cluster(corpus)
+    assert entered == []
+    monkeypatch.setattr(torch.profiler, "record_function", record_function)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        cluster(corpus, ["-o", "-w"])
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    ranges = {e["name"] for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "user_annotation"}
+    assert {s.name for s in metrics.spans} <= ranges
+    assert set(ENGINE) | {"general.write_seeds", *SEED_PHASES} <= ranges
+
+
+# ---- the benchmark's readers of the record ------------------------------
+
+SPAN_READERS = {"d2_network.screen_s": ("d2_network.screen",),
+                "d2_network.to_host_s": ("d2_network.to_host",),
+                "d2_network.diffs_s": ("d2_network.diffs",),
+                "d2_network.csr_s": ("d2_network.csr",),
+                "general.cluster_graph_s": ("general.cluster_graph",),
+                "general.writers_s": tuple(WRITERS.values())}
+
+
+def _ctx(runs):
+    return {"runs": [r for r in runs if not r.failed], "attempted": runs}
+
+
+def _run_of(phases, failed=False):
+    return SimpleNamespace(phases=phases, failed=failed)
+
+
+@pytest.mark.parametrize("metric", sorted(SPAN_READERS))
+def test_span_readers_on_a_hand_built_context(metric):
+    read = metric_reader(metric)
+    names = SPAN_READERS[metric]
+    # two runs: each of the metric's spans lasts 0.5 s in the first and
+    # 1.5 s in the second, beside spans the metric does not read
+    runs = [_run_of([(n, 10.0 + k, 10.0 + k + w) for k, n in enumerate(names)]
+                    + [("Reading sequences:", 1.0, 9.0)])
+            for w in (0.5, 1.5)]
+    assert read(_ctx(runs)) == pytest.approx(len(names) * 1.0)
+    assert read(_ctx([_run_of([]), _run_of([])])) is None
+    assert read(_ctx([_run_of([("Reading sequences:", 1.0, 9.0)])])) is None
+
+
+def test_accept_pct_reads_the_last_runs_counters(monkeypatch):
+    read = metric_reader("d2_network.accept_pct")
+    monkeypatch.setattr(metrics, "last_run", {
+        "d2_network.alignments": 400, "d2_network.edges": 300,
+        "alignment_comparisons": 250})
+    ok = [_run_of([]), _run_of([])]
+    assert read(_ctx(ok)) == pytest.approx(75.0)
+    assert read(_ctx(ok + [_run_of([], failed=True)])) is None
+    monkeypatch.setattr(metrics, "last_run", {"alignment_comparisons": 9})
+    assert read(_ctx(ok)) is None
+
+
+def test_readers_on_the_programs_own_file(corpus, monkeypatch):
+    """Two runs' files read as the harness reads them: every reader
+    finds its spans, and the engine's four steps fit in its build."""
+    path = corpus / "trace.json"
+    monkeypatch.setenv("SWARM_TPU_TRACE", str(path))
+    runs = []
+    for _ in range(2):
+        cluster(corpus, ALL_OUTPUTS)
+        events = json.loads(path.read_text())["traceEvents"]
+        runs.append(_run_of([(e["name"], e["ts"] / 1e6,
+                              (e["ts"] + e["dur"]) / 1e6) for e in events]))
+    ctx = _ctx(runs)
+    values = {m: metric_reader(m)(ctx) for m in
+              [*SPAN_READERS, "d2_network.accept_pct"]}
+    assert all(v is not None and v >= 0 for v in values.values()), values
+    assert 0 < values["d2_network.accept_pct"] <= 100
+    build = sum(t - s for r in runs for n, s, t in r.phases
+                if n == "d2_network.build") / len(runs)
+    steps = sum(values[f"d2_network.{step}_s"]
+                for step in ("screen", "to_host", "diffs", "csr"))
+    assert steps <= build + 4e-6
