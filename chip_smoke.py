@@ -43,6 +43,13 @@ final line:
    tiles; the extraction alone behind a busy kernel and as its wrapper's
    call reads, also on the dense words of two tiles of one repeated
    profile; ptxas' registers and spills of both);
+4b. kernel d2_csr (the network engine's CSR: the accepted diff tasks
+   stably partitioned by source) against its plain version on the card,
+   exactly, on CSR_CASES (one pass and several, n on both sides of a
+   digit boundary, a cloud of thousands, sparse sources) and on
+   synthetic tasks at the benchmark cells' edge counts, timed there
+   beside its bound, its plain version, torch.sort of the same keys and
+   the engine's readback of the CSR;
 5. the d=1 kernels d1_keygen (its count and pack pass, which packs the
    code arena into ragged rows, and its emit pass), d1_partition,
    d1_join and d1_verify against their plain versions on the card,
@@ -88,7 +95,7 @@ final line:
    n at d = 1), whose output files the run's must equal byte for byte:
    - d2_100k (99,831 amplicons of 142-158 nt) and d2_long (19,991 of
      ~400 nt): `swarm -d 2`, the network engine, kernels d2_screen,
-     d2_extract and d2_diffs;
+     d2_extract, d2_diffs and d2_csr;
    - d2_device (20,808 amplicons of ~400 nt in dense clouds): `swarm
      -d 2` under SWARM_TPU_D2_ENGINE=device, kernel banded_scores;
    - d2_wide (5,204 amplicons, `-d 5 -m 1 -p 20 -g 1 -e 1`, band 70):
@@ -157,7 +164,7 @@ To compare two versions of the port on one card, run each in turns:
 
     python3 chip_smoke.py --quick [--tree OTHER_CHECKOUT]
 
-runs only the timed kernel phases (2 to 6 at their timed shapes) and
+runs only the timed kernel phases (2 to 6 and 4b at their timed shapes) and
 the d2_100k, d2_device, d2_wide, d1_1m, d1_mixed_1m and
 d1_fastidious_200k main paths of the package under OTHER_CHECKOUT
 (default: this checkout), and ends with one JSON line
@@ -1806,6 +1813,129 @@ def phase_d2_screen(dev, corpus, work, edges):
     return {"d2_screen": screen, "d2_extract": extract}
 
 
+#: the CSR partition's timed inputs: (n, cloud) of screen_order_tasks
+#: giving about the benchmark cells' directed edges (3.4e7 at 500,000
+#: amplicons, d = 2; 3.9e7 at 300,000, d = 3); the tasks are synthetic
+#: clouds in the screen's order, not the cells' own
+CSR_TIMED = {"d2_150nt_500k": (500_000, 103), "d3_253nt_300k": (300_000, 195)}
+
+
+def csr_bytes(n_tasks, kept, n):
+    """Bytes the CSR partition's function needs: every task's int64
+    source and target and int32 diff read once, every kept task's int32
+    target and byte diff and the n + 1 int32 starts written once."""
+    return 20 * n_tasks + 5 * kept + 4 * (n + 1)
+
+
+def csr_readback_ms(got, reps=3):
+    """Host-clock milliseconds of the engine's readback of the CSR
+    (d2_network.csr_to_host), the first call's and the median of `reps`
+    more."""
+    import numpy as np
+    import torch
+
+    from swarm_tpu_torch.ops.d2_network import csr_to_host
+
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        csr_to_host(*got[:3])
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"first": times[0], "median": float(np.median(times[1:]))}
+
+
+def phase_d2_csr(dev, edges):
+    """d2_csr (the network engine's CSR partition) against its plain
+    version on the card, exactly (starts, targets, diffs, the check's
+    flag): with `edges` on CSR_CASES; then at the cells' edge counts
+    (CSR_TIMED), timed there: the wrapper's launches (CUDA events around
+    whole calls), its bound (the bytes its function needs over the
+    memory rate), the plain version on the card, torch.sort of the same
+    composite key (source << 32 | target) with the take of the diffs
+    (library_ms, which the port never calls), the engine's readback
+    (csr_readback_ms), and the peak of device memory.
+    Returns
+    {"d2_csr": row}."""
+    import torch
+
+    from swarm_tpu_torch.corpora import CSR_CASES, screen_order_tasks
+    from swarm_tpu_torch.ops import d2_network as d2n
+
+    def on(tasks, n):
+        return d2n.csr_partition(*(torch.from_numpy(x).to(dev)
+                                   for x in tasks), n)
+
+    def check(name, tasks, n):
+        got = on(tasks, n)
+        src, dst, diffs = (torch.from_numpy(x).to(dev) for x in tasks)
+        want = d2n.csr_partition_reference(src, dst, diffs, n)
+        if int(want[3]) or int(got[3]):
+            raise AssertionError(f"d2_csr {name}: the check flagged tasks "
+                                 f"in the screen's order")
+        for x, y in zip(got, want):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"d2_csr {name}: differs from the "
+                                     f"plain version")
+        return got
+
+    if edges:
+        for n, cloud, dense in CSR_CASES:
+            got = check(f"n{n}_cloud{cloud}_dense{dense}",
+                        screen_order_tasks(n, cloud, 21, T=128, dense=dense),
+                        n)
+            say(f"d2_csr n={n} cloud={cloud} dense={dense}: "
+                f"{got[1].numel()} edges equal to the plain version")
+    row = {"max_abs_err": 0}
+    for i, (cell, (n, cloud)) in enumerate(CSR_TIMED.items()):
+        t0 = time.perf_counter()
+        tasks = screen_order_tasks(n, cloud, 22 + i)
+        made_s = time.perf_counter() - t0
+        got = check(cell, tasks, n)
+        kept = got[1].numel()
+        src, dst, diffs = (torch.from_numpy(x).to(dev) for x in tasks)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = d2n.launches["d2_csr"]
+        ms = cuda_ms(lambda: d2n.csr_partition(src, dst, diffs, n), 5)
+        launches = (d2n.launches["d2_csr"] - before) // 6
+        peak = torch.cuda.max_memory_allocated() - base
+        plain_ms = cuda_ms(
+            lambda: d2n.csr_partition_reference(src, dst, diffs, n), 2)
+        keep = diffs >= 0
+        keys = (src[keep] << 32) | dst[keep]
+        kept_diffs = diffs[keep]
+
+        def library():
+            order = torch.sort(keys).indices
+            return torch.take(kept_diffs, order)
+
+        library_ms = cuda_ms(library, 3)
+        needed = csr_bytes(len(tasks[0]), kept, n)
+        bound_ms = needed / PEAK_BYTES_PER_S * 1e3
+        readback = csr_readback_ms(got)
+        entry = {
+            "n": n, "tasks": len(tasks[0]), "kept": kept,
+            "passes": len(d2n.csr_passes(n)), "launches": launches,
+            "ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bytes_needed": needed, "roofline_pct": 100 * bound_ms / ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "readback_ms": readback, "device_peak_bytes": peak,
+            "tasks_made_s": made_s}
+        say(f"d2_csr {cell}-sized: {json.dumps(entry)}")
+        if i == 0:
+            row.update(entry)
+            row["registers"] = {k: ptxas_report(k) for k in (
+                "d2_csr_count_kernel", "d2_csr_scatter_kernel",
+                "d2_csr_finish_kernel")}
+        else:
+            row[cell] = entry
+        del src, dst, diffs, keys, kept_diffs, got
+        torch.cuda.empty_cache()
+    return {"d2_csr": row}
+
+
 def run_cli(argv, workdir, env=None):
     """One CLI run of the port in `workdir` with the variables of `env`
     set; returns (seconds, [timing] lines)."""
@@ -2343,14 +2473,14 @@ print(json.dumps(chip_smoke.dispatch_diffs(
 def dispatch_diffs(dev, source, state, threads):
     """D2NetworkEngine.build_adjacency under the auto rule on the card,
     on one below and at its threshold of a corpus' own candidate pairs
-    (repeated to the count), with `threads` host threads: 1 reads
+    (filled with other distinct pairs to the count: pairs_to_count), with `threads` host threads: 1 reads
     DEVICE_DIFFS_MIN, more DEVICE_DIFFS_MIN_THREADED, "cold" (the
     d2_diffs kernel not yet launched in this process) their _COLD forms.
     The native diffs below, the d2_diffs kernel from the threshold up;
     the adjacency equal to the native diffs'."""
     import numpy as np
 
-    from swarm_tpu_torch.corpora import read_db
+    from swarm_tpu_torch.corpora import pairs_to_count, read_db
     from swarm_tpu_torch.ops import d2_diffs
     from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
 
@@ -2364,7 +2494,7 @@ def dispatch_diffs(dev, source, state, threads):
                  + ("_COLD" if state == "cold" else ""))
     rec = {"threshold": at, "points": {}}
     for k in (at - 1, at):
-        qa, qb = np.resize(pa, k), np.resize(pb, k)
+        qa, qb = pairs_to_count(pa, pb, eng.n, k)
         eng.candidate_pairs = lambda: (qa, qb, k)
         adj = {}
         for mode in ("auto", "native"):
@@ -2522,7 +2652,7 @@ D1_NATIVE = {"SWARM_TPU_D1_NATIVE_MAX": str(1 << 40)}
 #: insertion_run(length=LONG_RUN): 4,504 rows sharing one key, a bucket
 #: beyond the join kernel's shared-memory tile (its oversized variant)
 LONG_RUN = 1500
-D2_KERNELS = ("d2_screen", "d2_extract", "d2_diffs")
+D2_KERNELS = ("d2_screen", "d2_extract", "d2_diffs", "d2_csr")
 D1_KERNELS = ("d1_keygen", "d1_partition", "d1_join", "d1_verify")
 GRAFT_KERNELS = ("graft_keygen", "graft_join", "graft_verify")
 #: the native engines of -d 1 -f: the d=1 network and the host graft join
@@ -2645,6 +2775,7 @@ def run_quick(dev, work):
     rows = {"d2_diffs": phase_d2_diffs_at_scale(dev, corpus["d2_100k"])}
     rows.update(phase_nw_scores(dev, corpus["d2_device"]))
     rows.update(phase_d2_screen(dev, corpus, work, edges=False))
+    rows.update(phase_d2_csr(dev, edges=False))
     rows.update(phase_d1_kernels(dev, corpus, edges=False))
     rows.update(phase_graft_kernels(dev, corpus, work, edges=False))
     paths = {name: run_main_path(name, corpus, work) for name in QUICK_PATHS}
@@ -2666,6 +2797,7 @@ def run_phases(dev, work):
     rows["banded_scores"]["max_abs_err"] = max(
         rows["banded_scores"]["max_abs_err"], phase_banded_scores_edges(dev))
     rows.update(phase_d2_screen(dev, corpus, work, edges=True))
+    rows.update(phase_d2_csr(dev, edges=True))
     rows.update(phase_d1_kernels(dev, corpus, edges=True))
     rows.update(phase_graft_kernels(dev, corpus, work, edges=True))
 
@@ -2693,6 +2825,9 @@ def run_phases(dev, work):
                       "swarm_tpu/ops/d2_network.py:52"),
         "d2_extract": ("swarm_tpu_torch/csrc/d2_screen.cu",
                        "swarm_tpu/ops/d2_network.py:107"),
+        # no TPU kernel: the JAX engine sorts its edges on the host
+        "d2_csr": ("swarm_tpu_torch/csrc/d2_csr.cu",
+                   "none (np.lexsort, swarm_tpu/ops/d2_network.py:490)"),
         # the d=1 path's device work was XLA programs, not Pallas kernels
         "d1_keygen": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:142"),
         "d1_partition": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:484"),

@@ -31,7 +31,9 @@ The rules, each a constant of the port that picks the engine of a run:
   exact diffs from that many candidate pairs up, the native ones below.
   D2NetworkEngine.build_adjacency on that engine's own candidate pairs
   of gen_corpus(n=32,768, length=150 and 400) at d = 2 and 6, cut or
-  repeated to 512 to 65,536 pairs; SWARM_TPU_D2_DIFFS=device against
+  filled with other distinct pairs (corpora.pairs_to_count: the CSR the
+  card builds after its diffs takes no repeated pair) to 512 to 65,536
+  pairs; SWARM_TPU_D2_DIFFS=device against
   native; -t 1 and -t cores.
 - batch: DeviceAligner.MIN_DEVICE_BATCH (ops/search_torch.py): a seed's
   target list on the card from that length up. One seed's list of L =
@@ -306,9 +308,9 @@ class DiffsSetup:
     def call(self, side, size, threads):
         """One build_adjacency of `size` pairs on `side`: (seconds, the
         adjacency)."""
-        import numpy as np
+        from swarm_tpu_torch.corpora import pairs_to_count
 
-        pa, pb = np.resize(self.pa, size), np.resize(self.pb, size)
+        pa, pb = pairs_to_count(self.pa, self.pb, len(self.db), size)
         eng = self.eng
         eng.threads = threads
         eng.candidate_pairs = lambda: (pa, pb, size)

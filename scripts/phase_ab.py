@@ -2,7 +2,7 @@
 """One timed kernel phase of one checkout's own chip_smoke.py, so that
 two checkouts' kernels can be compared in one call:
 
-    python3 scripts/phase_ab.py --phase graft|screen --work DIR
+    python3 scripts/phase_ab.py --phase graft|screen|csr --work DIR
         [--tree CHECKOUT] [--edges] [--paths]
 
 imports the chip_smoke.py and swarm_tpu_torch of CHECKOUT (default: this
@@ -20,6 +20,16 @@ time is chip_smoke.py's own, read by the checkout's own code.
   by the checkout's network engine (their digest printed, so that two
   checkouts' inputs can be seen to agree), then algo_cluster_graph
   timed REPLAYS times on them.
+- csr: phase_d2_csr (the network engine's CSR partition at the
+  benchmark cells' edge counts; with --edges first on CSR_CASES); no
+  corpora. Then readbacks: the CSR at d2_150nt_500k's edge count read
+  back into int64 host arrays three ways, each from an empty pinned
+  cache: the engine's (d2_network.csr_to_host: pageable, 5 bytes an
+  edge, widened on the host), the same through pinned buffers from
+  torch's cache, and widened on the card into pinned int64 buffers that
+  the arrays stay views of; the first call's time (what a fresh process
+  pays), the median of three more, and the pinned bytes torch's cache
+  holds while the arrays live and after they are dropped.
 
 Prints the phase's lines and one JSON line {"ab": {card, tree, phase,
 kernels, ...}}. Run two checkouts in turns inside one call (A, B, B,
@@ -38,7 +48,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 CELLS = {"graft": ("d1_fastidious_200k", "d1_fastidious_asym_200k"),
-         "screen": ("d2_100k", "d2_long", "d1_1m")}
+         "screen": ("d2_100k", "d2_long", "d1_1m"), "csr": ()}
 PATHS = ("d2_100k", "d2_long")
 REPLAYS = 2
 
@@ -99,6 +109,68 @@ def graph_replay(dev, fasta):
     return {"candidates_digest": h.hexdigest(), "seconds": seconds}
 
 
+def readbacks(cs, dev, reps=3):
+    """The CSR readback comparison of the csr phase (module docstring)."""
+    import numpy as np
+    import torch
+
+    from swarm_tpu_torch.corpora import screen_order_tasks
+    from swarm_tpu_torch.ops import d2_network as d2n
+
+    empty_host = getattr(getattr(torch, "accelerator", None),
+                         "empty_host_cache", None) or \
+        getattr(torch._C, "_host_emptyCache", None)
+
+    def pinned_bytes():
+        stats = torch.cuda.host_memory_stats() if hasattr(
+            torch.cuda, "host_memory_stats") else {}
+        return stats.get("allocated_bytes.current")
+
+    def engine(arrays):
+        return d2n.csr_to_host(*arrays)
+
+    def pinned_narrow(arrays):
+        out = []
+        for t in arrays:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t)
+            out.append(buf.to(torch.int64).numpy())
+        return out
+
+    def pinned_wide(arrays):
+        out = []
+        for t in arrays:
+            buf = torch.empty(t.shape, dtype=torch.int64, pin_memory=True)
+            buf.copy_(t.long())
+            out.append(buf.numpy())
+        return out
+
+    n, cloud = cs.CSR_TIMED["d2_150nt_500k"]
+    tasks = screen_order_tasks(n, cloud, 22)
+    got = d2n.csr_partition(*(torch.from_numpy(x).to(dev) for x in tasks),
+                            n)
+    arrays = got[:3]
+    out = {"edges": got[1].numel(), "host_cache_emptied": bool(empty_host)}
+    for fn in (engine, pinned_narrow, pinned_wide):
+        if empty_host:
+            empty_host()
+        times, held = [], None
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kept = fn(arrays)
+            times.append((time.perf_counter() - t0) * 1e3)
+            held = pinned_bytes()
+            del kept
+        out[fn.__name__] = {"first_ms": times[0],
+                            "median_ms": float(np.median(times[1:])),
+                            "pinned_bytes_live": held,
+                            "pinned_bytes_after": pinned_bytes()}
+        print(f"readback {fn.__name__}: {json.dumps(out[fn.__name__])}",
+              flush=True)
+    return out
+
+
 def screen(cs, dev, corpus, work, edges, paths):
     out = {"kernels": cs.phase_d2_screen(dev, corpus, work, edges=edges)}
     if paths:
@@ -149,6 +221,9 @@ def main():
                                  dir=args.work.resolve()))
     if args.phase == "graft":
         result = graft(cs, dev, corpus, work, args.edges)
+    elif args.phase == "csr":
+        result = {"kernels": cs.phase_d2_csr(dev, args.edges),
+                  "readbacks": readbacks(cs, dev)}
     else:
         result = screen(cs, dev, corpus, work, args.edges, args.paths)
     print(json.dumps({"ab": {"card": card, "tree": str(tree),

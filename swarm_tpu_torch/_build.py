@@ -127,6 +127,14 @@ def load() -> ctypes.CDLL:
             lib.swarm_d2_extract.argtypes = [
                 vp, vp, vp, vp, vp, i64, i32, i64, vp, vp, vp]
             lib.swarm_d2_extract.restype = i32
+            lib.swarm_d2_csr_tile.argtypes = []
+            lib.swarm_d2_csr_count.argtypes = [
+                vp, vp, i64, i32, i32, i32, vp, vp]
+            lib.swarm_d2_csr_scatter.argtypes = [
+                vp, vp, vp, i64, i64, i32, i32, i32, vp, vp, vp, vp, vp, vp]
+            lib.swarm_d2_csr_finish.argtypes = [vp, vp, i64, i64, vp, vp, vp]
+            for fn in ("tile", "count", "scatter", "finish"):
+                getattr(lib, f"swarm_d2_csr_{fn}").restype = i32
             lib.swarm_d1_keygen_count.argtypes = [
                 vp, i64, vp, vp, vp, i64, vp, i64, vp, vp]
             lib.swarm_d1_keygen_emit.argtypes = [

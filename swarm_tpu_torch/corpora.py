@@ -36,6 +36,13 @@ run on the card and a run on the CPU see the same sequences.
   low-abundance satellites 2 and 3 edits from a cloud member, the light
   swarms of a `-f` run: the d1_fastidious_200k (balanced) and
   d1_fastidious_asym_200k (a few thousand light amplicons) corpora.
+- ``screen_order_tasks``, ``CSR_CASES``: directed diff tasks of
+  amplicons in clouds, laid out as the network engine hands them to the
+  CSR partition (the screen's step order, reverse block first), for the
+  partition kernels at the cells' edge counts, with one dense cloud, and
+  at n on the edges of its digits.
+- ``pairs_to_count``: a corpus' candidate pairs cut or filled with
+  other distinct pairs to a count, for the dispatch of the exact diffs.
 - ``read_db``, ``make_db``: a corpus as a Db, read back through db_read;
   ``record_index``: where each of its amplicons came from.
 """
@@ -663,6 +670,79 @@ def screen_edge_rows(seed, n, d, length=60):
                     v = np.insert(v, pos, rng.integers(0, 4))
             rows.append(v.astype(np.uint8))
     return [rows[i] for i in rng.permutation(n)]
+
+
+def screen_order_tasks(n, cloud, seed, T=4096, dense=0, d=2):
+    """(tq, td, diffs): int64, int64 and int32 arrays of directed diff
+    tasks as DeviceDiffEngine.diff_tasks lays them out, reverse block
+    first, each block in the screen's (tile step, row, column) order.
+    The n amplicon ids fall into clouds of `cloud` on average (ids drawn
+    at random, as an abundance order scatters a cloud), plus one cloud of
+    `dense` ids (0: none); every two ids of a cloud are a pair; the
+    directions follow the abundance rule on abundances 1-3 (most pairs
+    tie, so both directions run); a task's diff is 0..d, -1 (rejected)
+    for 1% of them."""
+    rng = np.random.default_rng(seed)
+    label = rng.integers(0, max(n // max(cloud, 1), 1), size=n)
+    if dense:
+        label[rng.choice(n, size=min(dense, n), replace=False)] = -1
+    order = np.argsort(label, kind="stable")
+    lab = label[order]
+    pa, pb = [], []
+    for k in range(1, n):
+        same = lab[k:] == lab[:-k]
+        if not same.any():
+            break
+        i = np.flatnonzero(same)
+        pa.append(order[i])
+        pb.append(order[i + k])
+    pa = np.concatenate(pa) if pa else np.zeros(0, dtype=np.int64)
+    pb = np.concatenate(pb) if pb else np.zeros(0, dtype=np.int64)
+    pa, pb = np.minimum(pa, pb).astype(np.int64), np.maximum(pa, pb).astype(
+        np.int64)
+    step = np.lexsort((pb, pa, pb // T, pa // T))  # steps I, then J
+    pa, pb = pa[step], pb[step]
+    ab = rng.integers(1, 4, size=n)
+    need_ab, need_ba = ab[pa] >= ab[pb], ab[pb] >= ab[pa]
+    tq = np.concatenate([pb[need_ba], pa[need_ab]])
+    td = np.concatenate([pa[need_ba], pb[need_ab]])
+    diffs = rng.integers(0, d + 1, size=len(tq)).astype(np.int32)
+    diffs[rng.random(len(tq)) < 0.01] = -1
+    return tq, td, diffs
+
+
+def pairs_to_count(pa, pb, n, k):
+    """k distinct pairs (a < b) of n amplicons for the network engine's
+    dispatch at a pair count: the first k of the candidate pairs (pa,
+    pb) where there are as many; else all of them and the first pairs
+    in (a, b) order that are not among them, the lot in (a, b) order.
+    Either is an order the engine's CSR takes (each pair once, a
+    source's targets ascending in both directions); pairs repeated to
+    the count are not."""
+    pa, pb = np.asarray(pa, dtype=np.int64), np.asarray(pb, dtype=np.int64)
+    if k <= len(pa):
+        return pa[:k], pb[:k]
+    if k > n * (n - 1) // 2:
+        raise ValueError(f"{n} amplicons have fewer than {k} pairs")
+    have = pa * n + pb
+    keys = [have]
+    need, a = k - len(pa), 0
+    while need:
+        row = a * n + np.arange(a + 1, n, dtype=np.int64)
+        row = row[~np.isin(row, have)][:need]
+        keys.append(row)
+        need -= len(row)
+        a += 1
+    keys = np.sort(np.concatenate(keys))
+    return keys // n, keys % n
+
+
+#: (n, cloud, dense) of the partition's cases: digits of one and of
+#: several passes, n just below and above a digit boundary (2^8, 2^16),
+#: a cloud of thousands (sources with thousands of edges), and pairs so
+#: sparse that most sources have no edge
+CSR_CASES = [(300, 12, 0), (256, 40, 0), (257, 40, 0), (65_536, 30, 0),
+             (65_537, 30, 0), (20_000, 20, 3_000), (5_000, 1, 0)]
 
 
 def insertion_run(seed=20260822, length=40):

@@ -22,7 +22,9 @@ Counters, summed over the run:
    - d>=2: qgram screen evaluations (gen-1 pool scan + subseed scans)
      plus exact alignments;
  - the d>=2 network engine's ``d2_network.alignments`` (directed exact
-   alignments run) and ``d2_network.edges`` (directed edges accepted).
+   alignments run), ``d2_network.edges`` (directed edges accepted) and
+   ``d2_network.csr_device_edges`` (those partitioned into the CSR on
+   the engine's device; 0 where the native host diffs ran).
 
 dump() writes the record to the file $SWARM_TPU_TRACE names (read when
 it writes), in the chrome trace-event format (chrome://tracing,

@@ -12,7 +12,10 @@ result equals _native.d2_diffs_pairs.
 - ``d2_diffs``: the wrapper. A CPU tensor goes to the reference; a CUDA
   tensor launches the hand-written kernel (csrc/d2_diffs.cu) or raises.
 - ``DeviceDiffEngine``: keeps the code rows on a device and answers
-  ``diffs_pairs`` with the contract of _native.d2_diffs_pairs.
+  ``diff_tasks``: the directed tasks of the pairs and their diffs, left
+  on the device.
+- ``native_tasks``: the same tasks and diffs from the native host kernel
+  (_native.d2_diffs_pairs), as CPU tensors.
 """
 
 import numpy as np
@@ -192,14 +195,41 @@ def directions(abundances, pa, pb, no_break):
     return ab[pa] >= ab[pb], ab[pb] >= ab[pa]
 
 
+def task_layout(pa, pb, need_ab, need_ba):
+    """(tq, td) int64 arrays: the directed tasks of the admitted
+    directions of the pairs (pa, pb), reverse block first: tq =
+    [pb[need_ba], pa[need_ab]], td = [pa[need_ba], pb[need_ab]]. The
+    diffs kernel does not care about the order; the network engine's CSR
+    (d2_network.csr_partition) needs it."""
+    tq = np.concatenate([pb[need_ba], pa[need_ab]]).astype(np.int64)
+    td = np.concatenate([pa[need_ba], pb[need_ab]]).astype(np.int64)
+    return tq, td
+
+
+def native_tasks(db, pa, pb, d, mismatch, go, ge, no_break, nthreads=1):
+    """DeviceDiffEngine.diff_tasks' (tq, td, diffs) as CPU tensors, the
+    diffs from the native host kernel (_native.d2_diffs_pairs on
+    `nthreads` threads)."""
+    from .. import _native
+
+    need_ab, need_ba = directions(db.abundances, pa, pb, no_break)
+    tq, td = task_layout(pa, pb, need_ab, need_ba)
+    metrics.record(**{"d2_network.alignments": len(tq)})
+    diff_ab, diff_ba = _native.d2_diffs_pairs(
+        db.codes, db.offsets, db.lengths, db.abundances, pa, pb, d,
+        mismatch, go, ge, no_break, nthreads=nthreads)
+    diffs = np.concatenate([diff_ba[need_ba], diff_ab[need_ab]])
+    return (torch.from_numpy(tq), torch.from_numpy(td),
+            torch.from_numpy(diffs.astype(np.int32)))
+
+
 class DeviceDiffEngine:
     """Directed diff tasks through d2_diffs on one device.
 
     Construction uploads the padded code rows once, at a row stride of
     a multiple of 16 bytes (`rows` is the [n, Lmax] view of it, so the
-    plain version sees the same matrix as before); diffs_pairs()
-    mirrors the contract of _native.d2_diffs_pairs (diff_ab/diff_ba
-    with -1 for skipped directions and rejections).
+    plain version sees the same matrix as before); diff_tasks() leaves
+    the tasks and their diffs on the device.
     """
 
     def __init__(self, db, d: int, device: torch.device):
@@ -223,25 +253,17 @@ class DeviceDiffEngine:
         B = -(-need // ge)
         return max(B, 1)
 
-    def diffs_pairs(self, pa, pb, mismatch, go, ge, no_break):
-        """(diff_ab, diff_ba) int64 arrays, -1 = skipped/rejected."""
-        P = len(pa)
+    def diff_tasks(self, pa, pb, mismatch, go, ge, no_break):
+        """(tq, td, diffs) on the device: the directed tasks of the pairs
+        (pa, pb) that the abundance rule admits, int64, in task_layout's
+        order, and their diffs, int32 (-1 = rejected)."""
         cutoff = self.d * max(mismatch, go + ge)
         B = self.band_for_exact(cutoff, go, ge)
         need_ab, need_ba = directions(self.abundances, pa, pb, no_break)
-        tq = np.concatenate([pa[need_ab], pb[need_ba]]).astype(np.int64)
-        td = np.concatenate([pb[need_ab], pa[need_ba]]).astype(np.int64)
-        n_ab = int(need_ab.sum())
+        tq, td = task_layout(pa, pb, need_ab, need_ba)
         metrics.record(**{"d2_network.alignments": len(tq)})
-        diffs = d2_diffs(
-            self.rows, self.lens,
-            torch.from_numpy(tq).to(self.device),
-            torch.from_numpy(td).to(self.device),
-            B, int(mismatch), int(go), int(ge), self.d,
-        )
-        out = diffs.cpu().numpy().astype(np.int64)
-        diff_ab = np.full(P, -1, dtype=np.int64)
-        diff_ba = np.full(P, -1, dtype=np.int64)
-        diff_ab[need_ab] = out[:n_ab]
-        diff_ba[need_ba] = out[n_ab:]
-        return diff_ab, diff_ba
+        tq = torch.from_numpy(tq).to(self.device)
+        td = torch.from_numpy(td).to(self.device)
+        diffs = d2_diffs(self.rows, self.lens, tq, td, B, int(mismatch),
+                         int(go), int(ge), self.d)
+        return tq, td, diffs

@@ -26,12 +26,22 @@ raises; on a CPU tensor it runs its plain version
 (``screen_words_reference``, ``extract_pairs_reference``), which unpacks
 the profiles to +-1 int8 only where it needs them.
 
+The directed CSR is a stable partition of the accepted diff tasks by
+source (``csr_partition``), made where the tasks lie: on the engine's
+device where the exact diffs ran there (csrc/d2_csr.cu on a CUDA
+device), then read back once; on the host, by its plain version
+``csr_partition_reference``, where the native host diffs ran.
+
 ``D2NetworkEngine.build_adjacency`` is the run's span ``d2_network.build``
 (metrics.py), its steps the spans ``d2_network.screen`` (the chunk loop),
 ``.to_host`` (the pairs' copy to the host), ``.diffs`` (the exact diffs)
-and ``.csr`` (the edge sort and CSR on the host); it counts the directed
-alignments the exact diffs run (``d2_network.alignments``) and the edges
-they accept (``d2_network.edges``). No step synchronises the device.
+and ``.csr`` (the CSR: the partition, its check and, from the device,
+the readback); it counts the directed alignments the exact diffs run
+(``d2_network.alignments``), the edges they accept
+(``d2_network.edges``) and of those the edges partitioned on the
+engine's device (``d2_network.csr_device_edges``, 0 where the native
+host diffs ran). No step synchronises the device before the CSR's
+readback.
 """
 
 import os
@@ -45,7 +55,9 @@ PROFILE_BYTES = 128  # 1024-bit qgram parity vector
 PROFILE_BITS = 1024
 
 #: kernel launches made by the wrappers (CUDA tensors only)
-launches = {"d2_screen": 0, "d2_extract": 0}
+launches = {"d2_screen": 0, "d2_extract": 0, "d2_csr": 0}
+#: the CSR partition's passes take at most this many bits of the source
+CSR_DIGIT_BITS = 8
 
 
 def _unpack_pm1(prof_bytes):
@@ -234,6 +246,121 @@ def pairs_to_host(ga, gb, n):
     return pa, pb
 
 
+def csr_passes(n):
+    """[(shift, width)] of the CSR partition's passes over source ids
+    below n: the fewest of at most CSR_DIGIT_BITS bits, the low digit
+    first, widths within one of each other."""
+    bits = max((n - 1).bit_length(), 1)
+    k = -(-bits // CSR_DIGIT_BITS)
+    widths = [bits // k + (i < bits % k) for i in range(k)]
+    return [(sum(widths[:i]), w) for i, w in enumerate(widths)]
+
+
+def csr_partition_reference(src, dst, diff, n):
+    """The plain version of csr_partition: the kept tasks ordered by
+    torch.argsort(src, stable=True)."""
+    keep = diff >= 0
+    s, t, df = src[keep], dst[keep], diff[keep]
+    bad = ((s < 0) | (s >= n) | (t < 0) | (t >= n) | (df > 255)).any()
+    order = torch.argsort(s, stable=True)
+    s, t, df = s[order], t[order], df[order]
+    bad |= ((s[1:] == s[:-1]) & (t[1:] <= t[:-1])).any()
+    starts = torch.searchsorted(
+        s, torch.arange(n + 1, dtype=s.dtype, device=s.device))
+    return (starts.to(torch.int32), t.to(torch.int32), df.to(torch.uint8),
+            bad.to(torch.int32).reshape(1))
+
+
+def _csr_launch(err):
+    if err != 0:
+        raise RuntimeError(f"d2_csr kernel launch failed: CUDA error {err}")
+    launches["d2_csr"] += 1
+
+
+def csr_partition(src, dst, diff, n):
+    """(starts, adj_to, adj_diff, bad) of the directed tasks (src, dst),
+    [N] int64 ids below n, and their diffs, [N] int32, -1 = rejected:
+    the kept tasks stably partitioned by source, their targets adj_to
+    ([m] int32) and diffs adj_diff ([m] uint8) in that order; starts
+    ([n + 1] int32) the kept tasks with a source below s, s = 0..n; bad
+    ([1] int32) nonzero where a source or target lies outside [0, n), a
+    kept diff above 255, or a source's targets do not strictly ascend.
+    The CSR is exact only where the tasks come in the screen's order,
+    reverse block first (csrc/d2_csr.cu); `bad` says where they did not.
+    A CUDA tensor launches csrc/d2_csr.cu's kernels: a count and a
+    scatter a pass (csr_passes; the first pass drops the rejected tasks
+    and reads the count of the kept ones back), then the finish kernel;
+    a CPU tensor takes csr_partition_reference."""
+    if src.dim() != 1 or src.dtype != torch.int64 or \
+            dst.dtype != torch.int64 or diff.dtype != torch.int32 or \
+            dst.shape != src.shape or diff.shape != src.shape:
+        raise ValueError("tasks must be [N] int64 and diffs [N] int32")
+    if len({t.device for t in (src, dst, diff)}) != 1:
+        raise ValueError("tasks and diffs must share a device")
+    if src.device.type == "cpu":
+        return csr_partition_reference(src, dst, diff, n)
+    if src.device.type != "cuda":
+        raise ValueError(f"no d2_csr kernel for device {src.device}")
+    N = src.numel()
+    if N >= 1 << 31 or n >= 1 << 31:
+        raise ValueError("the CSR partition takes fewer than 2^31 tasks")
+    from .._build import load
+
+    lib = load()
+    dev = src.device
+    src, dst, diff = (t.contiguous() for t in (src, dst, diff))
+    bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    empty = (torch.zeros(n + 1, dtype=torch.int32, device=dev),
+             torch.zeros(0, dtype=torch.int32, device=dev),
+             torch.zeros(0, dtype=torch.uint8, device=dev), bad)
+    if N == 0:
+        return empty
+    tile = lib.swarm_d2_csr_tile()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cur, m = (src, dst, diff), N
+    with torch.cuda.device(dev):
+        for k, (shift, width) in enumerate(csr_passes(n)):
+            n_tiles = -(-m // tile)
+            counts = torch.empty((1 << width) * n_tiles, dtype=torch.int32,
+                                 device=dev)
+            _csr_launch(lib.swarm_d2_csr_count(
+                cur[0].data_ptr(), cur[2].data_ptr(), m, int(k == 0), shift,
+                width, counts.data_ptr(), stream))
+            ends = torch.cumsum(counts, dim=0, dtype=torch.int32)
+            del counts
+            if k == 0:  # the kept tasks, the rest of the passes' size
+                kept = int(ends[-1])
+                if kept == 0:
+                    return empty
+                bufs = [(torch.empty(kept, dtype=torch.int32, device=dev),
+                         torch.empty(kept, dtype=torch.int32, device=dev),
+                         torch.empty(kept, dtype=torch.uint8, device=dev))
+                        for _ in range(2)]
+            out = bufs[k % 2]
+            _csr_launch(lib.swarm_d2_csr_scatter(
+                cur[0].data_ptr(), cur[1].data_ptr(), cur[2].data_ptr(), m,
+                n, int(k == 0), shift, width, ends.data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                bad.data_ptr(), stream))
+            cur, m = out, kept
+        starts = torch.empty(n + 1, dtype=torch.int32, device=dev)
+        _csr_launch(lib.swarm_d2_csr_finish(
+            cur[0].data_ptr(), cur[1].data_ptr(), m, n, starts.data_ptr(),
+            bad.data_ptr(), stream))
+    return starts, cur[1], cur[2], bad
+
+
+def csr_to_host(starts, adj_to, adj_diff):
+    """(adj_start, adj_count, adj_to, adj_diff) int64 host arrays of
+    csr_partition's starts, targets and diffs: read back as they are
+    (int32, int32 and bytes: 5 bytes an edge) into pageable memory and
+    widened there on torch's threads. No pinned buffer outlives the call
+    (PERF.md §6)."""
+    starts, adj_to, adj_diff = (t.cpu().to(torch.int64).numpy()
+                                for t in (starts, adj_to, adj_diff))
+    return starts[:-1], np.diff(starts), adj_to, adj_diff
+
+
 def tile_steps(n_tiles):
     """(tis, tjs) int32 arrays of the tile-pair steps I <= J, in JAX's
     order (I ascending, then J)."""
@@ -329,7 +456,10 @@ class D2NetworkEngine:
     def build_adjacency(self, mismatch, gapopen, gapextend, no_break):
         """Directed CSR adjacency (adj_start, adj_count, adj_to,
         adj_diff) of exact accepted edges, targets ascending, plus the
-        screened-candidate count and the survivor count."""
+        screened-candidate count and the survivor count. The CSR is
+        built where the exact diffs ran (csr_partition)."""
+        from . import d2_diffs
+
         with metrics.span("d2_network.build"):
             if self.shards is not None:
                 pa, pb, n_screened = self.candidate_pairs_sharded(
@@ -337,21 +467,26 @@ class D2NetworkEngine:
             else:
                 pa, pb, n_screened = self.candidate_pairs()
             with metrics.span("d2_network.diffs"):
-                diff_ab, diff_ba = self._diffs(
-                    pa, pb, mismatch, gapopen, gapextend, no_break)
+                on_device = self._device_diffs(len(pa))
+                if on_device:
+                    tasks = self._diff_engine.diff_tasks(
+                        pa, pb, mismatch, gapopen, gapextend, no_break)
+                else:
+                    tasks = d2_diffs.native_tasks(
+                        self.db, pa, pb, self.d, mismatch, gapopen,
+                        gapextend, no_break, nthreads=self.threads)
             with metrics.span("d2_network.csr"):
-                adj = self._csr(pa, pb, diff_ab, diff_ba)
+                adj = self._csr(*tasks, on_device)
         return (*adj, n_screened, len(pa))
 
-    def _diffs(self, pa, pb, mismatch, gapopen, gapextend, no_break):
-        """(diff_ab, diff_ba) of every pair: the device kernel once the
-        pair count amortizes its launch, and its first use before it has
+    def _device_diffs(self, n_pairs):
+        """Whether the exact diffs of n_pairs pairs run on the device (its
+        DeviceDiffEngine made on first use): once the pair count
+        amortizes the kernel's launch, and its first use before it has
         run in this process; SWARM_TPU_D2_DIFFS=native|device
         overrides."""
-        from .. import _native
         from . import d2_diffs
 
-        db = self.db
         mode = os.environ.get("SWARM_TPU_D2_DIFFS", "auto")
         if self.threads == 1:
             at = self.DEVICE_DIFFS_MIN if d2_diffs.warm else \
@@ -360,41 +495,28 @@ class D2NetworkEngine:
             at = self.DEVICE_DIFFS_MIN_THREADED if d2_diffs.warm else \
                 self.DEVICE_DIFFS_MIN_THREADED_COLD
         use_device = mode == "device" or (
-            mode == "auto" and len(pa) >= at and self.device.type == "cuda"
+            mode == "auto" and n_pairs >= at and self.device.type == "cuda"
         )
-        if use_device:
-            if not hasattr(self, "_diff_engine"):
-                self._diff_engine = d2_diffs.DeviceDiffEngine(
-                    db, self.d, self.device)
-            return self._diff_engine.diffs_pairs(
-                pa, pb, mismatch, gapopen, gapextend, no_break,
-            )
-        need_ab, need_ba = d2_diffs.directions(db.abundances, pa, pb,
-                                               no_break)
-        metrics.record(**{"d2_network.alignments":
-                          np.count_nonzero(need_ab)
-                          + np.count_nonzero(need_ba)})
-        return _native.d2_diffs_pairs(
-            db.codes, db.offsets, db.lengths, db.abundances, pa, pb,
-            self.d, mismatch, gapopen, gapextend, no_break,
-            nthreads=self.threads,
-        )
+        if use_device and not hasattr(self, "_diff_engine"):
+            self._diff_engine = d2_diffs.DeviceDiffEngine(
+                self.db, self.d, self.device)
+        return use_device
 
-    def _csr(self, pa, pb, diff_ab, diff_ba):
+    def _csr(self, tq, td, diffs, on_device):
         """(adj_start, adj_count, adj_to, adj_diff) of the accepted
-        directed edges, sources ascending, then targets."""
-        keep_ab = diff_ab >= 0
-        keep_ba = diff_ba >= 0
-        ef = np.concatenate([pa[keep_ab], pb[keep_ba]])
-        et = np.concatenate([pb[keep_ab], pa[keep_ba]])
-        ediff = np.concatenate([diff_ab[keep_ab], diff_ba[keep_ba]])
-        order = np.lexsort((et, ef))
-        ef, et, ediff = ef[order], et[order], ediff[order]
-        n = self.n
-        adj_count = np.bincount(ef, minlength=n).astype(np.int64) if n else \
-            np.zeros(0, dtype=np.int64)
-        adj_start = np.zeros(n, dtype=np.int64)
-        if n:
-            np.cumsum(adj_count[:-1], out=adj_start[1:])
-        metrics.record(**{"d2_network.edges": len(et)})
-        return adj_start, adj_count, et, ediff
+        directed edges, sources ascending, then targets, int64 host
+        arrays: csr_partition of the tasks (diff_tasks' where on_device,
+        else native_tasks'), on their device, read back once. Raises
+        where its check failed: the tasks did not come in the screen's
+        order, so the partition would not be the sorted CSR."""
+        starts, adj_to, adj_diff, bad = csr_partition(tq, td, diffs, self.n)
+        if int(bad):
+            raise AssertionError(
+                "d2 CSR check failed: the tasks are out of the screen's "
+                "step order or out of range, so the partition is not the "
+                "sorted CSR")
+        adj = csr_to_host(starts, adj_to, adj_diff)
+        metrics.record(**{
+            "d2_network.edges": len(adj[2]),
+            "d2_network.csr_device_edges": len(adj[2]) if on_device else 0})
+        return adj

@@ -14,6 +14,7 @@ from swarm_tpu_torch import _native
 from swarm_tpu_torch.corpora import (
     D2_DIFFS_BAND_CASES,
     D2_DIFFS_KERNEL_CASES,
+    CSR_CASES,
     SCREEN_CASES,
     SCREEN_EDGE_CASES,
     band_edge_cases,
@@ -33,6 +34,7 @@ from swarm_tpu_torch.corpora import (
     rows_records,
     score_edge_cases,
     screen_edge_rows,
+    screen_order_tasks,
 )
 from swarm_tpu_torch.ops import d2_diffs as torch_diffs
 from swarm_tpu_torch.ops import d2_network as d2n
@@ -113,12 +115,13 @@ def test_d2_diffs_engine_matches_native_on_card(tmp_path, cuda_device):
     pa, pb = pa.astype(np.int64), pb.astype(np.int64)
     eng = DeviceDiffEngine(db, d, cuda_device)
     for no_break in (False, True):
-        want = _native.d2_diffs_pairs(
-            db.codes, db.offsets, db.lengths, db.abundances, pa, pb,
-            d, mismatch, go, ge, no_break, nthreads=1)
-        got = eng.diffs_pairs(pa, pb, mismatch, go, ge, no_break)
+        want = torch_diffs.native_tasks(db, pa, pb, d, mismatch, go, ge,
+                                        no_break)
+        got = eng.diff_tasks(pa, pb, mismatch, go, ge, no_break)
+        assert (want[2] >= 0).any() and (want[2] < 0).any()
         for x, y in zip(got, want):
-            np.testing.assert_array_equal(x, y)
+            assert x.is_cuda
+            assert x.dtype == y.dtype and torch.equal(x.cpu(), y)
 
 
 def test_screen_on_card_matches_cpu(tmp_path, cuda_device, monkeypatch):
@@ -148,7 +151,8 @@ def _screen_kernels_agree(prof, lengths, tis, tjs, T, n, d):
     words, counts = d2n.screen_words(prof, lengths, tis, tjs, T, n, d)
     ga, gb = d2n.extract_pairs(words, counts, tis, tjs, T)
     torch.cuda.synchronize()
-    assert d2n.launches == {k: v + 1 for k, v in before.items()}
+    assert d2n.launches == {**before, "d2_screen": before["d2_screen"] + 1,
+                            "d2_extract": before["d2_extract"] + 1}
     want = d2n.screen_words_reference(prof, lengths, tis, tjs, T, n, d)
     assert torch.equal(words, want)
     assert torch.equal(counts, d2n.row_counts_reference(want, T))
@@ -249,6 +253,103 @@ def test_d2_screen_refuses_a_tile_it_cannot_take(tmp_path, cuda_device,
     with pytest.raises(ValueError, match="share a device"):
         d2n.screen_words(eng.prof, eng.lengths.cpu(), tis, tjs, 128, eng.n, 2)
     assert d2n.launches == before
+
+
+def _csr_on(tasks, dev, n):
+    return d2n.csr_partition(*(torch.from_numpy(x).to(dev) for x in tasks),
+                             n)
+
+
+@pytest.mark.parametrize("n,cloud,dense", CSR_CASES)
+def test_d2_csr_partition_matches_reference(cuda_device, n, cloud, dense):
+    """The partition kernels against their plain version: one pass and
+    several, n on both sides of a digit boundary, one cloud of thousands
+    (sources with thousands of edges), sparse sources."""
+    tasks = screen_order_tasks(n, cloud, 11, T=128, dense=dense)
+    before = d2n.launches["d2_csr"]
+    got = _csr_on(tasks, cuda_device, n)
+    torch.cuda.synchronize()
+    passes = len(d2n.csr_passes(n))
+    assert d2n.launches["d2_csr"] == before + 2 * passes + 1
+    want = _csr_on(tasks, torch.device("cpu"), n)
+    assert int(want[3]) == 0
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("case", ["empty", "all_rejected"])
+def test_d2_csr_partition_takes_no_kept_tasks(cuda_device, case):
+    n = 1000
+    size = 0 if case == "empty" else 5000
+    src = torch.randint(0, n, (size,), device=cuda_device)
+    diff = torch.full((size,), -1, dtype=torch.int32, device=cuda_device)
+    before = d2n.launches["d2_csr"]
+    starts, adj_to, adj_diff, bad = d2n.csr_partition(src, src.clone(), diff,
+                                                      n)
+    assert d2n.launches["d2_csr"] == before + (case != "empty")
+    assert starts.tolist() == [0] * (n + 1)
+    assert adj_to.numel() == adj_diff.numel() == int(bad) == 0
+
+
+@pytest.mark.parametrize("fault", ["shuffled", "source_range", "wide_diff",
+                                   "none"])
+def test_d2_csr_partition_flags_on_card(cuda_device, fault):
+    n = 65_537
+    tq, td, diffs = screen_order_tasks(n, 30, 12, T=4096)
+    if fault == "shuffled":
+        perm = np.random.default_rng(13).permutation(len(tq))
+        tq, td, diffs = tq[perm], td[perm], diffs[perm]
+    elif fault == "source_range":
+        tq[-3], diffs[-3] = n, 1
+    elif fault == "wide_diff":
+        diffs[7] = 300
+    bad = _csr_on((tq, td, diffs), cuda_device, n)[3]
+    assert int(bad) == (fault != "none")
+    assert int(_csr_on((tq, td, diffs), torch.device("cpu"), n)[3]) == \
+        int(bad)
+
+
+def test_d2_csr_build_adjacency_on_card_equals_host_path(tmp_path,
+                                                        cuda_device,
+                                                        monkeypatch):
+    """d2_100k's corpus: the CSR partitioned on the card equals the
+    native diffs' CSR, partitioned on the host, array for array, and an
+    np.lexsort of the native tasks; the guard raises on either path
+    where the pairs come out of step order."""
+    from swarm_tpu_torch import metrics
+
+    gen_corpus(tmp_path / "c.fasta", n=100_000, length=150)
+    db = read_db(tmp_path / "c.fasta")
+    eng = D2NetworkEngine(db, 2, cuda_device)
+    metrics.reset()
+    before = d2n.launches["d2_csr"]
+    got = eng.build_adjacency(4, 12, 4, False)
+    assert d2n.launches["d2_csr"] > before
+    assert metrics.last_run["d2_network.csr_device_edges"] == len(got[2]) > 0
+    monkeypatch.setenv("SWARM_TPU_D2_DIFFS", "native")
+    want = eng.build_adjacency(4, 12, 4, False)
+    for x, y in zip(got, want):
+        if isinstance(y, np.ndarray):
+            assert x.dtype == np.int64
+            np.testing.assert_array_equal(x, y)
+        else:
+            assert x == y
+    pa, pb, _ = eng.candidate_pairs()
+    tq, td, diffs = (x.numpy() for x in torch_diffs.native_tasks(
+        db, pa, pb, 2, 4, 12, 4, False))
+    keep = diffs >= 0
+    order = np.lexsort((td[keep], tq[keep]))
+    np.testing.assert_array_equal(got[1], np.bincount(tq[keep],
+                                                      minlength=len(db)))
+    np.testing.assert_array_equal(got[2], td[keep][order])
+    np.testing.assert_array_equal(got[3], diffs[keep][order])
+    extract = d2n.extract_pairs
+    monkeypatch.setattr(d2n, "extract_pairs",
+                        lambda *args: tuple(x.flip(0) for x in extract(*args)))
+    for mode in ("device", "native"):
+        monkeypatch.setenv("SWARM_TPU_D2_DIFFS", mode)
+        with pytest.raises(AssertionError, match="CSR check failed"):
+            eng.build_adjacency(4, 12, 4, False)
 
 
 @pytest.fixture

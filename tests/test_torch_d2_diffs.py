@@ -85,6 +85,27 @@ def test_reference_matches_scan(tmp_path, seed, d, scores):
     assert (got >= 0).any() and (got < 0).any()
 
 
+def _tasks_match_native(eng, db, pa, pb, d, scores, no_break):
+    """diff_tasks equals the native diffs laid out as its tasks
+    (native_tasks), where the native kernel skips every direction that
+    `directions` does not admit; returns the diffs."""
+    mismatch, go, ge = scores
+    want_ab, want_ba = _native.d2_diffs_pairs(
+        db.codes, db.offsets, db.lengths, db.abundances, pa, pb,
+        d, mismatch, go, ge, no_break, nthreads=1,
+    )
+    need_ab, need_ba = torch_diffs.directions(db.abundances, pa, pb,
+                                              no_break)
+    assert (want_ab[~need_ab] < 0).all() and (want_ba[~need_ba] < 0).all()
+    got = eng.diff_tasks(pa, pb, mismatch, go, ge, no_break)
+    want = torch_diffs.native_tasks(db, pa, pb, d, mismatch, go, ge,
+                                    no_break)
+    assert len(want[0]) == need_ab.sum() + need_ba.sum()
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    return got[2]
+
+
 # the parametrisations of tests/test_d2_diffs_jax.py
 @pytest.mark.parametrize(
     "seed,d,scores",
@@ -98,20 +119,13 @@ def test_reference_matches_scan(tmp_path, seed, d, scores):
     ],
 )
 def test_engine_matches_native(tmp_path, seed, d, scores):
-    mismatch, go, ge = scores
     db = _mkdb(tmp_path, _chain_corpus(seed, 80, 60, d + 1))
     pa, pb = np.triu_indices(len(db), k=1)
     pa = pa.astype(np.int64)
     pb = pb.astype(np.int64)
     eng = DeviceDiffEngine(db, d, torch.device("cpu"))
     for no_break in (False, True):
-        want_ab, want_ba = _native.d2_diffs_pairs(
-            db.codes, db.offsets, db.lengths, db.abundances, pa, pb,
-            d, mismatch, go, ge, no_break, nthreads=1,
-        )
-        got_ab, got_ba = eng.diffs_pairs(pa, pb, mismatch, go, ge, no_break)
-        np.testing.assert_array_equal(got_ab, want_ab)
-        np.testing.assert_array_equal(got_ba, want_ba)
+        _tasks_match_native(eng, db, pa, pb, d, scores, no_break)
 
 
 def test_wide_band_matches_native(tmp_path):
@@ -125,15 +139,9 @@ def test_wide_band_matches_native(tmp_path):
     pa, pb = np.triu_indices(len(db), k=1)
     pa = pa.astype(np.int64)
     pb = pb.astype(np.int64)
-    want_ab, want_ba = _native.d2_diffs_pairs(
-        db.codes, db.offsets, db.lengths, db.abundances, pa, pb,
-        d, mismatch, go, ge, True, nthreads=1,
-    )
     eng = DeviceDiffEngine(db, d, torch.device("cpu"))
-    got_ab, got_ba = eng.diffs_pairs(pa, pb, mismatch, go, ge, True)
-    np.testing.assert_array_equal(got_ab, want_ab)
-    np.testing.assert_array_equal(got_ba, want_ba)
-    assert (got_ab > 2).any() and (got_ab < 0).any()
+    got = _tasks_match_native(eng, db, pa, pb, d, (mismatch, go, ge), True)
+    assert (got > 2).any() and (got < 0).any()
 
 
 def test_wrapper_checks_inputs_and_never_falls_back():

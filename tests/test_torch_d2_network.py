@@ -8,6 +8,7 @@ import torch
 
 from swarm_tpu.ops.d2_diffs_jax import DeviceDiffEngine as JaxDiffEngine
 from swarm_tpu.ops.d2_network import D2NetworkEngine as JaxNetworkEngine
+from swarm_tpu_torch.corpora import CSR_CASES, screen_order_tasks
 from swarm_tpu_torch.models.general import choose_engine
 from swarm_tpu_torch.ops.d2_diffs import DeviceDiffEngine
 from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
@@ -138,3 +139,188 @@ def test_engine_choice(monkeypatch):
     monkeypatch.setenv("SWARM_TPU_D2_ENGINE", "jax")
     with pytest.raises(ValueError):
         choose_engine(10, 8, CPU)
+
+
+# ---- the CSR on the device (csr_partition) --------------------------------
+
+def _lexsort_csr(tq, td, diffs, n):
+    """The host's CSR of the kept tasks: np.lexsort by (source, target),
+    as the JAX engine builds it."""
+    keep = diffs >= 0
+    ef, et, ed = tq[keep], td[keep], diffs[keep]
+    order = np.lexsort((et, ef))
+    starts = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(ef, minlength=n), out=starts[1:])
+    return starts, et[order], ed[order]
+
+
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 65_536, 65_537, 500_000,
+                               (1 << 31) - 1])
+def test_csr_passes_cover_the_source_bits(n):
+    from swarm_tpu_torch.ops.d2_network import CSR_DIGIT_BITS, csr_passes
+
+    bits = max((n - 1).bit_length(), 1)
+    passes = csr_passes(n)
+    assert len(passes) == -(-bits // CSR_DIGIT_BITS)
+    shift = 0
+    for at, width in passes:
+        assert at == shift and 1 <= width <= CSR_DIGIT_BITS
+        shift += width
+    assert shift == bits
+    assert max(w for _, w in passes) - min(w for _, w in passes) <= 1
+
+
+@pytest.mark.parametrize("n,cloud,dense", CSR_CASES)
+def test_csr_partition_reference_equals_lexsort(n, cloud, dense):
+    from swarm_tpu_torch.ops.d2_network import csr_partition
+
+    tq, td, diffs = screen_order_tasks(n, cloud, 7, T=128, dense=dense)
+    starts, adj_to, adj_diff, bad = csr_partition(
+        torch.from_numpy(tq), torch.from_numpy(td), torch.from_numpy(diffs),
+        n)
+    want_starts, want_to, want_diff = _lexsort_csr(tq, td, diffs, n)
+    assert int(bad) == 0
+    assert starts.dtype == adj_to.dtype == torch.int32
+    assert adj_diff.dtype == torch.uint8
+    np.testing.assert_array_equal(starts.numpy(), want_starts)
+    np.testing.assert_array_equal(adj_to.numpy(), want_to)
+    np.testing.assert_array_equal(adj_diff.numpy(), want_diff)
+
+
+@pytest.mark.parametrize("fault", ["shuffled", "swapped", "repeated",
+                                   "source_range", "target_range",
+                                   "wide_diff", "none"])
+def test_csr_partition_reference_flags_what_is_not_exact(fault):
+    """`bad` is set where the tasks are out of the screen's order (the
+    stable partition would not be the sorted CSR) or out of range, and
+    not where only rejected tasks are."""
+    from swarm_tpu_torch.ops.d2_network import csr_partition
+
+    n = 300
+    tq, td, diffs = screen_order_tasks(n, 12, 8, T=128)
+    rng = np.random.default_rng(9)
+    if fault == "shuffled":
+        perm = rng.permutation(len(tq))
+        tq, td, diffs = tq[perm], td[perm], diffs[perm]
+    elif fault == "swapped":  # two forward targets of one source
+        last = len(tq) - 1
+        at = next(i for i in range(last, 0, -1) if tq[i] == tq[i - 1]
+                  and diffs[i] >= 0 and diffs[i - 1] >= 0)
+        td[[at - 1, at]] = td[[at, at - 1]]
+    elif fault == "repeated":
+        tq, td, diffs = (np.concatenate([x, x[-1:]]) for x in (tq, td, diffs))
+        diffs[-2:] = 1
+    elif fault == "source_range":
+        tq[5], diffs[5] = n, 1
+    elif fault == "target_range":
+        td[5], diffs[5] = -1, 1
+    elif fault == "wide_diff":
+        diffs[5] = 256
+    else:  # the rejected tasks may be anything
+        tq[diffs < 0] = n + 7
+        diffs[5] = -1
+    *_, bad = csr_partition(torch.from_numpy(tq), torch.from_numpy(td),
+                            torch.from_numpy(diffs), n)
+    assert int(bad) == (fault != "none")
+
+
+def test_csr_partition_reference_takes_no_tasks():
+    from swarm_tpu_torch.ops.d2_network import csr_partition
+
+    empty = torch.zeros(0, dtype=torch.int64)
+    for diffs in (torch.zeros(0, dtype=torch.int32), None):
+        src = empty if diffs is not None else torch.arange(4)
+        df = diffs if diffs is not None else torch.full((4,), -1,
+                                                        dtype=torch.int32)
+        starts, adj_to, adj_diff, bad = csr_partition(src, src.clone(), df,
+                                                      10)
+        assert starts.tolist() == [0] * 11
+        assert adj_to.numel() == adj_diff.numel() == int(bad) == 0
+
+
+def _no_edge_clouds(seed):
+    """Amplicons all far apart: the screen passes nothing."""
+    rng = np.random.default_rng(seed)
+    seqs = [rng.integers(0, 4, size=60).astype(np.uint8) for _ in range(150)]
+    db = _db_from_seqs(seqs)
+    db.abundances = rng.integers(1, 6, size=len(seqs)).astype(np.int64)
+    return db
+
+
+def _clouds_and_loners(seed):
+    """Clouds and, between them, amplicons with no edge."""
+    db = _clouds(seed, 12, 10, 56, 3)
+    rng = np.random.default_rng(seed + 1)
+    loners = [rng.integers(0, 4, size=70).astype(np.uint8)
+              for _ in range(60)]
+    seqs = [db.codes[db.offsets[i]:db.offsets[i] + db.lengths[i]]
+            for i in range(len(db))] + loners
+    out = _db_from_seqs(seqs)
+    out.abundances = np.concatenate(
+        [db.abundances, rng.integers(1, 6, size=len(loners))]).astype(
+            np.int64)
+    return out
+
+
+@pytest.mark.parametrize(
+    "case,tile,chunk,no_break,shards",
+    [
+        ("tile32", "32", "512", False, 0),    # 9 tiles, 45 steps
+        ("chunk1", "64", "1", False, 0),
+        ("chunk2", "64", "2", True, 0),
+        ("chunk512", "128", "512", True, 0),
+        ("shards", "64", "2", False, 3),      # in-process shards
+        ("no_edges", "64", "512", False, 0),
+        ("loners", "64", "2", False, 0),      # amplicons with no edge
+    ],
+)
+def test_device_csr_equals_jax_lexsort(monkeypatch, case, tile, chunk,
+                                       no_break, shards):
+    """The CSR built from the device tasks (here the plain versions,
+    SWARM_TPU_D2_DIFFS=device on the CPU) equals the JAX engine's,
+    sorted on the host by np.lexsort, array for array."""
+    from swarm_tpu_torch import metrics
+    from swarm_tpu_torch.parallel.mesh import LocalShards
+
+    db = {"no_edges": lambda: _no_edge_clouds(91),
+          "loners": lambda: _clouds_and_loners(92)}.get(
+              case, lambda: _clouds(93, 20, 12, 56, 3))()
+    monkeypatch.setenv("SWARM_TPU_D2_TILE", tile)
+    monkeypatch.setenv("SWARM_TPU_D2_CHUNK", chunk)
+    eng = D2NetworkEngine(db, 2, CPU,
+                          shards=LocalShards(shards, CPU) if shards else None)
+    monkeypatch.setenv("SWARM_TPU_D2_DIFFS", "device")
+    metrics.reset()
+    got = eng.build_adjacency(4, 12, 4, no_break)
+    monkeypatch.setenv("SWARM_TPU_D2_DIFFS", "native")
+    want = JaxNetworkEngine(db, 2).build_adjacency(4, 12, 4, no_break)
+    for x, y in zip(got, want):
+        if isinstance(y, np.ndarray):
+            assert x.dtype == np.int64
+            np.testing.assert_array_equal(x, y)
+        else:
+            assert x == y
+    edges = len(want[2])
+    assert metrics.last_run["d2_network.csr_device_edges"] == edges
+    assert (edges == 0) == (case == "no_edges")
+    if case == "loners":
+        assert (want[1] == 0).sum() >= 60
+
+
+def test_out_of_step_order_pairs_fail_loudly(monkeypatch):
+    """Pairs out of the screen's step order (each chunk's reversed) would
+    make the partition a wrong CSR, on either diffs path: its check
+    raises; in order, the same engine builds its edges."""
+    from swarm_tpu_torch.ops import d2_network
+
+    db = _clouds(82, 6, 10, 40, 2)
+    eng = D2NetworkEngine(db, 2, CPU)
+    extract = d2_network.extract_pairs
+    flipped = lambda *args: tuple(x.flip(0) for x in extract(*args))  # noqa: E731
+    for mode in ("device", "native"):
+        monkeypatch.setenv("SWARM_TPU_D2_DIFFS", mode)
+        monkeypatch.setattr(d2_network, "extract_pairs", extract)
+        assert len(eng.build_adjacency(4, 12, 4, False)[2]) > 0
+        monkeypatch.setattr(d2_network, "extract_pairs", flipped)
+        with pytest.raises(AssertionError, match="CSR check failed"):
+            eng.build_adjacency(4, 12, 4, False)

@@ -49,29 +49,40 @@ def test_device_diffs_from_their_threshold(tmp_path, monkeypatch, threads,
     """auto: native diffs below DEVICE_DIFFS_MIN pairs (at -t 1;
     DEVICE_DIFFS_MIN_THREADED above; their _COLD forms before the kernel
     has launched in the process), the device kernel from it up (on a
-    cuda engine); the same adjacency."""
-    gen_corpus(tmp_path / "in.fasta", n=200, length=150)
+    cuda engine); the same adjacency. The pairs are every pair of the
+    corpus in (a, b) order, an order the screen's CSR takes (each pair
+    once, a source's targets ascending in both directions), cut to the
+    sizes tried."""
+    gen_corpus(tmp_path / "in.fasta", n=400, length=150)
     db = read_db(tmp_path / "in.fasta")
     monkeypatch.setenv("SWARM_TPU_D2_TILE", "128")
     eng = D2NetworkEngine(db, 2, CPU, threads=threads)
-    pa, pb, _ = eng.candidate_pairs()
-    assert len(pa) > 0
+    pa, pb = (x.astype(np.int64) for x in np.triu_indices(len(db), k=1))
+    assert len(pa) >= 65_536
     calls = []
 
     class Recording:
         """Stands in for the device kernel: records the pairs it was
-        given and answers with the native diffs."""
+        given and answers with the native diffs, laid out as its tasks
+        on the CPU (so the CSR takes its plain version)."""
 
         def __init__(self, db, d, device):
             self.db, self.d = db, d
 
-        def diffs_pairs(self, pa, pb, mismatch, gapopen, gapextend,
-                        no_break):
+        def diff_tasks(self, pa, pb, mismatch, gapopen, gapextend,
+                       no_break):
             calls.append(len(pa))
-            return _native.d2_diffs_pairs(
+            diff_ab, diff_ba = _native.d2_diffs_pairs(
                 self.db.codes, self.db.offsets, self.db.lengths,
                 self.db.abundances, pa, pb, self.d, mismatch, gapopen,
                 gapextend, no_break)
+            need_ab, need_ba = d2_diffs.directions(self.db.abundances, pa,
+                                                   pb, no_break)
+            tasks = (np.concatenate([pb[need_ba], pa[need_ab]]),
+                     np.concatenate([pa[need_ba], pb[need_ab]]),
+                     np.concatenate([diff_ba[need_ba],
+                                     diff_ab[need_ab]]).astype(np.int32))
+            return tuple(torch.from_numpy(x) for x in tasks)
 
     monkeypatch.setattr(d2_diffs, "DeviceDiffEngine", Recording)
     monkeypatch.setattr(d2_diffs, "warm", warm)
@@ -84,7 +95,7 @@ def test_device_diffs_from_their_threshold(tmp_path, monkeypatch, threads,
                          + ("" if warm else "_COLD"))
     got = {}
     for size in (at - 1, at):
-        qa, qb = np.resize(pa, size), np.resize(pb, size)
+        qa, qb = pa[:size], pb[:size]
         eng.candidate_pairs = lambda: (qa, qb, size)
         eng.__dict__.pop("_diff_engine", None)
         got[size] = eng.build_adjacency(18, 24, 13, False)
@@ -105,7 +116,7 @@ def test_device_diffs_from_their_threshold(tmp_path, monkeypatch, threads,
     assert calls == [at, 1]
     monkeypatch.delenv("SWARM_TPU_D2_DIFFS")
     eng.device = CPU
-    qa, qb = np.resize(pa, at), np.resize(pb, at)
+    qa, qb = pa[:at], pb[:at]
     eng.candidate_pairs = lambda: (qa, qb, at)
     eng.__dict__.pop("_diff_engine", None)
     eng.build_adjacency(18, 24, 13, False)

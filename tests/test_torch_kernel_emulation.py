@@ -30,7 +30,9 @@ from swarm_tpu_torch.ops.d2_diffs import (
     DeviceDiffEngine,
     d2_diffs,
     d2_diffs_reference,
+    directions,
     row_stride_16,
+    task_layout,
 )
 from swarm_tpu_torch.ops.nw_scores import FULL_STRIPS
 
@@ -411,10 +413,16 @@ def test_engine_with_16_byte_stride_equals_jax_engine(tmp_path, seed, d,
     pa, pb = np.triu_indices(len(db), k=1)
     pa, pb = pa.astype(np.int64), pb.astype(np.int64)
     for no_break in (False, True):
-        got = eng.diffs_pairs(pa, pb, mm, go, ge, no_break)
-        want = jax_eng.diffs_pairs(pa, pb, mm, go, ge, no_break)
+        got = eng.diff_tasks(pa, pb, mm, go, ge, no_break)
+        want_ab, want_ba = (np.asarray(x) for x in
+                            jax_eng.diffs_pairs(pa, pb, mm, go, ge, no_break))
+        need_ab, need_ba = directions(db.abundances, pa, pb, no_break)
+        assert (want_ab[~need_ab] < 0).all() and \
+            (want_ba[~need_ba] < 0).all()
+        want = (*task_layout(pa, pb, need_ab, need_ba),
+                np.concatenate([want_ba[need_ba], want_ab[need_ab]]))
         for x, y in zip(got, want):
-            np.testing.assert_array_equal(x, np.asarray(y))
+            np.testing.assert_array_equal(x.numpy(), y)
 
 
 def test_row_stride_16_keeps_shape_and_values():
