@@ -2372,9 +2372,9 @@ def phase_server(corpus, work, warm):
                 server.kill()
                 server.wait()
     lines = [ln for ln in log_path.read_text().splitlines()
-             if ln.startswith("[timing] d1 join (cuda) H2D")]
-    say("server: exited 0 after --shutdown; its d1_1m H2D lines: "
-        + "; ".join(ln.split()[-1] for ln in lines))
+             if ln.startswith("[timing] d1 join (cuda) start")]
+    say("server: exited 0 after --shutdown; its d1_1m start lines "
+        "(H2D, count and pack): " + "; ".join(ln.split()[-1] for ln in lines))
     db = read_db(corpus["d1_1m"])
     t0 = time.perf_counter()
     h = hashlib.blake2b(db.codes, digest_size=16)

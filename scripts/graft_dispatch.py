@@ -10,8 +10,9 @@ sides that the run hands GraftEngine (with the rows the d=1 engine left
 on the card, when it ran). On those sides it then times, N times each
 (wall clock, the card synchronised):
 - the device engine, ops/fastidious_torch.GraftEngine.graft_candidates,
-  as the main path calls it, and once more under SWARM_TPU_TIMING=1 for
-  its `[timing] graft` phases;
+  as the main path calls it, and once more for its phases (the spans
+  fastidious.keys, .partition, .join, .verify, .to_host of the run's
+  record; a checkout whose engine keeps no such spans reports none);
 - the host join, _native.graft_join (its probe up to 2<<20 keys on the
   smaller side, its radix sort-join above);
 - the whole run warm, with the graft on the device
@@ -133,7 +134,7 @@ def measure(name, work, reps, device_only):
     import numpy as np
     import torch
 
-    from swarm_tpu_torch import _native, corpora
+    from swarm_tpu_torch import _native, corpora, metrics
     from swarm_tpu_torch.ops import fastidious_torch as ft
 
     maker, kwargs = CORPORA[name]
@@ -159,18 +160,14 @@ def measure(name, work, reps, device_only):
     (count, cand), secs = timed(device, reps + 1)
     rec["count"] = count
     rec["device"] = summary(secs[1:])  # the first builds the Zobrist table
-    os.environ["SWARM_TPU_TIMING"] = "1"
-    real_err, err = sys.__stderr__, io.StringIO()
-    sys.__stderr__ = err
-    try:
-        device()
-    finally:
-        sys.__stderr__ = real_err
-        os.environ.pop("SWARM_TPU_TIMING")
-    rec["device_phases"] = {
-        " ".join(ln.split()[3:-1]): float(ln.split()[-1].rstrip("s"))
-        for ln in err.getvalue().splitlines()
-        if ln.startswith("[timing] graft")}
+    mark = len(metrics.spans)
+    device()
+    phases = {}
+    for s in metrics.spans[mark:]:
+        if s.name.startswith("fastidious.") and s.end is not None:
+            step = s.name.split(".", 1)[1]
+            phases[step] = phases.get(step, 0.0) + s.end - s.start
+    rec["device_phases"] = phases
     if not device_only:
         host, secs = timed(lambda: _native.graft_join(
             db.codes, db.offsets, db.lengths, len(db), heavy, light), reps)

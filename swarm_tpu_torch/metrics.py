@@ -119,6 +119,23 @@ def seconds(*names: str) -> float:
                if s.name in names and s.end is not None)
 
 
+def step_seconds(prefix: str, steps) -> dict:
+    """{step: seconds of the run's closed spans PREFIX.STEP} for each of
+    `steps` that has one."""
+    closed = {s.name for s in spans if s.end is not None}
+    return {step: seconds(f"{prefix}.{step}") for step in steps
+            if f"{prefix}.{step}" in closed}
+
+
+def timing(label: str, phases: dict) -> None:
+    """With SWARM_TPU_TIMING set, a `[timing] LABEL NAME SECONDS` line for
+    each of `phases` ({name: seconds})."""
+    if os.environ.get("SWARM_TPU_TIMING"):
+        for name, sec in phases.items():
+            sys.__stderr__.write(
+                f"[timing] {label} {name:<22} {sec:8.3f}s\n")
+
+
 def dump() -> None:
     """Write the run's record to $SWARM_TPU_TRACE, where it is set."""
     path = os.environ.get("SWARM_TPU_TRACE")

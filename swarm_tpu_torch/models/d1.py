@@ -24,6 +24,7 @@ from typing import List
 
 import numpy as np
 
+from .. import metrics
 from ..db import Db
 from ..fatal import ERROR_PREFIX, fatal
 from ..ops.neighbors import NeighborIndex, variant_hashes, _join
@@ -52,6 +53,16 @@ def _find_duplicate_memo(db):
     _DUP_MEMO.clear()
     _DUP_MEMO[key] = (db.codes, db.offsets, dup)
     return dup
+
+
+def _timing(what, index, prefix, steps) -> None:
+    """The `[timing] WHAT (DEVICE)` lines of the run's spans of the
+    one-device engine's steps (PREFIX.STEP), where that engine ran (its
+    "keys" step is there): nothing for the native and sharded ones."""
+    phases = metrics.step_seconds(prefix, steps)
+    if "keys" in phases:
+        device = index.device.type if index.device is not None else "cuda"
+        metrics.timing(f"{what} ({device})", phases)
 
 
 def _memtotal() -> int:
@@ -217,6 +228,10 @@ def algo_d1_run(p: Parameters, db: Db, progress: Progress, device) -> None:
     edges_from, edges_to = index.build_network(
         p.opt_no_cluster_breaking, abundances, keep_rows=p.opt_fastidious
     )
+    from ..ops.neighbors_sortjoin import SortJoinNeighborEngine
+
+    _timing("d1 join", index, "d1_network",
+            ("start",) + SortJoinNeighborEngine.STEPS)
     link_count = np.bincount(edges_from, minlength=n).astype(np.int64) if n else np.zeros(0, dtype=np.int64)
     link_start = np.zeros(n, dtype=np.int64)
     if n:
@@ -482,6 +497,8 @@ def _fastidious(p, db, progress, st, index, swarmcount, largest):
 
     log.write(f"Heavy swarms: {large_clusters}, with {amps_large} amplicons\n")
     log.write(f"Light swarms: {small_clusters}, with {amps_small} amplicons\n")
+    metrics.record(**{"fastidious.light_amplicons": amps_small,
+                      "fastidious.heavy_amplicons": amps_large})
     log.write(f"Total length of amplicons in light swarms: {nt_small}\n")
 
     if small_clusters == 0 or large_clusters == 0:
@@ -560,44 +577,18 @@ def _fastidious(p, db, progress, st, index, swarmcount, largest):
 
     # graft candidates: join heavy variant hashes against light variant
     # hashes; exact verification by comparing reconstructed midpoints.
-    from .. import _native
-
     lengths_i64 = db.lengths.astype(np.int64)
     min_side_keys = min(
         int((7 * lengths_i64[heavy_amps] + 4).sum()),
         int((7 * lengths_i64[light_amps] + 4).sum()),
     )
-    if _device_graft(index.device, min_side_keys):
-        # the device engine (ops/fastidious_torch.py), or its sharded
-        # form (parallel/mesh.py), on the d=1 engine's packed rows when
-        # it ran; it raises on any failure
-        from .. import parallel
-        from ..ops.fastidious_torch import GraftEngine
+    with metrics.span("fastidious.graft"):
+        graft_candidates, graft_cand = _graft_candidates(
+            db, index, rows, heavy_amps, light_amps, min_side_keys)
+    graft_cand = np.where(graft_cand < 0, NO_SWARM, graft_cand)
+    from ..ops.fastidious_torch import GraftEngine
 
-        shards = parallel.shards_for(index.device)
-        if shards is not None:
-            from ..parallel.mesh import ShardedGraftEngine
-
-            engine = ShardedGraftEngine(db, shards, rows)
-        else:
-            engine = GraftEngine(db, index.device, rows)
-        res = engine.graft_candidates(heavy_amps, light_amps)
-    else:
-        # host paths (asymmetric probe / radix sort-join, see
-        # _native.graft_join); the python join below serves when the
-        # native join declines
-        res = _native.graft_join(
-            db.codes, db.offsets, db.lengths, n,
-            np.asarray(heavy_amps, dtype=np.int64),
-            np.asarray(light_amps, dtype=np.int64),
-        )
-    if res is not None:
-        graft_candidates, graft_cand = res
-        graft_cand = np.where(graft_cand < 0, NO_SWARM, graft_cand)
-    else:
-        graft_candidates, graft_cand = _graft_join(
-            db, index, heavy_amps, light_amps
-        )
+    _timing("graft", index, "fastidious", GraftEngine.STEPS)
     st.graft_cand = graft_cand
     # reference: progress_update(++heavy_progress), values 1..amps_large
     # (src/algod1.cc:480)
@@ -605,8 +596,6 @@ def _fastidious(p, db, progress, st, index, swarmcount, largest):
     progress.done()
 
     log.write(f"Heavy variants: {heavy_variants}\n")
-    from .. import metrics
-
     metrics.record(graft_join_comparisons=int(graft_candidates))
     log.write(f"Got {graft_candidates} graft candidates\n")
 
@@ -642,9 +631,44 @@ def _fastidious(p, db, progress, st, index, swarmcount, largest):
         progress.update(counter)
     progress.done()
 
+    metrics.record(**{"fastidious.grafts": grafts})
     log.write(f"Made {grafts} grafts\n")
     log.write("\n")
     return largest, swarmcount
+
+
+def _graft_candidates(db, index, rows, heavy_amps, light_amps,
+                      min_side_keys):
+    """(count, graft_cand) of the engine that takes the graft: the
+    device's (or its sharded form) as _device_graft says, else the
+    native host join, else the python join below."""
+    from .. import _native
+
+    if _device_graft(index.device, min_side_keys):
+        # the device engine (ops/fastidious_torch.py), or its sharded
+        # form (parallel/mesh.py), on the d=1 engine's packed rows when
+        # it ran; it raises on any failure
+        from .. import parallel
+        from ..ops.fastidious_torch import GraftEngine
+
+        shards = parallel.shards_for(index.device)
+        if shards is not None:
+            from ..parallel.mesh import ShardedGraftEngine
+
+            engine = ShardedGraftEngine(db, shards, rows)
+        else:
+            engine = GraftEngine(db, index.device, rows)
+        return engine.graft_candidates(heavy_amps, light_amps)
+    # host paths (asymmetric probe / radix sort-join, see
+    # _native.graft_join); the python join serves when the native join
+    # declines
+    res = _native.graft_join(
+        db.codes, db.offsets, db.lengths, len(db),
+        np.asarray(heavy_amps, dtype=np.int64),
+        np.asarray(light_amps, dtype=np.int64),
+    )
+    return res if res is not None else _graft_join(
+        db, index, heavy_amps, light_amps)
 
 
 def _graft_join(db, index, heavy_amps, light_amps):

@@ -25,7 +25,6 @@ member output order.
 """
 
 import os
-import sys
 import time
 
 import numpy as np
@@ -86,13 +85,6 @@ def choose_engine(n: int, bit_mode: int, device: torch.device) -> str:
         # src/search16.cc)
         engine = "native"
     return engine
-
-
-def _timing(label: str, phases: dict) -> None:
-    if os.environ.get("SWARM_TPU_TIMING"):
-        for name, sec in phases.items():
-            sys.__stderr__.write(
-                f"[timing] {label} {name:<22} {sec:8.3f}s\n")
 
 
 def algo_run(p: Parameters, db: Db, progress: Progress,
@@ -443,7 +435,7 @@ def _algo_run_python(p, db, progress, padded, profiles, bit_mode,
     metrics.record(
         d2_device_batches=batches["device"], d2_host_batches=batches["host"])
     total = time.perf_counter() - t_run
-    _timing(
+    metrics.timing(
         "d2 seed loop (%s)" % (
             device_aligner.device.type if device_aligner else "host"),
         {**spent, "python loop + writers": total - sum(spent.values())})
@@ -477,7 +469,7 @@ def _algo_run_network(p, db, progress, eng, n, d):
              for step in ("screen", "to_host", "diffs", "csr")}
     spent["cluster_graph"] = metrics.seconds("general.cluster_graph")
     spent["writers"] = metrics.seconds(*WRITER_SPANS)
-    _timing(f"d2 network ({eng.device.type})", spent)
+    metrics.timing(f"d2 network ({eng.device.type})", spent)
 
 
 def _algo_run_native(p, db, progress, padded, profiles, bit_mode, n, d):

@@ -52,14 +52,12 @@ for a small side) is this one: a small side leaves most buckets empty,
 and an empty bucket costs one read of its bounds.
 """
 
-import os
-import sys
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import metrics
 from ..device import default_device
 from . import neighbors_sortjoin as sj
 
@@ -624,22 +622,19 @@ def verify(words, row_word, lengths, s_ids, s_ends, b_ids, b_ends, pairs,
     return ok
 
 
-#: the [timing] phases of a graft, in order
-PHASES = ("H2D", "keygen count", "keygen emit", "partition", "join",
-          "verify", "D2H", "host finish")
-
-
 class GraftEngine:
     """Device-side graft-candidate discovery for the fastidious pass, on
     `device` (None: cuda:0, raising without it).
 
     `rows`: the ragged rows (words, row_word, lengths) that the d=1
     engine left on the device, or None: the arena is copied and packed
-    by d1_keygen's count pass. With SWARM_TPU_TIMING set it writes a
-    `[timing] graft` line a phase (summed over the strips), the device
-    synchronised between phases.
+    by d1_keygen's count pass. Each step is a span of the run's record
+    (metrics.py), ``fastidious.`` and STEPS' name, once a strip where
+    the bigger side goes in strips; none synchronises the device.
     """
 
+    #: graft_candidates' spans, in order (``fastidious.<step>``)
+    STEPS = ("keys", "partition", "join", "verify", "to_host")
     #: keys a strip of the bigger side holds at most; None: as many as
     #: half the free device memory takes at 24 bytes a key (keys,
     #: payloads and the partition's scratch pair; the join's 8-byte
@@ -654,16 +649,6 @@ class GraftEngine:
         self.device = default_device() if device is None \
             else torch.device(device)
         self._rows = rows
-        self._timing = bool(os.environ.get("SWARM_TPU_TIMING"))
-
-    def _phase(self, spent, name, t0):
-        if not self._timing:
-            return t0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        spent[name] = spent.get(name, 0.0) + now - t0
-        return now
 
     def _strip_keys(self, small_keys: int) -> int:
         if self.MAX_STRIP_KEYS is not None:
@@ -691,69 +676,62 @@ class GraftEngine:
         graft_cand = np.full(self.n, -1, dtype=np.int64)
         if len(heavy_amps) == 0 or len(light_amps) == 0:
             return 0, graft_cand
-        spent = {}
         dev = self.device
-        t0 = time.perf_counter()
-        words, row_word, lengths = self.packed_rows()
-        lens = np.asarray(self.db.lengths, dtype=np.int64)
-        zob = zobrist_tensor(make_zobrist_pair(max(int(lens.max()), 1)), dev)
-        heavy = np.asarray(heavy_amps, dtype=np.int64)
-        light = np.asarray(light_amps, dtype=np.int64)
-        small_is_heavy = (7 * lens[heavy] + 4).sum() <= \
-            (7 * lens[light] + 4).sum()
-        small, big = (heavy, light) if small_is_heavy else (light, heavy)
-        s_ids = torch.from_numpy(small).to(dev)
-        b_ids = torch.from_numpy(big).to(dev)
-        t0 = self._phase(spent, "H2D", t0)
-
-        s_ends, s_total = sj._cumsum_total(keygen_count(words, row_word,
-                                                        lengths, s_ids))
-        b_counts = keygen_count(words, row_word, lengths, b_ids).cpu().numpy()
-        budget = self._strip_keys(s_total)
-        strips = _strips(b_counts, budget)
-        bits = sj.bucket_bits(s_total + max(
-            int(b_counts[a:b].sum()) for a, b in strips))
-        t0 = self._phase(spent, "keygen count", t0)
-        if s_total > _INT32_MAX:
-            raise ValueError("the smaller side has 2^31 keys or more")
-        skeys, spays = keygen_emit(words, row_word, lengths, s_ids, zob,
-                                   s_ends, s_total)
-        t0 = self._phase(spent, "keygen emit", t0)
-        skeys, spays, s_bucket_ends = sj.partition(skeys, spays, bits)
-        t0 = self._phase(spent, "partition", t0)
+        span = metrics.span
+        with span("fastidious.keys"):
+            words, row_word, lengths = self.packed_rows()
+            lens = np.asarray(self.db.lengths, dtype=np.int64)
+            zob = zobrist_tensor(make_zobrist_pair(max(int(lens.max()), 1)),
+                                 dev)
+            heavy = np.asarray(heavy_amps, dtype=np.int64)
+            light = np.asarray(light_amps, dtype=np.int64)
+            small_is_heavy = (7 * lens[heavy] + 4).sum() <= \
+                (7 * lens[light] + 4).sum()
+            small, big = (heavy, light) if small_is_heavy else (light, heavy)
+            s_ids = torch.from_numpy(small).to(dev)
+            b_ids = torch.from_numpy(big).to(dev)
+            s_ends, s_total = sj._cumsum_total(keygen_count(
+                words, row_word, lengths, s_ids))
+            b_counts = keygen_count(words, row_word, lengths,
+                                    b_ids).cpu().numpy()
+            budget = self._strip_keys(s_total)
+            strips = _strips(b_counts, budget)
+            bits = sj.bucket_bits(s_total + max(
+                int(b_counts[a:b].sum()) for a, b in strips))
+            if s_total > _INT32_MAX:
+                raise ValueError("the smaller side has 2^31 keys or more")
+            skeys, spays = keygen_emit(words, row_word, lengths, s_ids, zob,
+                                       s_ends, s_total)
+        with span("fastidious.partition"):
+            skeys, spays, s_bucket_ends = sj.partition(skeys, spays, bits)
 
         best = torch.full((self.n,), _INT32_MAX, dtype=torch.int32,
                           device=dev)
         count = torch.zeros((), dtype=torch.int64, device=dev)
         for a, b in strips:
-            ids = b_ids[a:b]
-            cum = np.cumsum(b_counts[a:b], dtype=np.int64)
-            ends, total = torch.from_numpy(cum).to(dev), int(cum[-1])
-            t0 = self._phase(spent, "keygen count", t0)
-            bkeys, bpays = keygen_emit(words, row_word, lengths, ids, zob,
-                                       ends, total)
-            t0 = self._phase(spent, "keygen emit", t0)
-            bkeys, bpays, b_bucket_ends = sj.partition(bkeys, bpays, bits)
-            t0 = self._phase(spent, "partition", t0)
-            pairs = join_pairs(skeys, spays, s_bucket_ends, bkeys, bpays,
-                               b_bucket_ends)
-            del bkeys, bpays, b_bucket_ends
-            t0 = self._phase(spent, "join", t0)
-            ok = verify(words, row_word, lengths, s_ids, s_ends, ids, ends,
-                        pairs, small_is_heavy, best)
-            count += ok.sum()
-            del pairs, ok
-            t0 = self._phase(spent, "verify", t0)
-        best = best.cpu().numpy()
-        total = int(count)
-        t0 = self._phase(spent, "D2H", t0)
-        graft_cand = np.where(best == _INT32_MAX, -1, best.astype(np.int64))
-        self._phase(spent, "host finish", t0)
-        for name in PHASES:
-            if name in spent:
-                sys.__stderr__.write(
-                    f"[timing] graft ({dev.type}) {name:<14} "
-                    f"{spent[name]:8.3f}s\n")
+            with span("fastidious.keys"):
+                ids = b_ids[a:b]
+                cum = np.cumsum(b_counts[a:b], dtype=np.int64)
+                ends, total = torch.from_numpy(cum).to(dev), int(cum[-1])
+                bkeys, bpays = keygen_emit(words, row_word, lengths, ids,
+                                           zob, ends, total)
+            with span("fastidious.partition"):
+                bkeys, bpays, b_bucket_ends = sj.partition(bkeys, bpays,
+                                                           bits)
+            with span("fastidious.join"):
+                pairs = join_pairs(skeys, spays, s_bucket_ends, bkeys, bpays,
+                                   b_bucket_ends)
+                del bkeys, bpays, b_bucket_ends
+            with span("fastidious.verify"):
+                ok = verify(words, row_word, lengths, s_ids, s_ends, ids,
+                            ends, pairs, small_is_heavy, best)
+                count += ok.sum()
+                del pairs, ok
+        with span("fastidious.to_host"):
+            best = best.cpu().numpy()
+            total = int(count)
+            graft_cand = np.where(best == _INT32_MAX, -1,
+                                  best.astype(np.int64))
         return total, graft_cand
 
 

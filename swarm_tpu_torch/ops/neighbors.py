@@ -297,8 +297,11 @@ class NeighborIndex:
         the native builder."""
         if len(self.lengths) == 0 or self.uses_native():
             return
-        self._engine = self._device_engine()
-        self._engine.start()
+        from .. import metrics
+
+        with metrics.span("d1_network.start"):
+            self._engine = self._device_engine()
+            self._engine.start()
 
     def build_network(self, no_break: bool, abundances: np.ndarray,
                       keep_rows: bool = False):
@@ -308,10 +311,18 @@ class NeighborIndex:
         Edge lists are returned sorted by (from, to). With keep_rows the
         device engine's packed rows stay in self.packed_rows.
         """
-        from .. import _native, metrics
+        from .. import metrics
 
         if len(self.lengths) == 0:
             return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
+        with metrics.span("d1_network.build"):
+            ef, et = self._build(no_break, abundances, keep_rows)
+        metrics.record(**{"d1_network.edges": len(ef)})
+        return ef, et
+
+    def _build(self, no_break, abundances, keep_rows):
+        from .. import _native, metrics
+
         if self.uses_native():
             ef, et = _native.d1_network(
                 self.db.codes, self.db.offsets, self.db.lengths,
@@ -320,8 +331,9 @@ class NeighborIndex:
             )
             metrics.record(d1_join_comparisons=int(len(ef)))
             return ef, et
-        engine = self._engine or self._device_engine()
-        self._engine = None
+        if self._engine is None:
+            self.start_network()
+        engine, self._engine = self._engine, None
         edges = engine.build_network(no_break, abundances)
         if keep_rows:
             self.packed_rows = engine.packed_rows

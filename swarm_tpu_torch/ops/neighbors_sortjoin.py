@@ -65,10 +65,6 @@ arithmetic to speak of, so the plain versions hold 32-bit values in
 int64 and mask after every add, multiply and shift.
 """
 
-import os
-import sys
-import time
-
 import numpy as np
 import torch
 
@@ -771,31 +767,22 @@ class SortJoinNeighborEngine:
     start() copies the code arena to the device as it is and enqueues
     the keygen's count pass, which packs the rows in the ragged layout;
     build_network() reads the key count back and runs keygen, partition,
-    join, dedup and verify on the device, then the host finish. With
-    SWARM_TPU_TIMING set it writes a `[timing] d1 join` line a phase,
-    the device synchronised between phases.
+    join, dedup and verify on the device, then the host finish. Each
+    step is a span of the run's record (metrics.py), ``d1_network.`` and
+    STEPS' name; none synchronises the device.
     """
+
+    #: build_network's spans, in order (``d1_network.<step>``)
+    STEPS = ("keys", "partition", "join", "verify", "to_host", "finish")
 
     def __init__(self, db, device=None):
         self.db = db
         self.n = len(db)
         self.device = default_device() if device is None \
             else torch.device(device)
-        self._timing = bool(os.environ.get("SWARM_TPU_TIMING"))
         self._rows = None  # (words, row_word, lengths, ends of key counts)
         #: (words, row_word, lengths) once build_network ran
         self.packed_rows = None
-
-    def _phase(self, name, t0):
-        if not self._timing:
-            return t0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        sys.__stderr__.write(
-            f"[timing] d1 join ({self.device.type}) {name:<14} "
-            f"{now - t0:8.3f}s\n")
-        return now
 
     def arena(self):
         """(codes [N] uint8, offsets [n] int64, lengths [n] int32,
@@ -820,13 +807,10 @@ class SortJoinNeighborEngine:
         so that the device works while the host checks for duplicates."""
         if self.n == 0 or self._rows is not None:
             return
-        t0 = time.perf_counter()
         codes, offsets, lengths, row_word, n_words = self.arena()
-        t0 = self._phase("H2D", t0)
         counts, words = keygen_count(codes, offsets, lengths, row_word,
                                      n_words)
         ends = torch.cumsum(counts, dim=0, dtype=torch.int64)
-        self._phase("count+pack", t0)
         self._rows = (words, row_word, lengths, ends)
 
     def build_network(self, no_break: bool, abundances: np.ndarray):
@@ -839,26 +823,25 @@ class SortJoinNeighborEngine:
         words, row_word, lengths, ends = self._rows
         self._rows = None
         self.packed_rows = (words, row_word, lengths)
-        t0 = time.perf_counter()
-        keys, owners = keygen_emit(words, row_word, lengths, ends,
-                                   int(ends[-1]))
-        t0 = self._phase("keygen emit", t0)
-        keys, owners, bucket_ends = partition(keys, owners,
-                                              bucket_bits(keys.numel()))
-        t0 = self._phase("partition", t0)
-        cand = join_pairs(keys, owners, bucket_ends)
-        del keys, owners, bucket_ends
-        t0 = self._phase("join", t0)
-        uniq = torch.unique_consecutive(torch.sort(cand).values)
-        good = uniq[verify_pairs(words, row_word, lengths, uniq)]
-        t0 = self._phase("verify+dedup", t0)
-        good = good.cpu().numpy()
-        t0 = self._phase("D2H", t0)
-        metrics.record(d1_join_comparisons=int(cand.numel()))
+        with metrics.span("d1_network.keys"):
+            keys, owners = keygen_emit(words, row_word, lengths, ends,
+                                       int(ends[-1]))
+        with metrics.span("d1_network.partition"):
+            keys, owners, bucket_ends = partition(keys, owners,
+                                                  bucket_bits(keys.numel()))
+        with metrics.span("d1_network.join"):
+            cand = join_pairs(keys, owners, bucket_ends)
+            del keys, owners, bucket_ends
+        with metrics.span("d1_network.verify"):
+            uniq = torch.unique_consecutive(torch.sort(cand).values)
+            good = uniq[verify_pairs(words, row_word, lengths, uniq)]
+        with metrics.span("d1_network.to_host"):
+            good = good.cpu().numpy()
+        metrics.record(**{"d1_join_comparisons": cand.numel(),
+                          "d1_network.pairs": len(good)})
         # unique verified pairs a < b, sorted by (a, b): both directions,
         # the abundance rule, sorted by (from, to)
-        ef, et = _native.d1_finish_edges(
-            good >> 32, good & MASK32, np.asarray(abundances, np.int64),
-            no_break)
-        self._phase("host finish", t0)
-        return ef, et
+        with metrics.span("d1_network.finish"):
+            return _native.d1_finish_edges(
+                good >> 32, good & MASK32, np.asarray(abundances, np.int64),
+                no_break)

@@ -136,14 +136,15 @@ def test_launcher_d1_sortjoin_engine_holds_no_jax(tmp_path):
              "SWARM_TPU_D1_NATIVE_MAX": "0", "SWARM_TPU_TIMING": "1",
              "PYTHONPATH": str(REPO_ROOT)})
     assert r.returncode == 0, r.stderr.decode()
-    assert b"[timing] d1 join (cpu) verify+dedup" in r.stderr
+    assert b"[timing] d1 join (cpu) verify" in r.stderr
     assert (tmp_path / "out.txt").stat().st_size > 0
 
 
 def test_launcher_d1_engine_on_mixed_lengths_holds_no_jax(tmp_path):
     """-d 1 -o -s -u -i -w on a mixed-length corpus with the torch engine
     forced: the engine packs its ragged rows (its [timing] lines show
-    the count and pack pass) and imports nothing of the JAX side."""
+    its start: the arena's copy and the count and pack pass) and imports
+    nothing of the JAX side."""
     from test_torch_cli import mixed_lengths_fasta
 
     (tmp_path / "in.fasta").write_text(mixed_lengths_fasta())
@@ -158,7 +159,7 @@ def test_launcher_d1_engine_on_mixed_lengths_holds_no_jax(tmp_path):
              "SWARM_TPU_D1_NATIVE_MAX": "0", "SWARM_TPU_TIMING": "1",
              "PYTHONPATH": str(REPO_ROOT)})
     assert r.returncode == 0, r.stderr.decode()
-    assert b"[timing] d1 join (cpu) count+pack" in r.stderr
+    assert b"[timing] d1 join (cpu) start" in r.stderr
     for name in ("out.txt", "stats.txt", "uclust.txt", "structure.txt",
                  "seeds.fasta"):
         assert (tmp_path / name).stat().st_size > 0

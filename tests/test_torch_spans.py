@@ -272,3 +272,221 @@ def test_readers_on_the_programs_own_file(corpus, monkeypatch):
     steps = sum(values[f"d2_network.{step}_s"]
                 for step in ("screen", "to_host", "diffs", "csr"))
     assert steps <= build + 4e-6
+
+
+# ---- the d=1 network and -f's graft -------------------------------------
+
+#: the spans of a -d 1 -f run on the sort-join engine and the device
+#: graft, each with its parent
+D1F = {"d1_network.build": "Building network:",
+       **{f"d1_network.{step}": "d1_network.build" for step in (
+           "keys", "partition", "join", "verify", "to_host", "finish")},
+       "fastidious.graft":
+           "Checking heavy swarm amplicons against Bloom filter",
+       **{f"fastidious.{step}": "fastidious.graft" for step in (
+           "keys", "partition", "join", "verify", "to_host")}}
+#: the sort-join network and the device graft at any n, on the CPU
+D1F_ENGINES = {"SWARM_TPU_D1_NATIVE_MAX": "0",
+               "SWARM_TPU_GRAFT_PROBE_MAX": "0"}
+D1F_READERS = ("d1_network.build_s", "d1_network.finish_s",
+               "d1.dup_check_s", "d1.cluster_s", "fastidious.attach_s",
+               "d1.writers_s", "fastidious.graft_s")
+
+
+def _d1f_env(mp):
+    for key in list(os.environ):
+        if key.startswith(("SWARM_TPU_", "SWARM_TORCH_")):
+            mp.delenv(key)
+    for key, value in D1F_ENGINES.items():
+        mp.setenv(key, value)
+
+
+def cluster_d1f(root):
+    argv = ["-d", "1", "-f", "-l", str(root / "log.txt")]
+    for flag in ("-o", "-s", "-i", "-w"):
+        argv += [flag, str(root / f"out{flag}")]
+    argv.append(str(root / "in.fasta"))
+    t0 = time.perf_counter()
+    assert run(argv, "swarm", device="cpu") == 0
+    return t0, time.perf_counter()
+
+
+@pytest.fixture(scope="module")
+def d1f_run(tmp_path_factory):
+    """One -d 1 -f run, timed and traced, of 2,000 reads of 150 nt at 1%
+    errors a base (hundreds of light swarms to graft) on the sort-join
+    network and the device graft: what it left in the record, the log,
+    the [timing] lines and the trace file, for the tests below."""
+    import io
+    import sys
+
+    from swarmbench.generators import reads
+
+    root = tmp_path_factory.mktemp("d1f")
+    with open(os.path.join(os.path.dirname(__file__), "..", "swarmbench",
+                           "traffic", "reads-150nt-1m.json")) as fh:
+        params = json.load(fh)
+    params.update(amplicons=2000, community=dict(
+        params["community"], sequences=220), errors=dict(
+        params["errors"], per_base=0.01))
+    reads.make_corpus(params, 2 ** 32 + 9).write(root / "in.fasta", 1)
+    err = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        _d1f_env(mp)
+        mp.setenv("SWARM_TPU_TIMING", "1")
+        mp.setenv("SWARM_TPU_TRACE", str(root / "trace.json"))
+        mp.setattr(sys, "__stderr__", err)
+        t0, t1 = cluster_d1f(root)
+    events = json.loads((root / "trace.json").read_text())["traceEvents"]
+    return SimpleNamespace(
+        root=root, t0=t0, t1=t1, spans=list(metrics.spans),
+        counters=dict(metrics.last_run), log=(root / "log.txt").read_text(),
+        stderr=err.getvalue(),
+        phases=[(e["name"], e["ts"] / 1e6, (e["ts"] + e["dur"]) / 1e6)
+                for e in events])
+
+
+def test_d1f_spans_nested_and_once(d1f_run):
+    names = [s.name for s in d1f_run.spans]
+    spans = {s.name: s for s in d1f_run.spans}
+    for name, parent in D1F.items():
+        want = 1 if name.startswith("d1_network.") or name in (
+            "fastidious.graft", "fastidious.to_host") else None
+        assert name in names, name
+        if want:
+            assert names.count(name) == want, name
+        assert all(s.parent == parent for s in d1f_run.spans
+                   if s.name == name), name
+    assert names.count("d1_network.start") == 1
+    # started before the duplicate check, which overlaps the card's work
+    assert spans["d1_network.start"].end <= \
+        spans["Hashing sequences:"].start
+    for s in d1f_run.spans:
+        assert d1f_run.t0 <= s.start <= s.end <= d1f_run.t1, s.name
+        if s.parent is not None:
+            up = spans[s.parent]
+            assert up.start <= s.start <= s.end <= up.end, s.name
+    at = spans["d1_network.build"].start
+    for step in ("keys", "partition", "join", "verify", "to_host",
+                 "finish"):
+        s = spans[f"d1_network.{step}"]
+        assert at <= s.start
+        at = s.end
+
+
+def test_d1f_counters_equal_the_log(d1f_run, monkeypatch):
+    c = d1f_run.counters
+
+    def logged(pattern):
+        import re
+
+        return int(re.search(pattern, d1f_run.log).group(1))
+
+    assert c["graft_join_comparisons"] == logged(
+        r"Got (\d+) graft candidates") > 0
+    assert c["fastidious.grafts"] == logged(r"Made (\d+) grafts") > 0
+    assert c["fastidious.light_amplicons"] == logged(
+        r"Light swarms: \d+, with (\d+) amplicons")
+    assert c["fastidious.heavy_amplicons"] == logged(
+        r"Heavy swarms: \d+, with (\d+) amplicons")
+    assert c["fastidious.light_amplicons"] + \
+        c["fastidious.heavy_amplicons"] == 2000
+    assert 0 < c["d1_network.pairs"] <= c["d1_join_comparisons"]
+    assert c["d1_network.pairs"] <= c["d1_network.edges"] <= \
+        2 * c["d1_network.pairs"]
+    # the native builder hands on the same edges, and keeps no join
+    _d1f_env(monkeypatch)
+    monkeypatch.setenv("SWARM_TPU_D1_NATIVE_MAX", str(1 << 30))
+    cluster_d1f(d1f_run.root)
+    native = metrics.last_run
+    assert native["d1_network.edges"] == c["d1_network.edges"]
+    assert "d1_network.pairs" not in native
+    assert "d1_network.build" in by_name() and \
+        "d1_network.keys" not in by_name()
+
+
+def test_d1f_timing_lines_print_the_spans(d1f_run):
+    lines = [ln.split() for ln in d1f_run.stderr.splitlines()
+             if ln.startswith(("[timing] d1 join", "[timing] graft"))]
+    got = {(ln[1], ln[-2]): float(ln[-1].rstrip("s")) for ln in lines}
+    d1 = ("start", "keys", "partition", "join", "verify", "to_host",
+          "finish")
+    graft = ("keys", "partition", "join", "verify", "to_host")
+    assert [ln[-2] for ln in lines if ln[1] == "d1"] == list(d1)
+    assert [ln[-2] for ln in lines if ln[1] == "graft"] == list(graft)
+    assert {ln[-3] for ln in lines} == {"(cpu)"}
+    for kind, prefix, steps in (("d1", "d1_network", d1),
+                                ("graft", "fastidious", graft)):
+        for step in steps:
+            assert got[kind, step] == pytest.approx(sum(
+                s.end - s.start for s in d1f_run.spans
+                if s.name == f"{prefix}.{step}"), abs=1e-3)
+
+
+def test_d1f_readers_on_the_programs_own_file(d1f_run, monkeypatch):
+    monkeypatch.setattr(metrics, "last_run", d1f_run.counters)
+    ctx = _ctx([_run_of(d1f_run.phases)])
+    values = {m: metric_reader(m)(ctx) for m in D1F_READERS}
+    assert all(v is not None and v >= 0 for v in values.values()), values
+    assert values["d1_network.finish_s"] <= values["d1_network.build_s"]
+    pct = metric_reader("d1_network.verified_pct")(ctx)
+    assert 0 < pct <= 100
+    assert pct == pytest.approx(100 * d1f_run.counters["d1_network.pairs"]
+                                / d1f_run.counters["d1_join_comparisons"])
+    # a program without these spans (the parent's): nothing, no raise
+    bare = _ctx([_run_of([("Reading sequences:", 1.0, 9.0)])])
+    for name in ("d1_network.build_s", "d1_network.finish_s",
+                 "fastidious.graft_s"):
+        assert metric_reader(name)(bare) is None
+
+
+def _kernel_trace():
+    """A synthetic device trace of one run: the program's spans as
+    record_function ranges, launches tied to kernels by correlation."""
+    def x(cat, name, ts, dur, corr=None):
+        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+
+    return [
+        x("user_annotation", "swarmbench.run", 0, 1000),
+        x("user_annotation", "d1_network.start", 10, 40),
+        x("user_annotation", "d1_network.build", 100, 200),
+        x("user_annotation", "fastidious.graft", 400, 100),
+        # launched inside the spans, run later on the card
+        x("cuda_runtime", "cudaLaunchKernel", 20, 2, corr=1),
+        x("kernel", "d1_keygen_kernel", 60, 30, corr=1),
+        x("cuda_runtime", "cudaLaunchKernel", 150, 2, corr=2),
+        x("kernel", "d1_partition_scatter_kernel", 155, 10, corr=2),
+        x("cuda_driver", "cuLaunchKernel", 420, 2, corr=3),
+        x("kernel", "d1_partition_scatter_kernel", 430, 7, corr=3),
+        x("cuda_runtime", "cudaLaunchKernel", 450, 2, corr=4),
+        x("kernel", "graft_join_count_kernel", 460, 5, corr=4),
+        # outside every span: counted by neither
+        x("cuda_runtime", "cudaLaunchKernel", 600, 2, corr=5),
+        x("kernel", "d2_screen_kernel", 610, 50, corr=5),
+        x("gpu_memcpy", "Memcpy HtoD", 30, 5, corr=6),
+        x("cuda_runtime", "cudaMemcpyAsync", 25, 2, corr=6),
+    ]
+
+
+def test_kernel_readers_attribute_by_correlation():
+    from swarmbench import trace
+
+    events = _kernel_trace()
+    ctx = {"events": events, "window": trace.runs_of(events),
+           "runs": [object()]}
+    assert metric_reader("d1_network.kernel_ms")(ctx) == pytest.approx(
+        (30 + 10) / 1e3)
+    assert metric_reader("fastidious.kernel_ms")(ctx) == pytest.approx(
+        (7 + 5) / 1e3)
+    ctx["runs"] = [object(), object()]
+    assert metric_reader("fastidious.kernel_ms")(ctx) == pytest.approx(
+        6 / 1e3)
+    # no program span (the parent's trace), or no trace: nothing
+    bare = [e for e in events if not e["name"].startswith(
+        ("d1_network.", "fastidious."))]
+    for name in ("d1_network.kernel_ms", "fastidious.kernel_ms"):
+        assert metric_reader(name)(dict(ctx, events=bare)) is None
+        assert metric_reader(name)(dict(ctx, events=None)) is None
