@@ -50,6 +50,12 @@ final line:
    synthetic tasks at the benchmark cells' edge counts, timed there
    beside its bound, its plain version, torch.sort of the same keys and
    the engine's readback of the CSR;
+4c. kernel d2_tasks (the network engine's diff tasks laid out on the card
+   from the screen's pairs) against its plain version on the card,
+   exactly, with no_break off and on, on TASKS_EDGES (no pair, one, a
+   tile's edges, 2^20 + 3; abundances all tied or none) and on synthetic
+   pairs at the benchmark cells' pair counts, timed there beside its
+   bound, its plain version and the host route it replaced;
 5. the d=1 kernels d1_keygen (its count and pack pass, which packs the
    code arena into ragged rows, and its emit pass), d1_partition,
    d1_join and d1_verify against their plain versions on the card,
@@ -95,7 +101,7 @@ final line:
    n at d = 1), whose output files the run's must equal byte for byte:
    - d2_100k (99,831 amplicons of 142-158 nt) and d2_long (19,991 of
      ~400 nt): `swarm -d 2`, the network engine, kernels d2_screen,
-     d2_extract, d2_diffs and d2_csr;
+     d2_extract, d2_tasks, d2_diffs and d2_csr;
    - d2_device (20,808 amplicons of ~400 nt in dense clouds): `swarm
      -d 2` under SWARM_TPU_D2_ENGINE=device, kernel banded_scores;
    - d2_wide (5,204 amplicons, `-d 5 -m 1 -p 20 -g 1 -e 1`, band 70):
@@ -1936,6 +1942,128 @@ def phase_d2_csr(dev, edges):
     return {"d2_csr": row}
 
 
+#: the task layout's timed inputs: (n, cloud) of screen_order_pairs
+#: giving about the benchmark cells' candidate pairs (2.0e7 at 500,000
+#: amplicons, d = 2; 2.4e7 at 300,000, d = 3); synthetic clouds in the
+#: screen's order with abundances 1-3, not the cells' own
+TASKS_TIMED = {"d2_150nt_500k": (500_000, 81),
+               "d3_253nt_300k": (300_000, 161)}
+#: (pairs, abundances): the task layout's exact cases on the card: none,
+#: one, a tile's edges (the kernels' tile is 2,048 pairs) and 2^20 + 3,
+#: with every abundance tied, none tied, and either under no_break
+TASKS_EDGES = [(0, "ties"), (1, "distinct"), (2047, "ties"),
+               (2048, "distinct"), (2049, "ties"), ((1 << 20) + 3, "ties"),
+               ((1 << 20) + 3, "distinct")]
+
+
+def tasks_bytes(n_pairs, n_tasks, n):
+    """Bytes the task layout's function needs: every pair's two int32
+    ids and every amplicon's int64 abundance read once, every task's two
+    int64 ids written once."""
+    return 8 * n_pairs + 8 * n + 16 * n_tasks
+
+
+def phase_d2_tasks(dev, edges):
+    """d2_tasks (the network engine's diff tasks laid out on the card from
+    the screen's pairs) against its plain version on the card, exactly,
+    with no_break off and on: with `edges` on TASKS_EDGES; then at the
+    cells' pair counts (TASKS_TIMED), timed there: the wrapper (count,
+    scan, the one readback, emit; CUDA events around whole calls), its
+    bound (the bytes its function needs over the memory rate), the plain
+    version on the card, and the host route it replaced (the pairs' copy
+    to the host, directions and task_layout, the tasks' upload; host
+    clock). Returns {"d2_tasks": row}."""
+    import numpy as np
+    import torch
+
+    from swarm_tpu_torch.corpora import screen_order_pairs
+    from swarm_tpu_torch.ops import d2_diffs
+    from swarm_tpu_torch.ops import d2_network as d2n
+
+    def check(name, ga, gb, ab, n):
+        """Both layouts equal the plain version's; returns the abundance
+        rule's (no_break off)."""
+        for no_break in (True, False):
+            got = d2n.d2_tasks(ga, gb, ab, n, no_break)
+            want = d2n.tasks_reference(ga, gb, ab, n, no_break)
+            torch.cuda.synchronize()
+            if got[2] or want[2]:
+                raise AssertionError(f"d2_tasks {name}: flagged pairs in "
+                                     f"order")
+            for x, y in zip(got[:2], want[:2]):
+                if x.dtype != y.dtype or not torch.equal(x, y):
+                    raise AssertionError(f"d2_tasks {name} (no_break "
+                                         f"{no_break}): differs from the "
+                                         f"plain version")
+        return got
+
+    if edges:
+        rng = np.random.default_rng(23)
+        for size, kind in TASKS_EDGES:
+            n = max(2 * size, 2)
+            pa = np.sort(rng.integers(0, n - 1, size=size))
+            pb = pa + 1 + rng.integers(0, 4, size=size) % (n - 1 - pa)
+            ab = np.ones(n, np.int64) if kind == "ties" else \
+                rng.permutation(n).astype(np.int64)
+            got = check(f"{size}_{kind}",
+                        *(torch.from_numpy(x.astype(np.int32)).to(dev)
+                          for x in (pa, pb)), torch.from_numpy(ab).to(dev), n)
+            say(f"d2_tasks {size} pairs, {kind}: {got[0].numel()} tasks "
+                f"equal to the plain version")
+    row = {"max_abs_err": 0}
+    for i, (cell, (n, cloud)) in enumerate(TASKS_TIMED.items()):
+        t0 = time.perf_counter()
+        pa, pb, ab = screen_order_pairs(n, cloud, 24 + i)
+        made_s = time.perf_counter() - t0
+        ga, gb = (torch.from_numpy(x.astype(np.int32)).to(dev)
+                  for x in (pa, pb))
+        abd = torch.from_numpy(ab).to(dev)
+        tasks = check(cell, ga, gb, abd, n)[0].numel()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = d2n.launches["d2_tasks"]
+        ms = cuda_ms(lambda: d2n.d2_tasks(ga, gb, abd, n, False), 5)
+        launches = (d2n.launches["d2_tasks"] - before) // 6
+        peak = torch.cuda.max_memory_allocated() - base
+        plain_ms = cuda_ms(
+            lambda: d2n.tasks_reference(ga, gb, abd, n, False), 2)
+
+        def host_route():
+            qa, qb = d2n.pairs_to_host(ga, gb, n)
+            tq, td = d2_diffs.task_layout(
+                qa, qb, *d2_diffs.directions(ab, qa, qb, False))
+            out = (torch.from_numpy(tq).to(dev), torch.from_numpy(td).to(dev))
+            torch.cuda.synchronize()
+            return out
+
+        host_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host_route()
+            host_s.append(time.perf_counter() - t0)
+        needed = tasks_bytes(len(pa), tasks, n)
+        bound_ms = needed / PEAK_BYTES_PER_S * 1e3
+        entry = {
+            "n": n, "pairs": len(pa), "tasks": tasks, "launches": launches,
+            "ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bytes_needed": needed, "roofline_pct": 100 * bound_ms / ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "host_route_ms": [1e3 * t for t in host_s],
+            "device_peak_bytes": peak, "pairs_made_s": made_s}
+        say(f"d2_tasks {cell}-sized: {json.dumps(entry)}")
+        if i == 0:
+            row.update(entry)
+            row["registers"] = {k: ptxas_report(k) for k in (
+                "d2_tasks_count_kernel", "d2_tasks_emit_kernel")}
+        else:
+            row[cell] = entry
+        del ga, gb, abd
+        torch.cuda.empty_cache()
+    return {"d2_tasks": row}
+
+
 def run_cli(argv, workdir, env=None):
     """One CLI run of the port in `workdir` with the variables of `env`
     set; returns (seconds, [timing] lines)."""
@@ -2479,6 +2607,7 @@ def dispatch_diffs(dev, source, state, threads):
     The native diffs below, the d2_diffs kernel from the threshold up;
     the adjacency equal to the native diffs'."""
     import numpy as np
+    import torch
 
     from swarm_tpu_torch.corpora import pairs_to_count, read_db
     from swarm_tpu_torch.ops import d2_diffs
@@ -2494,8 +2623,9 @@ def dispatch_diffs(dev, source, state, threads):
                  + ("_COLD" if state == "cold" else ""))
     rec = {"threshold": at, "points": {}}
     for k in (at - 1, at):
-        qa, qb = pairs_to_count(pa, pb, eng.n, k)
-        eng.candidate_pairs = lambda: (qa, qb, k)
+        qa, qb = (torch.from_numpy(x.astype(np.int32)).to(dev)
+                  for x in pairs_to_count(pa, pb, eng.n, k))
+        eng.candidate_pairs_device = lambda shards=None: (qa, qb, k)
         adj = {}
         for mode in ("auto", "native"):
             os.environ["SWARM_TPU_D2_DIFFS"] = mode
@@ -2652,7 +2782,8 @@ D1_NATIVE = {"SWARM_TPU_D1_NATIVE_MAX": str(1 << 40)}
 #: insertion_run(length=LONG_RUN): 4,504 rows sharing one key, a bucket
 #: beyond the join kernel's shared-memory tile (its oversized variant)
 LONG_RUN = 1500
-D2_KERNELS = ("d2_screen", "d2_extract", "d2_diffs", "d2_csr")
+D2_KERNELS = ("d2_screen", "d2_extract", "d2_diffs", "d2_csr",
+              "d2_tasks")
 D1_KERNELS = ("d1_keygen", "d1_partition", "d1_join", "d1_verify")
 GRAFT_KERNELS = ("graft_keygen", "graft_join", "graft_verify")
 #: the native engines of -d 1 -f: the d=1 network and the host graft join
@@ -2776,6 +2907,7 @@ def run_quick(dev, work):
     rows.update(phase_nw_scores(dev, corpus["d2_device"]))
     rows.update(phase_d2_screen(dev, corpus, work, edges=False))
     rows.update(phase_d2_csr(dev, edges=False))
+    rows.update(phase_d2_tasks(dev, edges=False))
     rows.update(phase_d1_kernels(dev, corpus, edges=False))
     rows.update(phase_graft_kernels(dev, corpus, work, edges=False))
     paths = {name: run_main_path(name, corpus, work) for name in QUICK_PATHS}
@@ -2798,6 +2930,7 @@ def run_phases(dev, work):
         rows["banded_scores"]["max_abs_err"], phase_banded_scores_edges(dev))
     rows.update(phase_d2_screen(dev, corpus, work, edges=True))
     rows.update(phase_d2_csr(dev, edges=True))
+    rows.update(phase_d2_tasks(dev, edges=True))
     rows.update(phase_d1_kernels(dev, corpus, edges=True))
     rows.update(phase_graft_kernels(dev, corpus, work, edges=True))
 
@@ -2828,6 +2961,9 @@ def run_phases(dev, work):
         # no TPU kernel: the JAX engine sorts its edges on the host
         "d2_csr": ("swarm_tpu_torch/csrc/d2_csr.cu",
                    "none (np.lexsort, swarm_tpu/ops/d2_network.py:490)"),
+        # nor does it lay its diff tasks out on the device
+        "d2_tasks": ("swarm_tpu_torch/csrc/d2_tasks.cu",
+                     "none (numpy, swarm_tpu/ops/d2_diffs_jax.py:209)"),
         # the d=1 path's device work was XLA programs, not Pallas kernels
         "d1_keygen": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:142"),
         "d1_partition": (d1, "swarm_tpu/ops/neighbors_sortjoin.py:484"),

@@ -33,8 +33,8 @@ The rules, each a constant of the port that picks the engine of a run:
   of gen_corpus(n=32,768, length=150 and 400) at d = 2 and 6, cut or
   filled with other distinct pairs (corpora.pairs_to_count: the CSR the
   card builds after its diffs takes no repeated pair) to 512 to 65,536
-  pairs; SWARM_TPU_D2_DIFFS=device against
-  native; -t 1 and -t cores.
+  pairs, handed to the engine on its device as the screen leaves them;
+  SWARM_TPU_D2_DIFFS=device against native; -t 1 and -t cores.
 - batch: DeviceAligner.MIN_DEVICE_BATCH (ops/search_torch.py): a seed's
   target list on the card from that length up. One seed's list of L =
   256 to 16,384 targets (its gen-1 qgram survivors, repeated to L):
@@ -308,12 +308,17 @@ class DiffsSetup:
     def call(self, side, size, threads):
         """One build_adjacency of `size` pairs on `side`: (seconds, the
         adjacency)."""
+        import numpy as np
+        import torch
+
         from swarm_tpu_torch.corpora import pairs_to_count
 
-        pa, pb = pairs_to_count(self.pa, self.pb, len(self.db), size)
+        ga, gb = (torch.from_numpy(x.astype(np.int32)).to(self.device)
+                  for x in pairs_to_count(self.pa, self.pb, len(self.db),
+                                          size))
         eng = self.eng
         eng.threads = threads
-        eng.candidate_pairs = lambda: (pa, pb, size)
+        eng.candidate_pairs_device = lambda shards=None: (ga, gb, size)
         eng.__dict__.pop("_diff_engine", None)  # a run builds its own
         env = FORCE["diffs"][side == "host"]
         saved = os.environ.get("SWARM_TPU_D2_DIFFS")

@@ -135,6 +135,13 @@ def load() -> ctypes.CDLL:
             lib.swarm_d2_csr_finish.argtypes = [vp, vp, i64, i64, vp, vp, vp]
             for fn in ("tile", "count", "scatter", "finish"):
                 getattr(lib, f"swarm_d2_csr_{fn}").restype = i32
+            lib.swarm_d2_tasks_tile.argtypes = []
+            lib.swarm_d2_tasks_count.argtypes = [
+                vp, vp, vp, i64, i64, i32, vp, vp]
+            lib.swarm_d2_tasks_emit.argtypes = [
+                vp, vp, vp, i64, i64, i32, vp, vp, vp, vp]
+            for fn in ("tile", "count", "emit"):
+                getattr(lib, f"swarm_d2_tasks_{fn}").restype = i32
             lib.swarm_d1_keygen_count.argtypes = [
                 vp, i64, vp, vp, vp, i64, vp, i64, vp, vp]
             lib.swarm_d1_keygen_emit.argtypes = [

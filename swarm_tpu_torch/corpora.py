@@ -672,17 +672,18 @@ def screen_edge_rows(seed, n, d, length=60):
     return [rows[i] for i in rng.permutation(n)]
 
 
-def screen_order_tasks(n, cloud, seed, T=4096, dense=0, d=2):
-    """(tq, td, diffs): int64, int64 and int32 arrays of directed diff
-    tasks as DeviceDiffEngine.diff_tasks lays them out, reverse block
-    first, each block in the screen's (tile step, row, column) order.
-    The n amplicon ids fall into clouds of `cloud` on average (ids drawn
-    at random, as an abundance order scatters a cloud), plus one cloud of
-    `dense` ids (0: none); every two ids of a cloud are a pair; the
-    directions follow the abundance rule on abundances 1-3 (most pairs
-    tie, so both directions run); a task's diff is 0..d, -1 (rejected)
-    for 1% of them."""
-    rng = np.random.default_rng(seed)
+def screen_order_pairs(n, cloud, seed, T=4096, dense=0):
+    """(pa, pb, ab): int64 pairs (a < b) of n amplicon ids in the
+    screen's (tile step, row, column) order, and int64 abundances 1-3 of
+    the ids (most pairs tie). The ids fall into clouds of `cloud` on
+    average (ids drawn at random, as an abundance order scatters a
+    cloud), plus one cloud of `dense` ids (0: none); every two ids of a
+    cloud are a pair."""
+    return _screen_order_pairs(np.random.default_rng(seed), n, cloud, T,
+                               dense)
+
+
+def _screen_order_pairs(rng, n, cloud, T, dense):
     label = rng.integers(0, max(n // max(cloud, 1), 1), size=n)
     if dense:
         label[rng.choice(n, size=min(dense, n), replace=False)] = -1
@@ -701,8 +702,17 @@ def screen_order_tasks(n, cloud, seed, T=4096, dense=0, d=2):
     pa, pb = np.minimum(pa, pb).astype(np.int64), np.maximum(pa, pb).astype(
         np.int64)
     step = np.lexsort((pb, pa, pb // T, pa // T))  # steps I, then J
-    pa, pb = pa[step], pb[step]
-    ab = rng.integers(1, 4, size=n)
+    return pa[step], pb[step], rng.integers(1, 4, size=n).astype(np.int64)
+
+
+def screen_order_tasks(n, cloud, seed, T=4096, dense=0, d=2):
+    """(tq, td, diffs): int64, int64 and int32 arrays of directed diff
+    tasks as DeviceDiffEngine.diff_tasks lays them out, reverse block
+    first, each block in the screen's (tile step, row, column) order:
+    the tasks of screen_order_pairs' pairs that the abundance rule
+    admits; a task's diff is 0..d, -1 (rejected) for 1% of them."""
+    rng = np.random.default_rng(seed)
+    pa, pb, ab = _screen_order_pairs(rng, n, cloud, T, dense)
     need_ab, need_ba = ab[pa] >= ab[pb], ab[pb] >= ab[pa]
     tq = np.concatenate([pb[need_ba], pa[need_ab]])
     td = np.concatenate([pa[need_ba], pb[need_ab]])

@@ -22,7 +22,9 @@ Counters, summed over the run:
    - d>=2: qgram screen evaluations (gen-1 pool scan + subseed scans)
      plus exact alignments;
  - the d>=2 network engine's ``d2_network.alignments`` (directed exact
-   alignments run), ``d2_network.edges`` (directed edges accepted) and
+   alignments run), ``d2_network.device_tasks`` (those laid out on the
+   engine's device, d2_network.d2_tasks; 0 where the native host diffs
+   ran), ``d2_network.edges`` (directed edges accepted) and
    ``d2_network.csr_device_edges`` (those partitioned into the CSR on
    the engine's device; 0 where the native host diffs ran).
 

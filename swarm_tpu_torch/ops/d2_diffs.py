@@ -11,9 +11,10 @@ result equals _native.d2_diffs_pairs.
   with the band written out over W slots, vectorised over tasks.
 - ``d2_diffs``: the wrapper. A CPU tensor goes to the reference; a CUDA
   tensor launches the hand-written kernel (csrc/d2_diffs.cu) or raises.
-- ``DeviceDiffEngine``: keeps the code rows on a device and answers
-  ``diff_tasks``: the directed tasks of the pairs and their diffs, left
-  on the device.
+- ``DeviceDiffEngine``: keeps the code rows and abundances on a device
+  and answers ``diff_tasks``: the directed tasks of the device's pairs,
+  laid out there (d2_network.d2_tasks), and their diffs, left on the
+  device.
 - ``native_tasks``: the same tasks and diffs from the native host kernel
   (_native.d2_diffs_pairs), as CPU tensors.
 """
@@ -200,7 +201,8 @@ def task_layout(pa, pb, need_ab, need_ba):
     directions of the pairs (pa, pb), reverse block first: tq =
     [pb[need_ba], pa[need_ab]], td = [pa[need_ba], pb[need_ab]]. The
     diffs kernel does not care about the order; the network engine's CSR
-    (d2_network.csr_partition) needs it."""
+    (d2_network.csr_partition) needs it. The device's layout,
+    d2_network.d2_tasks, gives the same tasks in the same order."""
     tq = np.concatenate([pb[need_ba], pa[need_ab]]).astype(np.int64)
     td = np.concatenate([pa[need_ba], pb[need_ab]]).astype(np.int64)
     return tq, td
@@ -228,8 +230,9 @@ class DeviceDiffEngine:
 
     Construction uploads the padded code rows once, at a row stride of
     a multiple of 16 bytes (`rows` is the [n, Lmax] view of it, so the
-    plain version sees the same matrix as before); diff_tasks() leaves
-    the tasks and their diffs on the device.
+    plain version sees the same matrix as before), and the abundances
+    (int64); diff_tasks() lays the tasks out on the device and leaves
+    them and their diffs there.
     """
 
     def __init__(self, db, d: int, device: torch.device):
@@ -244,7 +247,8 @@ class DeviceDiffEngine:
         self.rows = torch.from_numpy(rows).to(self.device)[:, :self.Lmax]
         self.lens = torch.from_numpy(
             np.ascontiguousarray(db.lengths, dtype=np.int32)).to(self.device)
-        self.abundances = np.asarray(db.abundances, dtype=np.int64)
+        self.abundances = torch.from_numpy(
+            np.asarray(db.abundances, dtype=np.int64)).to(self.device)
 
     @staticmethod
     def band_for_exact(cutoff: int, go: int, ge: int) -> int:
@@ -253,17 +257,21 @@ class DeviceDiffEngine:
         B = -(-need // ge)
         return max(B, 1)
 
-    def diff_tasks(self, pa, pb, mismatch, go, ge, no_break):
+    def diff_tasks(self, ga, gb, mismatch, go, ge, no_break):
         """(tq, td, diffs) on the device: the directed tasks of the pairs
-        (pa, pb) that the abundance rule admits, int64, in task_layout's
-        order, and their diffs, int32 (-1 = rejected)."""
+        (ga, gb), [N] int32 on the device, a < b, that the abundance rule
+        admits, int64, in task_layout's order (d2_network.d2_tasks), and
+        their diffs, int32 (-1 = rejected). Raises AssertionError, before
+        the diffs launch, where a pair index lies outside [0, n) or a >=
+        b: a decode bug must fail here, not corrupt clusters."""
+        from .d2_network import d2_tasks, pair_fault
+
         cutoff = self.d * max(mismatch, go + ge)
         B = self.band_for_exact(cutoff, go, ge)
-        need_ab, need_ba = directions(self.abundances, pa, pb, no_break)
-        tq, td = task_layout(pa, pb, need_ab, need_ba)
+        tq, td, bad = d2_tasks(ga, gb, self.abundances, self.n, no_break)
+        if bad:
+            raise pair_fault(ga, gb, self.n)
         metrics.record(**{"d2_network.alignments": len(tq)})
-        tq = torch.from_numpy(tq).to(self.device)
-        td = torch.from_numpy(td).to(self.device)
         diffs = d2_diffs(self.rows, self.lens, tq, td, B, int(mismatch),
                          int(go), int(ge), self.d)
         return tq, td, diffs

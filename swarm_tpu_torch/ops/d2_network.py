@@ -32,16 +32,27 @@ device where the exact diffs ran there (csrc/d2_csr.cu on a CUDA
 device), then read back once; on the host, by its plain version
 ``csr_partition_reference``, where the native host diffs ran.
 
+The exact diffs' directed tasks are laid out where the pairs lie
+(``d2_tasks``): on a CUDA device by csrc/d2_tasks.cu, from the screen's
+pairs, which never leave the card on that route; on the CPU by its plain
+version ``tasks_reference``. The native host diffs take the pairs to the
+host (``pairs_to_host``) and lay their tasks out there
+(d2_diffs.task_layout), in the same order.
+
 ``D2NetworkEngine.build_adjacency`` is the run's span ``d2_network.build``
 (metrics.py), its steps the spans ``d2_network.screen`` (the chunk loop),
-``.to_host`` (the pairs' copy to the host), ``.diffs`` (the exact diffs)
-and ``.csr`` (the CSR: the partition, its check and, from the device,
-the readback); it counts the directed alignments the exact diffs run
-(``d2_network.alignments``), the edges they accept
+``.to_host`` (the pairs' concatenation on the engine's device; the name
+is the one a benchmark reader reads), ``.diffs`` (the route's choice;
+the tasks laid out on the device and the exact diffs there, or the
+pairs' copy to the host and the native diffs) and ``.csr`` (the CSR: the
+partition, its check and, from the device, the readback); it counts the
+directed alignments the exact diffs run (``d2_network.alignments``), of
+those the tasks laid out by d2_tasks (``d2_network.device_tasks``, 0
+where the native host diffs ran), the edges they accept
 (``d2_network.edges``) and of those the edges partitioned on the
 engine's device (``d2_network.csr_device_edges``, 0 where the native
-host diffs ran). No step synchronises the device before the CSR's
-readback.
+host diffs ran). No step synchronises the device before the tasks'
+readback of their count.
 """
 
 import os
@@ -55,7 +66,7 @@ PROFILE_BYTES = 128  # 1024-bit qgram parity vector
 PROFILE_BITS = 1024
 
 #: kernel launches made by the wrappers (CUDA tensors only)
-launches = {"d2_screen": 0, "d2_extract": 0, "d2_csr": 0}
+launches = {"d2_screen": 0, "d2_extract": 0, "d2_csr": 0, "d2_tasks": 0}
 #: the CSR partition's passes take at most this many bits of the source
 CSR_DIGIT_BITS = 8
 
@@ -239,11 +250,99 @@ def pairs_to_host(ga, gb, n):
         hi = max(int(pa.max()), int(pb.max()))
         lo = min(int(pa.min()), int(pb.min()))
         if hi >= n or lo < 0:
-            raise AssertionError(
-                f"d2 screen produced out-of-range pair index "
-                f"(min={lo}, max={hi}, n={n})"
-            )
+            raise _out_of_range(lo, hi, n)
     return pa, pb
+
+
+def _out_of_range(lo, hi, n):
+    return AssertionError(f"d2 screen produced out-of-range pair index "
+                          f"(min={lo}, max={hi}, n={n})")
+
+
+def pair_fault(ga, gb, n):
+    """The AssertionError for pairs (ga, gb) that d2_tasks flagged: an
+    index outside [0, n) (pairs_to_host's message), else a pair not in
+    order (a >= b)."""
+    lo = min(int(ga.min()), int(gb.min()))
+    hi = max(int(ga.max()), int(gb.max()))
+    if lo < 0 or hi >= n:
+        return _out_of_range(lo, hi, n)
+    return AssertionError("d2 screen produced a pair out of order (a >= b)")
+
+
+def tasks_reference(ga, gb, abundances, n, no_break):
+    """The plain version of d2_tasks: d2_diffs.task_layout of the
+    directions d2_diffs.directions admits, in torch."""
+    a, b = ga.to(torch.int64), gb.to(torch.int64)
+    if ((a < 0) | (a >= b) | (b >= n)).any():
+        empty = torch.zeros(0, dtype=torch.int64, device=ga.device)
+        return empty, empty.clone(), True
+    if no_break:
+        fwd = rev = torch.ones(a.shape, dtype=torch.bool, device=a.device)
+    else:
+        x, y = abundances[a], abundances[b]
+        fwd, rev = x >= y, y >= x
+    return torch.cat([b[rev], a[fwd]]), torch.cat([a[rev], b[fwd]]), False
+
+
+def _launch(kernel, err):
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    launches[kernel] += 1
+
+
+def d2_tasks(ga, gb, abundances, n, no_break):
+    """(tq, td, bad): the directed diff tasks of the pairs (ga, gb), [N]
+    int32, a < b, in the screen's order, that the abundance rule admits
+    (abundances: [n] int64; every direction under no_break), as int64
+    tensors in d2_diffs.task_layout's order: tq = [gb[need_ba],
+    ga[need_ab]], td = [ga[need_ba], gb[need_ab]], the reverse block
+    first, each block in pair order. bad is True, and no task laid out,
+    where a pair index lies outside [0, n) or a >= b (pair_fault says
+    which). A CUDA tensor launches csrc/d2_tasks.cu's count kernel, scans
+    its counts, reads the tasks' count and the flags' back at once and,
+    where nothing is flagged, launches the emit kernel; a CPU tensor
+    takes tasks_reference."""
+    if ga.dim() != 1 or ga.dtype != torch.int32 or gb.dtype != torch.int32 \
+            or gb.shape != ga.shape or abundances.dtype != torch.int64 or \
+            abundances.shape != (n,):
+        raise ValueError("pairs must be [N] int32 and abundances [n] int64")
+    if len({t.device for t in (ga, gb, abundances)}) != 1:
+        raise ValueError("pairs and abundances must share a device")
+    if ga.device.type == "cpu":
+        return tasks_reference(ga, gb, abundances, n, no_break)
+    if ga.device.type != "cuda":
+        raise ValueError(f"no d2_tasks kernel for device {ga.device}")
+    dev = ga.device
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    N = ga.numel()
+    if N == 0:
+        return empty, empty.clone(), False
+    from .._build import load
+
+    lib = load()
+    ga, gb, abundances = (t.contiguous() for t in (ga, gb, abundances))
+    n_tiles = -(-N // lib.swarm_d2_tasks_tile())
+    counts = torch.empty(3 * n_tiles, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch("d2_tasks", lib.swarm_d2_tasks_count(
+            ga.data_ptr(), gb.data_ptr(), abundances.data_ptr(), N, n,
+            int(bool(no_break)), counts.data_ptr(), stream))
+        ends = torch.cumsum(counts, dim=0, dtype=torch.int64)
+        del counts
+        # the reverse and forward tasks' end, then the flags' count past it
+        tasks, flagged = ends[2 * n_tiles - 1::n_tiles].tolist()
+        if flagged > tasks:
+            return empty, empty.clone(), True
+        tq = torch.empty(tasks, dtype=torch.int64, device=dev)
+        td = torch.empty(tasks, dtype=torch.int64, device=dev)
+        if tasks:
+            _launch("d2_tasks", lib.swarm_d2_tasks_emit(
+                ga.data_ptr(), gb.data_ptr(), abundances.data_ptr(), N, n,
+                int(bool(no_break)), ends.data_ptr(), tq.data_ptr(),
+                td.data_ptr(), stream))
+    return tq, td, False
 
 
 def csr_passes(n):
@@ -269,12 +368,6 @@ def csr_partition_reference(src, dst, diff, n):
         s, torch.arange(n + 1, dtype=s.dtype, device=s.device))
     return (starts.to(torch.int32), t.to(torch.int32), df.to(torch.uint8),
             bad.to(torch.int32).reshape(1))
-
-
-def _csr_launch(err):
-    if err != 0:
-        raise RuntimeError(f"d2_csr kernel launch failed: CUDA error {err}")
-    launches["d2_csr"] += 1
 
 
 def csr_partition(src, dst, diff, n):
@@ -323,7 +416,7 @@ def csr_partition(src, dst, diff, n):
             n_tiles = -(-m // tile)
             counts = torch.empty((1 << width) * n_tiles, dtype=torch.int32,
                                  device=dev)
-            _csr_launch(lib.swarm_d2_csr_count(
+            _launch("d2_csr", lib.swarm_d2_csr_count(
                 cur[0].data_ptr(), cur[2].data_ptr(), m, int(k == 0), shift,
                 width, counts.data_ptr(), stream))
             ends = torch.cumsum(counts, dim=0, dtype=torch.int32)
@@ -337,14 +430,14 @@ def csr_partition(src, dst, diff, n):
                          torch.empty(kept, dtype=torch.uint8, device=dev))
                         for _ in range(2)]
             out = bufs[k % 2]
-            _csr_launch(lib.swarm_d2_csr_scatter(
+            _launch("d2_csr", lib.swarm_d2_csr_scatter(
                 cur[0].data_ptr(), cur[1].data_ptr(), cur[2].data_ptr(), m,
                 n, int(k == 0), shift, width, ends.data_ptr(),
                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
                 bad.data_ptr(), stream))
             cur, m = out, kept
         starts = torch.empty(n + 1, dtype=torch.int32, device=dev)
-        _csr_launch(lib.swarm_d2_csr_finish(
+        _launch("d2_csr", lib.swarm_d2_csr_finish(
             cur[0].data_ptr(), cur[1].data_ptr(), m, n, starts.data_ptr(),
             bad.data_ptr(), stream))
     return starts, cur[1], cur[2], bad
@@ -421,9 +514,19 @@ class D2NetworkEngine:
         self.prof = torch.from_numpy(prof_u8).to(self.device)
         self.lengths = torch.from_numpy(lengths).to(self.device)
 
-    def candidate_pairs(self):
-        """(pa, pb, n_screened): unordered candidate pairs (a < b) as
-        int64 arrays, in (tile pair, row, column) order."""
+    def candidate_pairs_device(self, shards=None):
+        """(ga, gb, n_pairs): every candidate pair (a < b), int32 on the
+        engine's device, in (tile pair, row, column) order, screened over
+        `shards` where given (parallel/mesh.py: sharded_candidate_pairs);
+        n_pairs is the sum of the chunks' totals that the extraction read
+        back, so it costs no readback of its own. The spans
+        d2_network.screen (the chunk loop) and d2_network.to_host (the
+        concatenation) hold the two parts."""
+        if shards is not None:
+            from ..parallel.mesh import sharded_candidate_pairs
+
+            ga, gb = sharded_candidate_pairs(self, shards)
+            return ga, gb, ga.numel()
         T = self.TILE
         all_ti, all_tj = tile_steps(self.n_pad // T)
         C = max(1, int(os.environ.get("SWARM_TPU_D2_CHUNK", "512")))
@@ -441,43 +544,50 @@ class D2NetworkEngine:
                     ga_parts.append(ga)
                     gb_parts.append(gb)
         with metrics.span("d2_network.to_host"):
-            pa, pb = pairs_to_host(torch.cat(ga_parts), torch.cat(gb_parts),
-                                   self.n)
-        return pa, pb, len(pa)
+            ga, gb = torch.cat(ga_parts), torch.cat(gb_parts)
+        return ga, gb, ga.numel()
+
+    def candidate_pairs(self):
+        """(pa, pb, n_screened): candidate_pairs_device's pairs as int64
+        host arrays (pairs_to_host)."""
+        ga, gb, n_pairs = self.candidate_pairs_device()
+        return (*pairs_to_host(ga, gb, self.n), n_pairs)
 
     def candidate_pairs_sharded(self, shards):
         """candidate_pairs over `shards`: each screens a contiguous range
         of the steps, and their pairs concatenate in the steps' order
         (parallel/mesh.py: sharded_candidate_pairs)."""
-        from ..parallel.mesh import sharded_candidate_pairs
-
-        return sharded_candidate_pairs(self, shards)
+        ga, gb, n_pairs = self.candidate_pairs_device(shards)
+        return (*pairs_to_host(ga, gb, self.n), n_pairs)
 
     def build_adjacency(self, mismatch, gapopen, gapextend, no_break):
         """Directed CSR adjacency (adj_start, adj_count, adj_to,
         adj_diff) of exact accepted edges, targets ascending, plus the
-        screened-candidate count and the survivor count. The CSR is
-        built where the exact diffs ran (csr_partition)."""
+        screened-candidate count and the survivor count. The pairs stay
+        on the engine's device where the exact diffs run there (their
+        tasks laid out by d2_tasks); only the native route copies them
+        to the host. The CSR is built where the exact diffs ran
+        (csr_partition)."""
         from . import d2_diffs
 
         with metrics.span("d2_network.build"):
-            if self.shards is not None:
-                pa, pb, n_screened = self.candidate_pairs_sharded(
-                    self.shards)
-            else:
-                pa, pb, n_screened = self.candidate_pairs()
+            ga, gb, n_pairs = self.candidate_pairs_device(self.shards)
             with metrics.span("d2_network.diffs"):
-                on_device = self._device_diffs(len(pa))
+                on_device = self._device_diffs(n_pairs)
                 if on_device:
                     tasks = self._diff_engine.diff_tasks(
-                        pa, pb, mismatch, gapopen, gapextend, no_break)
+                        ga, gb, mismatch, gapopen, gapextend, no_break)
                 else:
+                    pa, pb = pairs_to_host(ga, gb, self.n)
                     tasks = d2_diffs.native_tasks(
                         self.db, pa, pb, self.d, mismatch, gapopen,
                         gapextend, no_break, nthreads=self.threads)
+            metrics.record(**{"d2_network.device_tasks":
+                              len(tasks[0]) if on_device else 0})
+            del ga, gb  # the CSR's buffers may take the pairs' memory
             with metrics.span("d2_network.csr"):
                 adj = self._csr(*tasks, on_device)
-        return (*adj, n_screened, len(pa))
+        return (*adj, n_pairs, n_pairs)
 
     def _device_diffs(self, n_pairs):
         """Whether the exact diffs of n_pairs pairs run on the device (its

@@ -556,13 +556,13 @@ class ShardedGraftEngine:
 
 
 def sharded_candidate_pairs(engine, shards):
-    """(pa, pb, n_screened) of engine.candidate_pairs (a
-    D2NetworkEngine) over `shards`: shard j of k screens and extracts
-    the contiguous tile-pair steps [j K / k, (j + 1) K / k) of the K
-    steps, in chunks of SWARM_TPU_D2_CHUNK, with the profiles replicated
-    (one copy a device); the pairs, gathered in shard order, come in the
-    steps' order. The run's spans d2_network.screen and .to_host (the
-    gather and the copy to the host) hold the two parts."""
+    """(ga, gb) of engine.candidate_pairs_device (a D2NetworkEngine)
+    over `shards`: shard j of k screens and extracts the contiguous
+    tile-pair steps [j K / k, (j + 1) K / k) of the K steps, in chunks
+    of SWARM_TPU_D2_CHUNK, with the profiles replicated (one copy a
+    device); the pairs, gathered in shard order onto the engine's
+    device, come in the steps' order. The run's spans d2_network.screen
+    and .to_host (the gather) hold the two parts."""
     T = engine.TILE
     all_ti, all_tj = d2n.tile_steps(engine.n_pad // T)
     K = len(all_ti)
@@ -592,8 +592,8 @@ def sharded_candidate_pairs(engine, shards):
             ga_parts.append(torch.cat(ga_j))
             gb_parts.append(torch.cat(gb_j))
     with metrics.span("d2_network.to_host"):
-        pa, pb = d2n.pairs_to_host(shards.gather(ga_parts),
-                                   shards.gather(gb_parts), engine.n)
+        ga = shards.gather(ga_parts).to(engine.device)
+        gb = shards.gather(gb_parts).to(engine.device)
         clock.mark(None, "gather")
     clock.report()
-    return pa, pb, len(pa)
+    return ga, gb

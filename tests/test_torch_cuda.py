@@ -117,7 +117,9 @@ def test_d2_diffs_engine_matches_native_on_card(tmp_path, cuda_device):
     for no_break in (False, True):
         want = torch_diffs.native_tasks(db, pa, pb, d, mismatch, go, ge,
                                         no_break)
-        got = eng.diff_tasks(pa, pb, mismatch, go, ge, no_break)
+        got = eng.diff_tasks(
+            *(torch.from_numpy(x.astype(np.int32)).to(cuda_device)
+              for x in (pa, pb)), mismatch, go, ge, no_break)
         assert (want[2] >= 0).any() and (want[2] < 0).any()
         for x, y in zip(got, want):
             assert x.is_cuda
@@ -307,6 +309,107 @@ def test_d2_csr_partition_flags_on_card(cuda_device, fault):
     assert int(bad) == (fault != "none")
     assert int(_csr_on((tq, td, diffs), torch.device("cpu"), n)[3]) == \
         int(bad)
+
+
+def _tasks_pairs(size, kind, seed=14):
+    """(pa, pb, ab, n): `size` pairs a < b of n = 2 size ids, pa
+    ascending, and abundances all tied ("ties") or all distinct."""
+    rng = np.random.default_rng(seed)
+    n = max(2 * size, 2)
+    pa = np.sort(rng.integers(0, n - 1, size=size))
+    pb = pa + 1 + rng.integers(0, 4, size=size) % (n - 1 - pa)
+    ab = np.ones(n, np.int64) if kind == "ties" else \
+        rng.permutation(n).astype(np.int64)
+    return pa, pb, ab, n
+
+
+@pytest.mark.parametrize("no_break", [False, True])
+@pytest.mark.parametrize("kind", ["ties", "distinct"])
+@pytest.mark.parametrize("size", [0, 1, 2047, 2048, 2049, (1 << 20) + 3])
+def test_d2_tasks_kernel_matches_reference(cuda_device, size, kind,
+                                           no_break):
+    """The task layout's kernels against their plain version: no pair,
+    one, either side of a tile (2,048 pairs) and 2^20 + 3; every
+    abundance tied (both directions), none tied, and no_break."""
+    pa, pb, ab, n = _tasks_pairs(size, kind)
+    ga, gb = (torch.from_numpy(x.astype(np.int32)).to(cuda_device)
+              for x in (pa, pb))
+    abd = torch.from_numpy(ab).to(cuda_device)
+    before = d2n.launches["d2_tasks"]
+    tq, td, bad = d2n.d2_tasks(ga, gb, abd, n, no_break)
+    torch.cuda.synchronize()
+    assert d2n.launches["d2_tasks"] == before + 2 * (size > 0)
+    want = d2n.tasks_reference(ga.cpu(), gb.cpu(), abd.cpu(), n, no_break)
+    assert bad is want[2] is False
+    for x, y in zip((tq, td), want):
+        assert x.is_cuda and x.dtype == y.dtype == torch.int64
+        assert torch.equal(x.cpu(), y)
+    if size and kind == "distinct" and not no_break:
+        assert 0 < tq.numel() == size  # one direction a pair
+    elif size:
+        assert tq.numel() == 2 * size
+
+
+@pytest.mark.parametrize("fault", ["high", "low", "equal", "swapped"])
+def test_d2_tasks_flags_on_card(cuda_device, fault):
+    """A pair outside [0, n) or out of order is flagged by the count
+    kernel, read back with the tasks' count, and nothing is emitted."""
+    pa, pb, ab, n = _tasks_pairs(5000, "ties")
+    at = 4321
+    if fault == "high":
+        pb[at] = n
+    elif fault == "low":
+        pa[at] = -1
+    elif fault == "equal":
+        pb[at] = pa[at]
+    else:
+        pa[at], pb[at] = pb[at], pa[at]
+    ga, gb = (torch.from_numpy(x.astype(np.int32)).to(cuda_device)
+              for x in (pa, pb))
+    before = d2n.launches["d2_tasks"]
+    tq, td, bad = d2n.d2_tasks(ga, gb, torch.from_numpy(ab).to(cuda_device),
+                               n, False)
+    assert bad is True and tq.numel() == td.numel() == 0
+    assert d2n.launches["d2_tasks"] == before + 1
+    assert d2n.tasks_reference(ga.cpu(), gb.cpu(), torch.from_numpy(ab), n,
+                               False)[2] is True
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_d2_tasks_build_adjacency_equals_host_layout(tmp_path, cuda_device,
+                                                     monkeypatch, d):
+    """One build_adjacency on the card lays its tasks out with one count
+    and one emit launch, records them as d2_network.device_tasks, and
+    gives the CSR that the host's layout gave (the pairs read back,
+    directions and task_layout on the host, the tasks uploaded, then the
+    same diffs kernel and partition)."""
+    from swarm_tpu_torch import metrics
+
+    gen_corpus(tmp_path / "c.fasta", n=30_000, length=150 + 100 * (d - 2))
+    db = read_db(tmp_path / "c.fasta")
+    eng = D2NetworkEngine(db, d, cuda_device)
+    scores = (4, 12, 4)
+    monkeypatch.setenv("SWARM_TPU_D2_DIFFS", "device")
+    metrics.reset()
+    before = d2n.launches["d2_tasks"]
+    got = eng.build_adjacency(*scores, False)
+    assert d2n.launches["d2_tasks"] == before + 2
+    assert metrics.last_run["d2_network.device_tasks"] == \
+        metrics.last_run["d2_network.alignments"] > 0
+    pa, pb, _ = eng.candidate_pairs()
+    tq, td = (torch.from_numpy(x).to(cuda_device)
+              for x in torch_diffs.task_layout(pa, pb, *torch_diffs.directions(
+                  db.abundances, pa, pb, False)))
+    diff = eng._diff_engine
+    B = diff.band_for_exact(d * max(4, 12 + 4), 12, 4)
+    diffs = d2_diffs(diff.rows, diff.lens, tq, td, B, *scores, d)
+    starts, adj_to, adj_diff, bad = d2n.csr_partition(tq, td, diffs, len(db))
+    assert int(bad) == 0
+    want = d2n.csr_to_host(starts, adj_to, adj_diff)
+    assert len(want[2]) > 0 and got[4] == got[5] == len(pa)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
 
 
 def test_d2_csr_build_adjacency_on_card_equals_host_path(tmp_path,

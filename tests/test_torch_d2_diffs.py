@@ -97,7 +97,8 @@ def _tasks_match_native(eng, db, pa, pb, d, scores, no_break):
     need_ab, need_ba = torch_diffs.directions(db.abundances, pa, pb,
                                               no_break)
     assert (want_ab[~need_ab] < 0).all() and (want_ba[~need_ba] < 0).all()
-    got = eng.diff_tasks(pa, pb, mismatch, go, ge, no_break)
+    got = eng.diff_tasks(*(torch.from_numpy(x.astype(np.int32))
+                           for x in (pa, pb)), mismatch, go, ge, no_break)
     want = torch_diffs.native_tasks(db, pa, pb, d, mismatch, go, ge,
                                     no_break)
     assert len(want[0]) == need_ab.sum() + need_ba.sum()

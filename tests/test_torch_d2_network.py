@@ -8,7 +8,11 @@ import torch
 
 from swarm_tpu.ops.d2_diffs_jax import DeviceDiffEngine as JaxDiffEngine
 from swarm_tpu.ops.d2_network import D2NetworkEngine as JaxNetworkEngine
-from swarm_tpu_torch.corpora import CSR_CASES, screen_order_tasks
+from swarm_tpu_torch.corpora import (
+    CSR_CASES,
+    screen_order_pairs,
+    screen_order_tasks,
+)
 from swarm_tpu_torch.models.general import choose_engine
 from swarm_tpu_torch.ops.d2_diffs import DeviceDiffEngine
 from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
@@ -101,18 +105,116 @@ def test_engine_state_matches_jax():
                                   np.asarray(jdiff.len_dev))
 
 
-def test_out_of_range_pair_fails_loudly(monkeypatch):
-    """A pair index outside [0, n) from the extraction (a decode bug)
-    fails where the pairs reach the host."""
-    from swarm_tpu_torch.ops import d2_network
+@pytest.mark.parametrize("route,fault", [
+    ("native", "range"), ("device", "range"), ("device", "low"),
+    ("device", "order"), ("device", "equal")])
+def test_out_of_range_pair_fails_loudly(monkeypatch, route, fault):
+    """A pair index outside [0, n), or a pair out of order, from the
+    extraction (a decode bug) fails where the pairs reach the host on
+    the native route, and where d2_tasks lays them out on the device
+    route, before any exact diff runs."""
+    from swarm_tpu_torch import _native
+    from swarm_tpu_torch.ops import d2_diffs, d2_network
 
     db = _clouds(81, 4, 10, 40, 2)
     eng = D2NetworkEngine(db, 2, CPU)
-    bad = torch.tensor([0, len(db)], dtype=torch.int32)
-    monkeypatch.setattr(d2_network, "extract_pairs",
-                        lambda *args: (bad[:1], bad[1:]))
-    with pytest.raises(AssertionError, match="out-of-range"):
+    a, b = {"range": (0, len(db)), "low": (-1, 3), "order": (5, 4),
+            "equal": (4, 4)}[fault]
+    ga = torch.tensor([1, a], dtype=torch.int32)
+    gb = torch.tensor([2, b], dtype=torch.int32)
+    monkeypatch.setattr(d2_network, "extract_pairs", lambda *args: (ga, gb))
+    monkeypatch.setenv("SWARM_TPU_D2_DIFFS", route)
+
+    def no_diffs(*args, **kwargs):
+        raise RuntimeError("the exact diffs ran on flagged pairs")
+
+    monkeypatch.setattr(d2_diffs, "d2_diffs", no_diffs)
+    monkeypatch.setattr(_native, "d2_diffs_pairs", no_diffs)
+    match = "out of order" if fault in ("order", "equal") else \
+        "out-of-range pair index"
+    with pytest.raises(AssertionError, match=match):
         eng.build_adjacency(4, 12, 4, False)
+
+
+# ---- the diff tasks on the device (d2_tasks) ------------------------------
+
+def _pairs_case(case):
+    """(pa, pb, ab) int64 arrays for a task-layout case."""
+    if case in ("ties", "dense", "forward_only", "reverse_only"):
+        pa, pb, ab = screen_order_pairs(
+            3000, 12, 21, T=128, dense=500 if case == "dense" else 0)
+        if case == "forward_only":  # ab[a] > ab[b] wherever a < b
+            ab = np.arange(len(ab), 0, -1, dtype=np.int64)
+        elif case == "reverse_only":
+            ab = np.arange(1, len(ab) + 1, dtype=np.int64)
+        return pa, pb, ab
+    ab = np.array([5, 3, 3, 9, 1, 2, 2, 8], dtype=np.int64)
+    if case == "one_pair":
+        return np.array([2], np.int64), np.array([6], np.int64), ab
+    return np.zeros(0, np.int64), np.zeros(0, np.int64), ab
+
+
+@pytest.mark.parametrize("no_break", [False, True])
+@pytest.mark.parametrize("case", ["ties", "dense", "forward_only",
+                                  "reverse_only", "one_pair", "no_pairs"])
+def test_d2_tasks_reference_equals_host_layout(case, no_break):
+    """d2_tasks on the CPU (tasks_reference) gives task_layout's tasks of
+    the directions `directions` admits, element for element and in
+    order: pairs in the screen's order with most abundances tied, a
+    dense cloud, one direction only, one pair and none."""
+    from swarm_tpu_torch.ops.d2_diffs import directions, task_layout
+    from swarm_tpu_torch.ops.d2_network import d2_tasks
+
+    pa, pb, ab = _pairs_case(case)
+    want = task_layout(pa, pb, *directions(ab, pa, pb, no_break))
+    tq, td, bad = d2_tasks(torch.from_numpy(pa.astype(np.int32)),
+                           torch.from_numpy(pb.astype(np.int32)),
+                           torch.from_numpy(ab), len(ab), no_break)
+    assert bad is False
+    for x, y in zip((tq, td), want):
+        assert x.dtype == torch.int64
+        np.testing.assert_array_equal(x.numpy(), y)
+    if case == "forward_only" and not no_break:
+        np.testing.assert_array_equal(tq.numpy(), pa)
+    elif case == "reverse_only" and not no_break:
+        np.testing.assert_array_equal(tq.numpy(), pb)
+
+
+@pytest.mark.parametrize("pair", [(-1, 3), (3, 8), (4, 4), (5, 2)])
+def test_d2_tasks_reference_flags_pairs_it_cannot_lay_out(pair):
+    from swarm_tpu_torch.ops.d2_network import d2_tasks, pair_fault
+
+    ga = torch.tensor([0, pair[0], 6], dtype=torch.int32)
+    gb = torch.tensor([1, pair[1], 7], dtype=torch.int32)
+    tq, td, bad = d2_tasks(ga, gb, torch.ones(8, dtype=torch.int64), 8,
+                           False)
+    assert bad is True and tq.numel() == td.numel() == 0
+    fault = pair_fault(ga, gb, 8)
+    assert isinstance(fault, AssertionError)
+    if 0 <= min(pair) and max(pair) < 8:
+        assert "out of order" in str(fault)
+    else:
+        assert str(fault).startswith("d2 screen produced out-of-range pair "
+                                     "index") and "n=8)" in str(fault)
+
+
+def test_d2_tasks_checks_inputs_and_never_falls_back():
+    from swarm_tpu_torch.ops import d2_network
+
+    ga = torch.tensor([0, 1], dtype=torch.int32)
+    gb = torch.tensor([2, 3], dtype=torch.int32)
+    ab = torch.ones(4, dtype=torch.int64)
+    assert d2_network.d2_tasks(ga, gb, ab, 4, False)[0].tolist() == \
+        [2, 3, 0, 1]
+    for args in ((ga.long(), gb, ab, 4), (ga, gb[:1], ab, 4),
+                 (ga, gb, ab.int(), 4), (ga, gb, ab, 5)):
+        with pytest.raises(ValueError):
+            d2_network.d2_tasks(*args, False)
+    before = dict(d2_network.launches)
+    with pytest.raises(ValueError, match="no d2_tasks kernel"):
+        d2_network.d2_tasks(ga.to("meta"), gb.to("meta"), ab.to("meta"), 4,
+                            False)
+    assert d2_network.launches == before
 
 
 def test_engine_choice(monkeypatch):

@@ -69,8 +69,9 @@ def test_device_diffs_from_their_threshold(tmp_path, monkeypatch, threads,
         def __init__(self, db, d, device):
             self.db, self.d = db, d
 
-        def diff_tasks(self, pa, pb, mismatch, gapopen, gapextend,
+        def diff_tasks(self, ga, gb, mismatch, gapopen, gapextend,
                        no_break):
+            pa, pb = (x.numpy().astype(np.int64) for x in (ga, gb))
             calls.append(len(pa))
             diff_ab, diff_ba = _native.d2_diffs_pairs(
                 self.db.codes, self.db.offsets, self.db.lengths,
@@ -94,9 +95,10 @@ def test_device_diffs_from_their_threshold(tmp_path, monkeypatch, threads,
                          + ("_THREADED" if threads > 1 else "")
                          + ("" if warm else "_COLD"))
     got = {}
+    ga, gb = (torch.from_numpy(x.astype(np.int32)) for x in (pa, pb))
     for size in (at - 1, at):
-        qa, qb = pa[:size], pb[:size]
-        eng.candidate_pairs = lambda: (qa, qb, size)
+        qa, qb = ga[:size], gb[:size]
+        eng.candidate_pairs_device = lambda shards=None: (qa, qb, size)
         eng.__dict__.pop("_diff_engine", None)
         got[size] = eng.build_adjacency(18, 24, 13, False)
     assert calls == [at]
@@ -109,15 +111,15 @@ def test_device_diffs_from_their_threshold(tmp_path, monkeypatch, threads,
     # the override still forces the kernel below the threshold, and
     # a CPU engine never takes it unasked
     monkeypatch.setenv("SWARM_TPU_D2_DIFFS", "device")
-    qa, qb = pa[:1], pb[:1]
-    eng.candidate_pairs = lambda: (qa, qb, 1)
+    qa, qb = ga[:1], gb[:1]
+    eng.candidate_pairs_device = lambda shards=None: (qa, qb, 1)
     eng.__dict__.pop("_diff_engine", None)
     eng.build_adjacency(18, 24, 13, False)
     assert calls == [at, 1]
     monkeypatch.delenv("SWARM_TPU_D2_DIFFS")
     eng.device = CPU
-    qa, qb = pa[:at], pb[:at]
-    eng.candidate_pairs = lambda: (qa, qb, at)
+    qa, qb = ga[:at], gb[:at]
+    eng.candidate_pairs_device = lambda shards=None: (qa, qb, at)
     eng.__dict__.pop("_diff_engine", None)
     eng.build_adjacency(18, 24, 13, False)
     assert calls == [at, 1]

@@ -413,7 +413,8 @@ def test_engine_with_16_byte_stride_equals_jax_engine(tmp_path, seed, d,
     pa, pb = np.triu_indices(len(db), k=1)
     pa, pb = pa.astype(np.int64), pb.astype(np.int64)
     for no_break in (False, True):
-        got = eng.diff_tasks(pa, pb, mm, go, ge, no_break)
+        got = eng.diff_tasks(*(torch.from_numpy(x.astype(np.int32))
+                               for x in (pa, pb)), mm, go, ge, no_break)
         want_ab, want_ba = (np.asarray(x) for x in
                             jax_eng.diffs_pairs(pa, pb, mm, go, ge, no_break))
         need_ab, need_ba = directions(db.abundances, pa, pb, no_break)

@@ -214,7 +214,7 @@ def test_launcher_sharded_engines_hold_no_jax(tmp_path, flags, engines):
                 if ln.startswith("[timing] launches ")]
     assert len(launches) == 1
     counts = json.loads(launches[0][len("[timing] launches "):])
-    assert len(counts) == 13 and set(counts.values()) == {0}
+    assert len(counts) == 14 and set(counts.values()) == {0}
     assert (tmp_path / "out.txt").stat().st_size > 0
 
 

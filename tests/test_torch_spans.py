@@ -138,8 +138,9 @@ def test_counters_repeat_and_a_raising_run_leaves_nothing(corpus,
 
 
 def test_alignments_count_alike_on_both_diffs_paths(corpus, monkeypatch):
-    """Every counter alike but the edges partitioned on the engine's
-    device: the CSR is made where the diffs ran."""
+    """Every counter alike but the tasks laid out and the edges
+    partitioned on the engine's device: the tasks are laid out, and the
+    CSR made, where the diffs ran."""
     counts = []
     for mode in ("native", "device"):
         monkeypatch.setenv("SWARM_TPU_D2_DIFFS", mode)
@@ -149,6 +150,9 @@ def test_alignments_count_alike_on_both_diffs_paths(corpus, monkeypatch):
     assert native.pop("d2_network.csr_device_edges") == 0
     assert device.pop("d2_network.csr_device_edges") == \
         device["d2_network.edges"]
+    assert native.pop("d2_network.device_tasks") == 0
+    assert device.pop("d2_network.device_tasks") == \
+        device["d2_network.alignments"]
     assert native == device
     assert native["d2_network.alignments"] > 0
 
@@ -158,16 +162,20 @@ def test_alignments_count_alike_on_both_diffs_paths(corpus, monkeypatch):
                           ("device", True)])
 def test_csr_device_edges_recorded_on_either_path(corpus, monkeypatch, mode,
                                                   on_device):
-    """d2_network.csr_device_edges is recorded on every network run: 0
-    where the host partitioned the edges (the native diffs: on the CPU
-    unless asked for the device's), every edge where the engine's
+    """d2_network.csr_device_edges and d2_network.device_tasks are
+    recorded on every network run: 0 where the host laid the tasks out
+    and partitioned the edges (the native diffs: on the CPU unless asked
+    for the device's), every edge and every alignment where the engine's
     device did."""
     monkeypatch.setenv("SWARM_TPU_D2_DIFFS", mode)
     cluster(corpus)
     edges = metrics.last_run["d2_network.edges"]
-    assert edges > 0
+    alignments = metrics.last_run["d2_network.alignments"]
+    assert alignments >= edges > 0
     assert metrics.last_run["d2_network.csr_device_edges"] == (
         edges if on_device else 0)
+    assert metrics.last_run["d2_network.device_tasks"] == (
+        alignments if on_device else 0)
 
 
 def test_trace_file_holds_the_record(corpus, monkeypatch):
