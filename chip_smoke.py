@@ -1,184 +1,60 @@
 #!/usr/bin/env python3
-"""Bring-up check of swarm_tpu_torch on one NVIDIA card.
+"""The kernel clock and the main-path pass of swarm_tpu_torch on one
+NVIDIA card.
 
-    python3 chip_smoke.py          (from the root of a checkout)
+    python3 chip_smoke.py [--tree CHECKOUT]    (from the root of a checkout)
 
-Phases, each printing its own lines; any failure exits 1 before the
-final line:
+Builds the native host library and the CUDA kernels of CHECKOUT's
+swarm_tpu_torch (default: this checkout's) with ptxas' report, measures
+the card's rate of int32 adds and mins (csrc/probe.cu), then times each
+hand-written kernel at the shapes of PERF.md's kernel table, beside its
+bound (bytes over the memory rate or operations over the peak rate, the
+larger), its plain PyTorch version and, where one PyTorch call computes
+the same, that call. At each timed shape the timed output is checked
+once against its plain version, exactly: a time for a wrong result is
+no reading. Then the main-path pass runs each of MAIN_PATHS once
+through the CLI on the card, its kernels' launches counted from 0 (the
+kernel table's `launches`), and drives the paths around them: the
+sharded engines over four in-process shards, a one-rank NCCL group, the
+resident server and the dispatch rules at their thresholds; it prints
+what each run launched and how long it took. Every check of the kernels
+and the engines on the card other than the timed shapes' (edge cases,
+each run of the main-path pass against the native engine or the
+single-device run, by the same functions) is a test:
 
-1. the card (nvidia-smi name and power limit), then the native host
-   library and the CUDA kernels built from the checkout's sources, and
-   the card's rate of int32 adds and mins (csrc/probe.cu);
-2. kernel d2_diffs against its plain PyTorch version on the card,
-   exactly (integer DP), on tie-heavy chain corpora, on a ragged-length
-   corpus for every register variant B = 1..20 and two cases of the
-   general variant, and on 2^20 tasks made of the d2_100k corpus'
-   candidate pairs; the last timed;
-3. kernels banded_scores and full_scores (one seed of the dense-cloud
-   corpus against 4,096 targets of ~400 nt) against their plain
-   versions on the card, exactly, for bands B = 4, 20, 63 and three
-   penalty sets; the banded scores also against the full-row kernel
-   under the screen's contract (equal where <= cutoff, both above it
-   elsewhere); both timed, banded_scores at three shapes (the list, a
-   list of one in-band target, the list repeated 64 times) queued
-   behind a busy kernel so that the host's enqueue time is not in the
-   reading, beside an empty kernel's launch time; full_scores also on
-   seeds and targets whose lengths sit on the edges of its schedule (1,
-   31, 32, 33, around 32 * C for every strip width C, two passes, an
-   empty row, a one-element list), banded_scores on every band B =
-   1..20, 21, 40, 63 over ragged lengths and on lengths at the edges of
-   the band;
-4. kernels d2_screen and d2_extract (the d>=2 network engine's qgram
-   screen and the ordered extraction of its survivors) against their
-   plain versions on the card, exactly (the survivor words and each
-   row's count element for element, the pairs in order), on
-   screen_edge_rows at tiles T = 96, 128 and 512 with n one below, at
-   and one above a multiple of T, d = 2, 3 and 5 and lengths exactly d
-   apart, at T = 32, 160 and 4096 with n below T and on a tile's edge,
-   at d = 20, the engine's own run in chunks of 2 steps at T = 128, and
-   the d2_100k (325 steps) and d2_long (15 steps) corpora and the first
-   chunk (512 steps) of the d1_1m corpus at d = 2, T = 4096, timed there
-   (the screen with its int8 tensor-core bound and share, beside the
-   popcount bound of the XOR-popcount form and torch._int_mm of the same
-   tiles; the extraction alone behind a busy kernel and as its wrapper's
-   call reads, also on the dense words of two tiles of one repeated
-   profile; ptxas' registers and spills of both);
-4b. kernel d2_csr (the network engine's CSR: the accepted diff tasks
-   stably partitioned by source) against its plain version on the card,
-   exactly, on CSR_CASES (one pass and several, n on both sides of a
-   digit boundary, a cloud of thousands, sparse sources) and on
-   synthetic tasks at the benchmark cells' edge counts, timed there
-   beside its bound, its plain version, torch.sort of the same keys and
-   the engine's readback of the CSR;
-4c. kernel d2_tasks (the network engine's diff tasks laid out on the card
-   from the screen's pairs) against its plain version on the card,
-   exactly, with no_break off and on, on TASKS_EDGES (no pair, one, a
-   tile's edges, 2^20 + 3; abundances all tied or none) and on synthetic
-   pairs at the benchmark cells' pair counts, timed there beside its
-   bound, its plain version and the host route it replaced;
-5. the d=1 kernels d1_keygen (its count and pack pass, which packs the
-   code arena into ragged rows, and its emit pass), d1_partition,
-   d1_join and d1_verify against their plain versions on the card,
-   exactly (packed words, keys, the partitioned keys and owners and
-   bucket ends, and flags element for element; candidate pairs in the
-   kernel's order, and as a sorted multiset against the pairs of the
-   sorted keys), on rows at the edges of the kernels, on one run of 125
-   rows sharing a key, on a run of 4,504 (a bucket beyond the join's
-   shared-memory tile: its oversized variant), on rows of mixed lengths
-   at the edges of the ragged layout (1 to 5,003 nt), and on the d1_1m
-   and d1_mixed_1m corpora, which are also timed: each kernel's passes
-   (d1_verify alone behind a busy kernel and as its wrapper's call
-   reads), the pack with its bound, torch.sort + torch.take of the keys
-   (the parent's grouping step, d1_partition's library call) with both peaks
-   of device memory, the plain versions, and the arena's copy to the
-   card from pageable and from pinned memory;
-6. the graft kernels graft_keygen (count and emit), graft_join and
-   graft_verify against their plain versions on the card, exactly (keys
-   and payloads; the join's counts and records a chunk, its pairs in the
-   kernel's order, both sides unwritten; flags and each light row's
-   smallest heavy one, on the join's pairs and on 4,096 pairs of random
-   keys), with the sides partitioned by d1_partition, and the engine
-   against the native host join: on ragged edge rows (1 to 5,003 nt),
-   rows two edits from a base row with the edits on the verify's word
-   edges (graft_edge_rows: positions 15, 16, 31, 32 and the last,
-   appended bases, deletions inside runs, rows of 1 to 5,006 nt), a run
-   of 4,204 rows sharing a variant (a light bucket beyond the join's
-   1,024-element table, so tiled), an empty side (graft_verify timed
-   alone on each side with pairs), and the sides that a `-d 1 -f` run of each
-   fastidious corpus hands the engine, which are also timed (each
-   kernel's passes, keygen's emit a side, also with its total read back
-   in each call, the verify alone behind a busy kernel and as its
-   wrapper's call reads, the plain versions, d1_partition of both
-   sides, and torch.sort + torch.take of both sides' keys as the join's
-   library yardstick); graft_join also on skewed buckets (small ones of
-   ~6 tables against big ones of ~50 chunks) and on random sides at the
-   asymmetric corpus' scale (its 199 M big keys against 1 small key and
-   against its 4.1 M), timed;
-7. main paths through swarm_tpu_torch.main.run, each with a warm-up
-   run, then one timed run with every kernel's launch count set to 0
-   before it and read after it, then the port's native C engine
-   (SWARM_TPU_D2_ENGINE=native at d >= 2, SWARM_TPU_D1_NATIVE_MAX above
-   n at d = 1), whose output files the run's must equal byte for byte:
-   - d2_100k (99,831 amplicons of 142-158 nt) and d2_long (19,991 of
-     ~400 nt): `swarm -d 2`, the network engine, kernels d2_screen,
-     d2_extract, d2_tasks, d2_diffs and d2_csr;
-   - d2_device (20,808 amplicons of ~400 nt in dense clouds): `swarm
-     -d 2` under SWARM_TPU_D2_ENGINE=device, kernel banded_scores;
-   - d2_wide (5,204 amplicons, `-d 5 -m 1 -p 20 -g 1 -e 1`, band 70):
-     the same engine, kernel full_scores;
-   - d1_1m (gen_corpus of 1,000,000 amplicons of ~150 nt) with `-d 1
-     -o -s`, d1_full_100k (the d2_100k corpus) with `-d 1 -o -s -u -i
-     -w` and d1_mixed_1m (mixed_length_corpus of 1,000,000 amplicons of
-     ~60 to ~5,000 nt, ~187 nt a row) with `-d 1 -o -s -i`: the d=1
-     partitioned-join engine on ragged rows, kernels d1_keygen,
-     d1_partition, d1_join and d1_verify;
-   - d1_fastidious_200k (fastidious_corpus of 200,000 amplicons of
-     ~150 nt, a quarter of them light satellites) and
-     d1_fastidious_asym_200k (the same clouds with ~4,000 light
-     satellites) with `-d 1 -f -y 12 -o -s -i` (bench.py's config 4 and
-     writers): the d=1 engine, then the device graft, kernels
-     graft_keygen, graft_join and graft_verify; the native oracle runs
-     the host graft join (SWARM_TPU_GRAFT_PROBE_MAX above its keys), and
-     so does one more run of the port, its d=1 engine on the card (the
-     -f path before the device graft), whose files must also equal the
-     oracle's;
-8. the sharded engines (swarm_tpu_torch/parallel) on the card: d1_1m,
-   d1_fastidious_200k and d2_long again under SWARM_TORCH_SHARDS=4 (four
-   in-process shards on this card; the d=1 network, the graft and the
-   d>=2 screen split over them), each path's kernels launched in that
-   run and its files byte-identical to phase 7's single-device run
-   (itself equal to the native engine's); the d2_100k candidate pairs
-   over 4 shards equal to one device's in order; d1_full_100k as a
-   one-rank NCCL group (bin/swarm-torch in a new process under the rank
-   variables), its files equal to the in-process run's; each exchange's
-   bytes and time against its bound (2 x bytes over the memory rate),
-   each shard's phases and each path's peak device memory, and one
-   {"sharded": ...} JSON line;
-9. the resident server (python -m swarm_tpu_torch.server, under
-   SWARM_TPU_DB_CACHE=1 and SWARM_TPU_TIMING=1) on the card: for
-   d2_long, d1_1m and d1_fastidious_200k a cold CLI run (bin/swarm-torch
-   in a new process, the kernel library built on disk), the same run
-   with its parts timed (interpreter, import torch, CUDA context, kernel
-   and native libraries, the run), the first forwarded run and a second
-   of the same file (DB cache warm), beside the in-process warm time of
-   phase 7 (the split run, which holds the card before the launcher
-   runs, forced to the network engine the cold run took and reported
-   beside it); every forwarded run's files equal the in-process run's, the
-   server's stderr shows the card's engine, and the server exits 0 after
-   --shutdown; then the blake2b digest of d1_1m's arena (swarm_tpu's
-   device-array cache key) beside the server's H2D;
-10. the dispatch rules set by scripts/dispatch_sweep.py, each at its
-   threshold - 1 and at it: the d=1 network's NATIVE_MAX and the d>=2
-   engine's NETWORK_MIN in this process (which holds the card), their
-   NATIVE_MAX_COLD and NETWORK_MIN_COLD in a fresh process each
-   (bin/swarm-torch), on the first records of the d1_1m and d2_100k
-   corpora; under -f (whose graft takes the card) NATIVE_MAX in this
-   process and NATIVE_MAX_GRAFT in a fresh one, on those of
-   d1_fastidious_200k's; the
-   network engine's DEVICE_DIFFS_MIN and DEVICE_DIFFS_MIN_THREADED on
-   its own candidate pairs in this process (where the d2_diffs kernel
-   has run), their _COLD forms in a fresh process each (where it has
-   not): the engine the rule names (its [timing] line, or the d2_diffs
-   kernel's launches), files (arrays) equal to the native engine's, and
-   one {"dispatch": ...} JSON line.
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
-The second-to-last line is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}. Needs one CUDA device, nvcc and a C
-compiler. Imports no JAX.
+The timed shapes, on corpora made from MAIN_PATHS:
+- d2_diffs: 2^20 directed tasks from the d2_100k corpus' candidate
+  pairs;
+- banded_scores and full_scores: one seed of the d2_device corpus
+  against 4,096 targets (banded: the list, one in-band target, and the
+  list 64 times over, queued behind a busy kernel so that the host's
+  enqueue time is not in the reading, beside an empty kernel's launch);
+- d2_screen and d2_extract: the d2_100k and d2_long corpora and the
+  first D1_1M_SCREEN_STEPS tile pairs of d1_1m's at d = 2, the screen
+  bounded by the int8 tensor cores over the pairs within d in length
+  (pairs_within of swarmbench/metrics/d2_screen.roofline_pct.py, as
+  the benchmark's d2_screen.roofline_pct counts them), the extraction
+  also on the dense words of two tiles of one repeated profile;
+- d2_csr and d2_tasks: synthetic tasks and pairs in the screen's order
+  at the benchmark cells' edge and pair counts (CSR_TIMED,
+  TASKS_TIMED);
+- d1_keygen, d1_partition, d1_join, d1_verify: the d1_1m and
+  d1_mixed_1m corpora, with the arena's copy to the card;
+- graft_keygen, graft_join, graft_verify: the sides a `-d 1 -f` run of
+  d1_fastidious_200k and d1_fastidious_asym_200k hands the graft
+  engine; graft_join also on skewed buckets (SKEWED_JOIN) and on random
+  sides at the asymmetric corpus' scale (RANDOM_JOIN).
 
-To compare two versions of the port on one card, run each in turns:
-
-    python3 chip_smoke.py --quick [--tree OTHER_CHECKOUT]
-
-runs only the timed kernel phases (2 to 6 and 4b at their timed shapes) and
-the d2_100k, d2_device, d2_wide, d1_1m, d1_mixed_1m and
-d1_fastidious_200k main paths of the package under OTHER_CHECKOUT
-(default: this checkout), and ends with one JSON line
-{"quick": {card, tree, kernels, main_paths}} instead of the two above.
+Any failure exits 1 before the last line, which is the kernel table as
+one JSON object {"kernels": [...], "card", "tree", "device"}. Needs one
+CUDA device, nvcc and a C compiler. Imports no JAX.
 """
 
 import argparse
-import io
+import contextlib
+import functools
 import json
 import os
 import re
@@ -190,10 +66,6 @@ import traceback
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-
-# read when swarm_tpu_torch.progress is imported: per-phase times on stderr
-os.environ["SWARM_TPU_TIMING"] = "1"
-os.environ["SWARM_TPU_DB_CACHE"] = "0"
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
 # rate, and the float32 rate outside the tensor cores (an FMA counted as
@@ -354,165 +226,6 @@ def phase_probe(dev):
         f"(bounds use {PEAK_OPS_PER_S / 1e12:.0f}, the float32 rate)")
 
 
-def phase_d2_diffs_bands(dev):
-    """d2_diffs against its plain version for every register variant
-    (B = 1..20) and the general variant, on a ragged-length corpus;
-    returns max_abs_err."""
-    import numpy as np
-    import torch
-
-    from swarm_tpu_torch._build import load
-    from swarm_tpu_torch.corpora import D2_DIFFS_BAND_CASES, ragged_rows
-    from swarm_tpu_torch.ops.d2_diffs import d2_diffs, d2_diffs_reference
-
-    lib = load()
-    worst = 0
-    packed = []
-    for B, d, (mm, go, ge) in D2_DIFFS_BAND_CASES:
-        rows_np, lens_np = ragged_rows(100 + B, 96, 61 + B, B + 2)
-        rows = torch.from_numpy(rows_np).to(dev)
-        lens = torch.from_numpy(lens_np).to(dev)
-        n = len(lens_np)
-        tq = torch.arange(n, device=dev).repeat_interleave(n)
-        td = torch.arange(n, device=dev).repeat(n)
-        got = d2_diffs(rows, lens, tq, td, B, mm, go, ge, d)
-        want = d2_diffs_reference(rows[tq], rows[td], lens[tq], lens[td], B,
-                                  rows.shape[1], mm, go, ge, d)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        worst = max(worst, err)
-        packed.append(lib.swarm_d2_packed(
-            -(-rows.shape[1] // 16) * 16, B, mm, go, ge, d))
-        say(f"kernel d2_diffs ragged corpus B={B} d={d} scores={(mm, go, ge)} "
-            f"variant={'register' if packed[-1] else 'general'} "
-            f"lengths={int(lens_np.min())}..{int(lens_np.max())} "
-            f"tasks={tq.numel()} accepted={int((want >= 0).sum())} "
-            f"max_abs_err={err}")
-        if err:
-            raise AssertionError(
-                f"d2_diffs kernel disagrees with its plain version at B={B}")
-        if not (want >= 0).any() or not (want < 0).any():
-            raise AssertionError(f"ragged corpus at B={B} decides nothing")
-    if packed != [1] * 20 + [0, 0]:
-        raise AssertionError(f"unexpected d2_diffs variants: {packed}")
-    return worst
-
-
-def phase_full_scores_edges(dev):
-    """full_scores against its plain version where the lengths sit on
-    the edges of the kernel's schedule; returns max_abs_err."""
-    import torch
-
-    from swarm_tpu_torch.corpora import score_edge_cases
-    from swarm_tpu_torch.ops import nw_scores
-
-    built = nw_scores.built_full_strips()
-    if built != nw_scores.FULL_STRIPS:
-        raise AssertionError(f"the library's strips {built} are not "
-                             f"FULL_STRIPS {nw_scores.FULL_STRIPS}")
-    worst = n_cases = n_pairs = 0
-    for i, (name, padded, lengths, seed_id, ids) in enumerate(
-            score_edge_cases(nw_scores.FULL_STRIPS)):
-        mm, go, ge = ((4, 12, 4), (18, 24, 13), (1, 1, 1))[i % 3]
-        padded, lengths, ids = (torch.from_numpy(x).to(dev)
-                                for x in (padded, lengths, ids))
-        if i % 2:
-            ids = ids.to(torch.int32)
-        got = nw_scores.full_scores(padded, lengths, seed_id, ids, mm, go, ge)
-        want = nw_scores.nw_scores_reference(
-            padded, lengths, seed_id, ids, mm, go, ge)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        worst = max(worst, err)
-        n_cases += 1
-        n_pairs += ids.numel()
-        if err:
-            say(f"kernel full_scores edge case {name} scores={(mm, go, ge)} "
-                f"lengths={lengths.tolist()} got={got.tolist()} "
-                f"want={want.tolist()}")
-            raise AssertionError(
-                f"full_scores kernel disagrees with its plain version on "
-                f"edge case {name}")
-    say(f"kernel full_scores edge cases: cases={n_cases} pairs={n_pairs} "
-        f"strips={nw_scores.FULL_STRIPS} max_abs_err={worst}")
-    return worst
-
-
-def phase_banded_scores_edges(dev):
-    """banded_scores against its plain version on every band over ragged
-    lengths and where the lengths sit on the edges of the band; returns
-    max_abs_err."""
-    import torch
-
-    from swarm_tpu_torch.corpora import band_edge_cases
-    from swarm_tpu_torch.ops import nw_scores
-
-    worst = n_cases = n_pairs = n_inf = 0
-    for name, padded, lengths, seed_id, ids, B, (mm, go, ge) in \
-            band_edge_cases():
-        padded, lengths, ids = (torch.from_numpy(x).to(dev)
-                                for x in (padded, lengths, ids))
-        nb = ids.numel()
-        got = nw_scores.banded_scores(
-            padded, lengths, seed_id, ids, mm, go, ge, B)
-        tid = ids.long()
-        want = nw_scores.banded_scores_reference(
-            padded[seed_id].expand(nb, -1), padded[tid],
-            lengths[seed_id].expand(nb), lengths[tid], mm, go, ge, B)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max()) if nb else 0
-        worst = max(worst, err)
-        n_cases += 1
-        n_pairs += nb
-        n_inf += int((want == nw_scores.INF).sum())
-        if err or got.shape != want.shape:
-            say(f"kernel banded_scores edge case {name} B={B} "
-                f"scores={(mm, go, ge)} lengths={lengths.tolist()} "
-                f"got={got.tolist()} want={want.tolist()}")
-            raise AssertionError(
-                f"banded_scores kernel disagrees with its plain version on "
-                f"edge case {name}")
-    say(f"kernel banded_scores edge cases: cases={n_cases} pairs={n_pairs} "
-        f"outside_the_band={n_inf} max_abs_err={worst}")
-    return worst
-
-
-def phase_d2_diffs_ties(dev, work):
-    """d2_diffs against its plain version on tie-heavy chain corpora;
-    returns max_abs_err."""
-    import numpy as np
-    import torch
-
-    from swarm_tpu_torch.corpora import (
-        D2_DIFFS_KERNEL_CASES, chain_corpus, make_db)
-    from swarm_tpu_torch.ops.d2_diffs import (
-        DeviceDiffEngine, d2_diffs, d2_diffs_reference)
-
-    worst = 0
-    for seed, d, (mm, go, ge) in D2_DIFFS_KERNEL_CASES:
-        case_dir = work / f"tie_corpus_{seed}"
-        case_dir.mkdir()
-        db = make_db(case_dir, chain_corpus(seed, 50, 48, d + 1))
-        eng = DeviceDiffEngine(db, d, dev)
-        pa, pb = np.triu_indices(len(db), k=1)
-        tq = torch.from_numpy(np.concatenate([pa, pb]).astype(np.int64)).to(dev)
-        td = torch.from_numpy(np.concatenate([pb, pa]).astype(np.int64)).to(dev)
-        B = eng.band_for_exact(d * max(mm, go + ge), go, ge)
-        got = d2_diffs(eng.rows, eng.lens, tq, td, B, mm, go, ge, d)
-        want = d2_diffs_reference(eng.rows[tq], eng.rows[td], eng.lens[tq],
-                                  eng.lens[td], B, eng.Lmax, mm, go, ge, d)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        worst = max(worst, err)
-        say(f"kernel d2_diffs tie corpus seed={seed} d={d} "
-            f"scores={(mm, go, ge)} B={B} tasks={tq.numel()} "
-            f"accepted={int((want >= 0).sum())} max_abs_err={err}")
-        if err:
-            raise AssertionError("d2_diffs kernel disagrees with its plain "
-                                 "version on a tie corpus")
-    return worst
-
-
 def phase_d2_diffs_at_scale(dev, fasta):
     """d2_diffs on 2^20 directed tasks from the d2_100k candidate pairs;
     returns the kernel's row of numbers."""
@@ -568,9 +281,12 @@ def phase_d2_diffs_at_scale(dev, fasta):
 
 
 def phase_nw_scores(dev, fasta):
-    """banded_scores and full_scores against their plain versions on one
-    seed of the dense-cloud corpus and 4,096 targets; returns the two
-    kernels' rows of numbers (timed at default scores, d = 2: B = 4)."""
+    """banded_scores and full_scores on one seed of the dense-cloud corpus
+    and 4,096 targets at the default scores (d = 2: B = 4), checked
+    against their plain versions (and the banded scores against the
+    full-row kernel under the screen's contract: equal where <= cutoff,
+    both above it elsewhere), then timed; returns the two kernels' rows
+    of numbers."""
     import numpy as np
     import torch
 
@@ -596,45 +312,33 @@ def phase_nw_scores(dev, fasta):
     qlens = al.lengths[seed_id].expand(nb)
     io_bytes = int(lens.long().sum()) + ql + nb * (8 + 4 + 4)
 
-    result = {}
-    worst_full = worst_band = 0
-    for mm, go, ge in ((4, 12, 4), (3, 6, 2), (18, 24, 13)):
-        full = nw_scores.full_scores(
-            al.padded, al.lengths, seed_id, ids, mm, go, ge)
-        full_plain = nw_scores.nw_scores_reference(
-            al.padded, al.lengths, seed_id, ids, mm, go, ge)
-        torch.cuda.synchronize()
-        err = int((full.long() - full_plain.long()).abs().max())
-        worst_full = max(worst_full, err)
-        say(f"kernel full_scores scores={(mm, go, ge)} targets={nb} "
-            f"qlen={ql} min={int(full.min())} max={int(full.max())} "
-            f"max_abs_err={err}")
-        if err:
-            raise AssertionError("full_scores kernel disagrees with its "
-                                 "plain version")
-        for B in (4, 20, 63):
-            got = nw_scores.banded_scores(
-                al.padded, al.lengths, seed_id, ids, mm, go, ge, B)
-            want = nw_scores.banded_scores_reference(
-                qrows, rows, qlens, lens, mm, go, ge, B)
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
-            worst_band = max(worst_band, err)
-            cutoff = go + B * ge - 1  # the largest cutoff B is enough for
-            inside = full <= cutoff
-            ok = bool((got[inside] == full[inside]).all()) and bool(
-                (got[~inside] > cutoff).all())
-            say(f"kernel banded_scores scores={(mm, go, ge)} B={B} "
-                f"targets={nb} within_cutoff={int(inside.sum())} "
-                f"max_abs_err={err} contract_vs_full_row={ok}")
-            if err:
-                raise AssertionError("banded_scores kernel disagrees with "
-                                     "its plain version")
-            if not ok:
-                raise AssertionError("banded_scores breaks its contract "
-                                     "against the full-row kernel")
-
     mm, go, ge, B = 18, 24, 13, 4  # default scores at d = 2
+    full = nw_scores.full_scores(al.padded, al.lengths, seed_id, ids, mm, go,
+                                 ge)
+    full_plain = nw_scores.nw_scores_reference(al.padded, al.lengths, seed_id,
+                                               ids, mm, go, ge)
+    got = nw_scores.banded_scores(al.padded, al.lengths, seed_id, ids, mm, go,
+                                  ge, B)
+    want = nw_scores.banded_scores_reference(qrows, rows, qlens, lens, mm, go,
+                                             ge, B)
+    torch.cuda.synchronize()
+    worst_full = int((full.long() - full_plain.long()).abs().max())
+    worst_band = int((got.long() - want.long()).abs().max())
+    cutoff = go + B * ge - 1  # the largest cutoff B is enough for
+    inside = full <= cutoff
+    ok = bool((got[inside] == full[inside]).all()) and bool(
+        (got[~inside] > cutoff).all())
+    say(f"kernels full_scores, banded_scores scores={(mm, go, ge)} B={B} "
+        f"targets={nb} qlen={ql} within_cutoff={int(inside.sum())} "
+        f"max_abs_err full={worst_full} banded={worst_band} "
+        f"contract_vs_full_row={ok}")
+    if worst_full or worst_band:
+        raise AssertionError("a score kernel disagrees with its plain "
+                             "version")
+    if not ok:
+        raise AssertionError("banded_scores breaks its contract against the "
+                             "full-row kernel")
+
     busy = busy_kernel(dev)
     floor_ms = launch_floor_ms(busy)
     say(f"launch floor: an empty kernel (1 block, 0 steps of csrc/probe.cu) "
@@ -647,12 +351,11 @@ def phase_nw_scores(dev, fasta):
     in_band = (lens > 0) & ((lens - ql).abs() <= B)
     # (i) the list; (ii) one in-band target: the floor one pair's
     # recurrence sets; (iii) the list 64 times over: enough to fill the card
-    short = banded(ids)
     ms = cuda_ms(lambda: banded(ids), 20, busy)
     one_id = ids[in_band][:1]
     chain_ms = cuda_ms(lambda: banded(one_id), 20, busy)
     many_ids = ids.repeat(64)
-    err = int((banded(many_ids).long() - short.repeat(64).long()).abs().max())
+    err = int((banded(many_ids).long() - got.repeat(64).long()).abs().max())
     worst_band = max(worst_band, err)
     saturated_ms = cuda_ms(lambda: banded(many_ids), 10, busy)
     plain_ms = cuda_ms(lambda: nw_scores.banded_scores_reference(
@@ -672,12 +375,12 @@ def phase_nw_scores(dev, fasta):
     if err:
         raise AssertionError("banded_scores on the list repeated 64 times "
                              "is not the list's scores tiled")
-    result["banded_scores"] = {
+    result = {"banded_scores": {
         "max_abs_err": worst_band, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "chain_ms": chain_ms, "saturated_ms": saturated_ms,
         "saturated_bound_ms": saturated_bound_ms,
-        "launch_floor_ms": floor_ms}
+        "launch_floor_ms": floor_ms}}
 
     ms = cuda_ms(lambda: nw_scores.full_scores(
         al.padded, al.lengths, seed_id, ids, mm, go, ge), 10)
@@ -1016,32 +719,14 @@ def d1_timed(name, fasta, dev):
                     "h2d_pinned_ms": pinned_ms}
 
 
-def phase_d1_kernels(dev, corpus, edges):
-    """The d=1 kernels against their plain versions (with `edges`, also
-    on the edge rows, the 125-row run and the ragged edge rows) and
-    timed on the d1_1m and d1_mixed_1m corpora; returns the three
-    kernels' rows of numbers (d1_1m's, with d1_mixed_1m's beside them
-    under "d1_mixed_1m")."""
-    from swarm_tpu_torch.corpora import (
-        d1_edge_rows, insertion_run, make_db, ragged_edge_rows, rows_records)
-
-    worst = dict.fromkeys(D1_KERNELS, 0)
-    if edges:
-        with tempfile.TemporaryDirectory(prefix="d1_edges_") as tmp:
-            for case, rows in (("edge_rows", d1_edge_rows()),
-                               ("insertion_run", insertion_run()),
-                               ("long_insertion_run",
-                                insertion_run(length=LONG_RUN)),
-                               ("ragged_edge_rows", ragged_edge_rows())):
-                (Path(tmp) / case).mkdir()
-                db = make_db(Path(tmp) / case, rows_records(rows))
-                errs, _ = d1_check(case, _d1_rows(db, dev))
-                worst = {k: max(worst[k], errs[k]) for k in worst}
-
+def phase_d1_kernels(dev, corpus):
+    """The d=1 kernels against their plain versions and timed on the
+    d1_1m and d1_mixed_1m corpora; returns the four kernels' rows (d1_1m's,
+    with d1_mixed_1m's beside them under "d1_mixed_1m")."""
     result, h2d = d1_timed("d1_1m", corpus["d1_1m"], dev)
     mixed, mixed_h2d = d1_timed("d1_mixed_1m", corpus["d1_mixed_1m"], dev)
     for kernel, row in result.items():
-        row["max_abs_err"] = max(row["max_abs_err"], worst[kernel],
+        row["max_abs_err"] = max(row["max_abs_err"],
                                  mixed[kernel]["max_abs_err"])
         row["d1_mixed_1m"] = mixed[kernel]
     result["d1_keygen"].update(h2d)
@@ -1093,21 +778,17 @@ def join_check(skeys, spays, s_buckets, bkeys, bpays, b_buckets):
     return worst, pairs
 
 
-def graft_check(name, db, heavy, light, dev, small_is_heavy=None):
+def graft_check(name, db, heavy, light, dev):
     """graft_keygen (count and emit, both sides), graft_join (the sides
     partitioned by d1_partition into the same buckets; counts, records,
-    pairs, both sides unwritten) and graft_verify (flags, each light
-    row's smallest heavy one; on the join's pairs and on RANDOM_PAIRS
-    pairs of random keys of the two sides, whose variants mostly differ,
-    in length too) against their plain versions on the same card
-    tensors, and the engine against the native host join; returns the
-    max_abs_err of each and the tensors (the join's pairs and their
-    flags). The kernels take the side of fewer keys as the small one, as
-    the engine does, unless `small_is_heavy` says which."""
+    pairs, both sides unwritten) and graft_verify (flags and each light
+    row's smallest heavy one, on the join's pairs) against their plain
+    versions on the same card tensors; returns the max_abs_err of each
+    and the tensors. The side of fewer keys is the small one, as the
+    engine takes it."""
     import numpy as np
     import torch
 
-    from swarm_tpu_torch import _native
     from swarm_tpu_torch.ops import fastidious_torch as ft
     from swarm_tpu_torch.ops import neighbors_sortjoin as sj
 
@@ -1126,9 +807,7 @@ def graft_check(name, db, heavy, light, dev, small_is_heavy=None):
     zob = ft.zobrist_tensor(zob_np, dev)
     zob_plain = ft.zobrist_tensor(zob_np, "cpu").to(dev)
     lens = db.lengths.astype(np.int64)
-    if small_is_heavy is None:
-        small_is_heavy = (7 * lens[heavy] + 4).sum() <= \
-            (7 * lens[light] + 4).sum()
+    small_is_heavy = (7 * lens[heavy] + 4).sum() <= (7 * lens[light] + 4).sum()
     sides = []
     e_keygen = 0
     for amps in ((heavy, light) if small_is_heavy else (light, heavy)):
@@ -1152,29 +831,15 @@ def graft_check(name, db, heavy, light, dev, small_is_heavy=None):
     bkeys, bpays, b_buckets = sj.partition(bkeys, bpays, bits)
     e_join, pairs = join_check(skeys, spays, s_buckets, bkeys, bpays,
                                b_buckets)
-    checked = torch.cat([pairs, random_pairs(skeys.numel(), bkeys.numel(),
-                                             dev)])
     best = torch.full((len(db),), 2**31 - 1, dtype=torch.int32, device=dev)
     want_best = best.clone()
     ok = ft.verify(words, row_word, lengths, s_ids, s_ends, b_ids, b_ends,
-                   checked, small_is_heavy, best)
+                   pairs, small_is_heavy, best)
     want_ok = ft.verify_reference(words, row_word, lengths, s_ids, s_ends,
-                                  b_ids, b_ends, checked)
-    ft.best_reference(s_ids, s_ends, b_ids, b_ends, checked[want_ok],
+                                  b_ids, b_ends, pairs)
+    ft.best_reference(s_ids, s_ends, b_ids, b_ends, pairs[want_ok],
                       small_is_heavy, want_best)
     e_verify = max(err(ok, want_ok), err(best, want_best))
-    random_ok = int(ok[pairs.numel():].sum())
-    ok = ok[:pairs.numel()]
-    count, cand = ft.GraftEngine(db, dev).graft_candidates(heavy, light)
-    native = _native.graft_join(db.codes, db.offsets, db.lengths, len(db),
-                                heavy, light)
-    n_count, n_cand = native if native is not None else (
-        0, np.full(len(db), -1))
-    # the native joins emit no deletion of a 1-nt row, so they do not
-    # count the empty midpoint of a heavy and a light 1-nt row; the
-    # engine counts it, as swarm_tpu's GraftEngine does
-    one = db.lengths == 1
-    empty_midpoints = int(one[heavy].sum()) * int(one[light].sum())
     torch.cuda.synchronize()
     sizes = torch.diff(s_buckets, prepend=s_buckets.new_zeros(1))
     say(f"kernels graft {name}: rows={len(db)} heavy={len(heavy)} "
@@ -1182,38 +847,16 @@ def graft_check(name, db, heavy, light, dev, small_is_heavy=None):
         f" keys={skeys.numel()}+{bkeys.numel()} bucket_bits={bits} "
         f"largest_small_bucket={int(sizes.max()) if sizes.numel() else 0} "
         f"empty_small_buckets={int((sizes == 0).sum())} "
-        f"pairs={pairs.numel()} verified={int(ok.sum())} random_pairs="
-        f"{checked.numel() - pairs.numel()} (verified {random_ok}) "
-        f"engine_count="
-        f"{count} native_count={n_count} (empty midpoints it does not "
-        f"count: {empty_midpoints}) max_abs_err keygen={e_keygen} "
-        f"join={e_join} verify={e_verify}")
+        f"pairs={pairs.numel()} verified={int(ok.sum())} max_abs_err "
+        f"keygen={e_keygen} join={e_join} verify={e_verify}")
     if e_keygen or e_join or e_verify:
         raise AssertionError(f"a graft kernel disagrees with its plain "
                              f"version on {name}")
-    if count != n_count + empty_midpoints or \
-            not np.array_equal(cand, n_cand):
-        raise AssertionError(f"{name}: the graft engine disagrees with the "
-                             f"native join")
     return {"graft_keygen": e_keygen, "graft_join": e_join,
             "graft_verify": e_verify}, (words, row_word, lengths, zob,
                                         small_is_heavy, sides, skeys, spays,
                                         s_buckets, bkeys, bpays, b_buckets,
                                         pairs, ok)
-
-
-def random_pairs(s_keys, b_keys, dev):
-    """RANDOM_PAIRS pairs (spay << 32) | bpay of random payloads of two
-    sides of s_keys and b_keys keys (none if a side has none)."""
-    import torch
-
-    if not s_keys or not b_keys:
-        return torch.zeros(0, dtype=torch.int64, device=dev)
-    g = torch.Generator(device=dev)
-    g.manual_seed(RANDOM_PAIRS["seed"])
-    n = RANDOM_PAIRS["pairs"]
-    return (torch.randint(0, s_keys, (n,), generator=g, device=dev) << 32) \
-        | torch.randint(0, b_keys, (n,), generator=g, device=dev)
 
 
 def verify_timed(busy, words, row_word, lengths, s_ids, s_ends, b_ids,
@@ -1235,7 +878,7 @@ def verify_timed(busy, words, row_word, lengths, s_ids, s_ends, b_ids,
 
 def _graft_sides(name, fasta, work):
     """(db, heavy, light) that a `-d 1 -f` run of the port hands its graft
-    engine, by one run of the main path's flags."""
+    engine, by one run of the main path's flags in `work`/NAME_sides."""
     from swarm_tpu_torch.ops import fastidious_torch as ft
 
     seen = []
@@ -1247,8 +890,7 @@ def _graft_sides(name, fasta, work):
 
     ft.GraftEngine.graft_candidates = capture
     try:
-        run_cli(MAIN_PATHS[name][2] + ["-l", "log.txt", str(fasta)],
-                work / f"{name}_sides")
+        run_path(MAIN_PATHS[name][2], fasta, work / f"{name}_sides")
     finally:
         ft.GraftEngine.graft_candidates = real
     if len(seen) != 1:
@@ -1498,88 +1140,30 @@ def graft_timed(name, fasta, dev, work):
     return result
 
 
-def graft_edges(dev):
-    """The graft kernels against their plain versions on the ragged edge
-    rows, the word-edge rows of graft_edge_rows, a long insertion run
-    whose light bucket outgrows the join's table, and an empty side;
-    graft_verify timed alone on each side's pairs. Returns the worst
-    max_abs_err of each kernel and the verify's {side: (pairs, alone
-    ms)}."""
-    import numpy as np
-
-    from swarm_tpu_torch.corpora import (
-        graft_edge_rows, insertion_run, make_db, ragged_edge_rows,
-        record_index, rows_records)
-
-    def every(k):
-        return lambda db: np.arange(len(db)) % k != 0 if k else \
-            np.zeros(len(db), dtype=bool)
-
-    edge_rows, edge_light = graft_edge_rows()
-    worst = dict.fromkeys(GRAFT_KERNELS, 0)
-    timed = {}
-    busy = busy_kernel(dev)
-    with tempfile.TemporaryDirectory(prefix="graft_edges_") as tmp:
-        for case, rows, light_of in (
-                ("ragged_edge_rows", ragged_edge_rows(), every(2)),
-                ("graft_edge_rows", edge_rows,
-                 lambda db: edge_light[record_index(db)]),
-                ("long_insertion_run", insertion_run(length=LONG_GRAFT_RUN),
-                 every(500)),
-                ("empty_side", insertion_run(), every(None))):
-            (Path(tmp) / case).mkdir()
-            db = make_db(Path(tmp) / case, rows_records(rows))
-            light = light_of(db)
-            # the long run's light side as the small one: its bucket
-            # of 4,196 equal keys spans five tables, linked across
-            errs, (words, row_word, lengths, _, small_is_heavy, sides, *_,
-                   pairs, _) = graft_check(
-                case, db, np.nonzero(~light)[0], np.nonzero(light)[0],
-                dev, False if case == "long_insertion_run" else None)
-            worst = {k: max(worst[k], errs[k]) for k in worst}
-            if pairs.numel():
-                (s_ids, s_ends, _, _), (b_ids, b_ends, _, _) = sides
-                ms, _ = verify_timed(busy, words, row_word, lengths, s_ids,
-                                     s_ends, b_ids, b_ends, pairs,
-                                     small_is_heavy)
-                timed[case] = (pairs.numel(), ms)
-                say(f"kernel graft_verify timed {case}: pairs="
-                    f"{pairs.numel()} kernel_ms={ms:.4f} (alone)")
-    return worst, timed
-
-
-def phase_graft_kernels(dev, corpus, work, edges):
-    """The graft kernels against their plain versions (with `edges`, also
-    on graft_edges' sides) and timed on the fastidious corpora of
-    `corpus`; returns the three kernels' rows (d1_fastidious_200k's, with
-    the asymmetric corpus' beside them)."""
-    worst = dict.fromkeys(GRAFT_KERNELS, 0)
-    if edges:
-        worst, timed = graft_edges(dev)
+def phase_graft_kernels(dev, corpus, work):
+    """The graft kernels against their plain versions and timed on the
+    sides the two fastidious corpora's runs hand the engine, then
+    graft_join on skewed buckets and on random sides; returns the three
+    kernels' rows (d1_fastidious_200k's, with the asymmetric corpus' and
+    the join's other shapes beside them)."""
     result = graft_timed("d1_fastidious_200k", corpus["d1_fastidious_200k"],
                          dev, work)
+    asym = graft_timed("d1_fastidious_asym_200k",
+                       corpus["d1_fastidious_asym_200k"], dev, work)
     for kernel, row in result.items():
-        row["max_abs_err"] = max(row["max_abs_err"], worst[kernel])
-    if edges:
-        result["graft_verify"]["edge_sides_ms"] = timed
-        result["graft_join"]["skewed_buckets"] = graft_join_skewed(dev)
-        result["graft_join"]["random_sides"] = graft_join_random(dev)
-    if "d1_fastidious_asym_200k" in corpus:
-        asym = graft_timed("d1_fastidious_asym_200k",
-                           corpus["d1_fastidious_asym_200k"], dev, work)
-        for kernel, row in result.items():
-            row["max_abs_err"] = max(row["max_abs_err"],
-                                     asym[kernel]["max_abs_err"])
-            row["d1_fastidious_asym_200k"] = asym[kernel]
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 asym[kernel]["max_abs_err"])
+        row["d1_fastidious_asym_200k"] = asym[kernel]
+    result["graft_join"]["skewed_buckets"] = graft_join_skewed(dev)
+    result["graft_join"]["random_sides"] = graft_join_random(dev)
     return result
 
 
-def _screen_check(name, eng, chunk=None, steps=None):
+def _screen_check(name, eng, steps=None):
     """The screen kernels against their plain versions on the engine's
     steps (the first `steps` of them, or all): words and row counts
-    element for element, the pairs in order; with `chunk`, also the
-    engine's own run in chunks of that many steps. Returns (tis, tjs,
-    words, counts, reference words, pairs)."""
+    element for element, the pairs in order. Returns (tis, tjs, words,
+    counts, reference words, pairs)."""
     import numpy as np
     import torch
 
@@ -1603,27 +1187,55 @@ def _screen_check(name, eng, chunk=None, steps=None):
     if not (torch.equal(ga, pa) and torch.equal(gb, pb)):
         raise AssertionError(f"d2_extract {name}: pairs differ from the "
                              f"plain version's, or their order")
-    note = ""
-    if chunk is not None:
-        os.environ["SWARM_TPU_D2_CHUNK"] = str(chunk)
-        try:
-            before = d2n.launches["d2_screen"]
-            ca, cb, _ = eng.candidate_pairs()
-            chunks = d2n.launches["d2_screen"] - before
-        finally:
-            del os.environ["SWARM_TPU_D2_CHUNK"]
-        if not (np.array_equal(ca, pa.cpu().numpy())
-                and np.array_equal(cb, pb.cpu().numpy())):
-            raise AssertionError(f"d2_screen {name}: the engine's pairs in "
-                                 f"chunks of {chunk} differ")
-        note = f" chunks={chunks} of {chunk} steps"
     lens = eng.lengths.cpu().numpy()
     apart = int((np.abs(lens[pa.cpu().numpy()] - lens[pb.cpu().numpy()])
                  == eng.d).sum())
     say(f"kernel d2_screen/d2_extract {name}: n={eng.n} T={T} d={eng.d} "
-        f"steps={len(tis)} pairs={len(pa)} (lengths d apart: {apart})"
-        f"{note} exact")
+        f"steps={len(tis)} pairs={len(pa)} (lengths d apart: {apart}) exact")
     return tis, tjs, words, counts, want, (pa, pb)
+
+
+@functools.cache
+def pairs_within():
+    """pairs_within(lengths, d) of the benchmark's reader of
+    d2_screen.roofline_pct (swarmbench/metrics/, loaded by its path):
+    the unordered pairs of rows whose lengths differ by at most d, the
+    screen's work as the benchmark counts it."""
+    import importlib.util
+
+    path = REPO / "swarmbench" / "metrics" / "d2_screen.roofline_pct.py"
+    spec = importlib.util.spec_from_file_location("d2_screen_roofline_pct",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.pairs_within
+
+
+def screen_pairs(lengths, n, T, steps, d):
+    """pairs_within over the tile pairs `steps` of a screen over n rows
+    at tile T: a diagonal step's pairs within its tile, an off-diagonal
+    step's across its two tiles. Over every step of a run it is the
+    corpus' count."""
+    import torch
+
+    within = pairs_within()
+    tiles = {}
+
+    def tile(i):
+        if i not in tiles:
+            rows = lengths[i * T:min(n, (i + 1) * T)]
+            tiles[i] = (rows, within(rows, d))
+        return tiles[i]
+
+    total = 0.0
+    for i, j in steps:
+        a, within_a = tile(i)
+        if i == j:
+            total += within_a
+        else:
+            b, within_b = tile(j)
+            total += within(torch.cat([a, b]), d) - within_a - within_b
+    return total
 
 
 def screen_timed(name, fasta, dev, busy, steps=None):
@@ -1665,46 +1277,32 @@ def screen_timed(name, fasta, dev, busy, steps=None):
 
     int_mm_ms = cuda_ms(int_mm, 2)
     del pm1
-    # pairs the kernel's cheaper tests leave to the popcount (triangle,
-    # padding, lengths)
-    idx = torch.arange(T, device=dev)
-    masked = 0
-    for i, j in steps:
-        la = eng.lengths[i * T:(i + 1) * T]
-        lb = eng.lengths[j * T:(j + 1) * T]
-        keep = ((la[:, None] - lb[None, :]).abs() <= d) & \
-            ((j * T + idx) < eng.n)[None, :]
-        if i == j:
-            keep &= idx[:, None] < idx[None, :]
-        masked += int(keep.sum())
-    # pairs the function needs, gi < gj < n: a diagonal step's upper
-    # triangle, an off-diagonal one's columns below n
-    pairs_all, needed = K * T * T, 0
-    for i, j in steps:
-        m = max(0, min(T, eng.n - j * T))
-        needed += m * (m - 1) // 2 if i == j else T * m
-    tc_ops = 2 * d2n.PROFILE_BITS * needed
+    # the work: pairs within d in length, counted as the benchmark's
+    # d2_screen.roofline_pct counts them
+    within = screen_pairs(eng.lengths, eng.n, T, steps, d)
+    pairs_all = K * T * T
+    tc_ops = 2 * d2n.PROFILE_BITS * within
     n_bytes = eng.n_pad * (128 + 4) + K * T * T // 8 + K * T * 4
     t_tc = tc_ops / PEAK_INT8_TC_OPS_PER_S * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     bound_ms, bound_by = max(t_tc, t_bytes), \
         "operations" if t_tc >= t_bytes else "bytes"
     # the popcount form's own bound (the XOR-popcount screen before the
-    # tensor cores): 32 POPC a pair past the cheap tests
-    popc_ms = masked * (d2n.PROFILE_BITS // 32) / PEAK_POPC_PER_S * 1e3
+    # tensor cores): 32 POPC a pair that passes the cheap tests
+    # (triangle, padding, lengths), which are the pairs within d
+    popc_ms = within * (d2n.PROFILE_BITS // 32) / PEAK_POPC_PER_S * 1e3
     rows_hit = int((counts > 0).sum())
     ex_bytes = K * T * 4 + rows_hit * (T // 8) + 8 * total
     ex_bound_ms, ex_bound_by = bound(ex_bytes, 0)
     regs = {k: ptxas_report(f"{k}_kernel") for k in ("d2_screen",
                                                      "d2_extract")}
     say(f"kernel d2_screen {name}: steps={K} T={T} pairs={pairs_all} "
-        f"(gi < gj < n: {needed}; the length test too: {masked}) "
-        f"survivors={total} kernel_ms="
+        f"(within d in length: {within:.0f}) survivors={total} kernel_ms="
         f"{screen_ms:.4f} plain_ms={plain_screen_ms:.3f} int_mm_ms="
         f"{int_mm_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: int8 tensor "
         f"cores, {tc_ops} operations; bytes {n_bytes}: {t_bytes:.4f} ms) "
         f"tensor_core_share={bound_ms / screen_ms:.3f} popcount_bound_ms="
-        f"{popc_ms:.4f} ({masked} pairs x 32 POPC at "
+        f"{popc_ms:.4f} ({within:.0f} pairs x 32 POPC at "
         f"{PEAK_POPC_PER_S:.3e}/s) ptxas={regs['d2_screen']}")
     say(f"kernel d2_extract {name}: rows with survivors={rows_hit} of "
         f"{K * T} pairs={total} alone_ms={extract_ms:.4f} wrapper_ms="
@@ -1719,7 +1317,8 @@ def screen_timed(name, fasta, dev, busy, steps=None):
              "bound_ms": bound_ms, "bound_by": bound_by,
              "library_ms": int_mm_ms, "popcount_bound_ms": popc_ms,
              "tensor_core_share": bound_ms / screen_ms,
-             "ptxas": regs["d2_screen"], "steps": K, "survivors": total},
+             "ptxas": regs["d2_screen"], "steps": K, "pairs_within": within,
+             "survivors": total},
             {"max_abs_err": 0, "ms": extract_ms, "wrapper_ms": wrapper_ms,
              "plain_ms": plain_extract_ms, "bound_ms": ex_bound_ms,
              "bound_by": ex_bound_by, "library_ms": None,
@@ -1767,42 +1366,15 @@ def extract_dense(dev, busy):
             "pairs": total}
 
 
-def phase_d2_screen(dev, corpus, work, edges):
-    """d2_screen and d2_extract against their plain versions: with
-    `edges`, on SCREEN_CASES (T = 96, 128, 512; n one below, at and one
-    above a multiple of T; d = 2, 3, 5; lengths exactly d apart), on
-    SCREEN_EDGE_CASES (T = 32, 160, 4096 with n below T and on a tile's
-    edge; d = 20) and at T = 128 over chunks of 2 steps; then on the
-    d2_100k and d2_long corpora at T = 4096 and on the first chunk (512
-    steps) of the d1_1m corpus at d = 2, timed there, and the extraction
-    on dense words (extract_dense). Returns the kernels' rows (d2_100k's,
-    with the others beside them under "d2_long", "d1_1m_chunk" and
-    "dense")."""
+def phase_d2_screen(dev, corpus):
+    """d2_screen and d2_extract on the d2_100k and d2_long corpora at
+    T = 4096 and on the first chunk (D1_1M_SCREEN_STEPS steps) of the
+    d1_1m corpus at d = 2, each checked and timed there, and the
+    extraction on dense words (extract_dense). Returns the kernels' rows
+    (d2_100k's, with the others beside them under "d2_long",
+    "d1_1m_chunk" and "dense")."""
     import torch
 
-    from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
-
-    if edges:
-        from swarm_tpu_torch.corpora import (
-            SCREEN_CASES, SCREEN_EDGE_CASES, make_db, rows_records,
-            screen_edge_rows)
-
-        cases = [(T, n, d, None) for T, n, d in
-                 SCREEN_CASES + SCREEN_EDGE_CASES] + \
-            [(128, 383, 3, 2), (128, 384, 2, 2), (128, 385, 5, 2)]
-        for T, n, d, chunk in cases:
-            case = f"T{T}_n{n}_d{d}" + (f"_chunk{chunk}" if chunk else "")
-            (work / case).mkdir()
-            db = make_db(work / case, rows_records(screen_edge_rows(130, n, d)))
-            tile = os.environ.get("SWARM_TPU_D2_TILE")
-            os.environ["SWARM_TPU_D2_TILE"] = str(T)
-            try:
-                eng = D2NetworkEngine(db, d, dev)
-            finally:
-                os.environ.pop("SWARM_TPU_D2_TILE")
-                if tile is not None:
-                    os.environ["SWARM_TPU_D2_TILE"] = tile
-            _screen_check(case, eng, chunk)
     busy = busy_kernel(dev)
     screen, extract = screen_timed("d2_100k", corpus["d2_100k"], dev, busy)
     if "d2_long" in corpus:
@@ -1814,7 +1386,7 @@ def phase_d2_screen(dev, corpus, work, edges):
             steps=D1_1M_SCREEN_STEPS)
     extract["dense"] = extract_dense(dev, busy)
     # the phase's cached blocks (the chunks' words, the plain versions'
-    # tiles) back to the card: the server phase's processes need them
+    # tiles) back to the card
     torch.cuda.empty_cache()
     return {"d2_screen": screen, "d2_extract": extract}
 
@@ -1851,21 +1423,19 @@ def csr_readback_ms(got, reps=3):
     return {"first": times[0], "median": float(np.median(times[1:]))}
 
 
-def phase_d2_csr(dev, edges):
-    """d2_csr (the network engine's CSR partition) against its plain
-    version on the card, exactly (starts, targets, diffs, the check's
-    flag): with `edges` on CSR_CASES; then at the cells' edge counts
-    (CSR_TIMED), timed there: the wrapper's launches (CUDA events around
-    whole calls), its bound (the bytes its function needs over the
-    memory rate), the plain version on the card, torch.sort of the same
-    composite key (source << 32 | target) with the take of the diffs
-    (library_ms, which the port never calls), the engine's readback
-    (csr_readback_ms), and the peak of device memory.
-    Returns
-    {"d2_csr": row}."""
+def phase_d2_csr(dev):
+    """d2_csr (the network engine's CSR partition) at the cells' edge
+    counts (CSR_TIMED), against its plain version on the card, exactly
+    (starts, targets, diffs, the check's flag), then timed there: the
+    wrapper's launches (CUDA events around whole calls), its bound (the
+    bytes its function needs over the memory rate), the plain version on
+    the card, torch.sort of the same composite key (source << 32 |
+    target) with the take of the diffs (library_ms, which the port never
+    calls), the engine's readback (csr_readback_ms), and the peak of
+    device memory. Returns {"d2_csr": row}."""
     import torch
 
-    from swarm_tpu_torch.corpora import CSR_CASES, screen_order_tasks
+    from swarm_tpu_torch.corpora import screen_order_tasks
     from swarm_tpu_torch.ops import d2_network as d2n
 
     def on(tasks, n):
@@ -1885,13 +1455,6 @@ def phase_d2_csr(dev, edges):
                                      f"plain version")
         return got
 
-    if edges:
-        for n, cloud, dense in CSR_CASES:
-            got = check(f"n{n}_cloud{cloud}_dense{dense}",
-                        screen_order_tasks(n, cloud, 21, T=128, dense=dense),
-                        n)
-            say(f"d2_csr n={n} cloud={cloud} dense={dense}: "
-                f"{got[1].numel()} edges equal to the plain version")
     row = {"max_abs_err": 0}
     for i, (cell, (n, cloud)) in enumerate(CSR_TIMED.items()):
         t0 = time.perf_counter()
@@ -1948,12 +1511,6 @@ def phase_d2_csr(dev, edges):
 #: screen's order with abundances 1-3, not the cells' own
 TASKS_TIMED = {"d2_150nt_500k": (500_000, 81),
                "d3_253nt_300k": (300_000, 161)}
-#: (pairs, abundances): the task layout's exact cases on the card: none,
-#: one, a tile's edges (the kernels' tile is 2,048 pairs) and 2^20 + 3,
-#: with every abundance tied, none tied, and either under no_break
-TASKS_EDGES = [(0, "ties"), (1, "distinct"), (2047, "ties"),
-               (2048, "distinct"), (2049, "ties"), ((1 << 20) + 3, "ties"),
-               ((1 << 20) + 3, "distinct")]
 
 
 def tasks_bytes(n_pairs, n_tasks, n):
@@ -1963,16 +1520,16 @@ def tasks_bytes(n_pairs, n_tasks, n):
     return 8 * n_pairs + 8 * n + 16 * n_tasks
 
 
-def phase_d2_tasks(dev, edges):
+def phase_d2_tasks(dev):
     """d2_tasks (the network engine's diff tasks laid out on the card from
-    the screen's pairs) against its plain version on the card, exactly,
-    with no_break off and on: with `edges` on TASKS_EDGES; then at the
-    cells' pair counts (TASKS_TIMED), timed there: the wrapper (count,
-    scan, the one readback, emit; CUDA events around whole calls), its
-    bound (the bytes its function needs over the memory rate), the plain
-    version on the card, and the host route it replaced (the pairs' copy
-    to the host, directions and task_layout, the tasks' upload; host
-    clock). Returns {"d2_tasks": row}."""
+    the screen's pairs) at the cells' pair counts (TASKS_TIMED), against
+    its plain version on the card, exactly, with no_break off and on,
+    then timed there: the wrapper (count, scan, the one readback, emit;
+    CUDA events around whole calls), its bound (the bytes its function
+    needs over the memory rate), the plain version on the card, and the
+    host route it replaced (the pairs' copy to the host, directions and
+    task_layout, the tasks' upload; host clock). Returns
+    {"d2_tasks": row}."""
     import numpy as np
     import torch
 
@@ -1997,19 +1554,6 @@ def phase_d2_tasks(dev, edges):
                                          f"plain version")
         return got
 
-    if edges:
-        rng = np.random.default_rng(23)
-        for size, kind in TASKS_EDGES:
-            n = max(2 * size, 2)
-            pa = np.sort(rng.integers(0, n - 1, size=size))
-            pb = pa + 1 + rng.integers(0, 4, size=size) % (n - 1 - pa)
-            ab = np.ones(n, np.int64) if kind == "ties" else \
-                rng.permutation(n).astype(np.int64)
-            got = check(f"{size}_{kind}",
-                        *(torch.from_numpy(x.astype(np.int32)).to(dev)
-                          for x in (pa, pb)), torch.from_numpy(ab).to(dev), n)
-            say(f"d2_tasks {size} pairs, {kind}: {got[0].numel()} tasks "
-                f"equal to the plain version")
     row = {"max_abs_err": 0}
     for i, (cell, (n, cloud)) in enumerate(TASKS_TIMED.items()):
         t0 = time.perf_counter()
@@ -2064,669 +1608,14 @@ def phase_d2_tasks(dev, edges):
     return {"d2_tasks": row}
 
 
-def run_cli(argv, workdir, env=None):
-    """One CLI run of the port in `workdir` with the variables of `env`
-    set; returns (seconds, [timing] lines)."""
-    from swarm_tpu_torch.main import run
-
-    workdir.mkdir(parents=True, exist_ok=True)
-    cwd = os.getcwd()
-    err = io.StringIO()
-    real_err = sys.__stderr__
-    os.chdir(workdir)
-    sys.__stderr__ = err  # progress.py writes its [timing] lines here
-    env = env or {}
-    os.environ.update(env)
-    try:
-        t0 = time.perf_counter()
-        rc = run(argv, "swarm")
-        sec = time.perf_counter() - t0
-    finally:
-        for key in env:
-            os.environ.pop(key, None)
-        sys.__stderr__ = real_err
-        os.chdir(cwd)
-    if rc != 0:
-        raise AssertionError(f"run {argv} returned {rc}")
-    return sec, [ln for ln in err.getvalue().splitlines()
-                 if ln.startswith("[timing]")]
-
-
-def kernel_counts():
-    from swarm_tpu_torch.ops import (
-        d2_diffs, d2_network, fastidious_torch, neighbors_sortjoin,
-        nw_scores)
-
-    return {"d2_diffs": d2_diffs.launches, **d2_network.launches,
-            **nw_scores.launches, **neighbors_sortjoin.launches,
-            **fastidious_torch.launches}
-
-
-def reset_kernel_counts():
-    from swarm_tpu_torch.ops import (
-        d2_diffs, d2_network, fastidious_torch, neighbors_sortjoin,
-        nw_scores)
-
-    d2_diffs.launches = 0
-    for counts in (d2_network.launches, nw_scores.launches,
-                   neighbors_sortjoin.launches, fastidious_torch.launches):
-        for name in counts:
-            counts[name] = 0
-
-
-def phase_main_path(name, fasta, flags, work, env, kernels, native_env):
-    """Warm-up run, then one timed run through the port with the
-    variables of `env` set and every kernel's launch count set to 0
-    before it and read after it; then the native engine's run (under
-    `native_env`), whose files the port's must equal byte for byte; for
-    a `-f` path also a run with the graft on the host join, whose files
-    must too. Returns the timed run's launch counts of `kernels`, its
-    seconds, the native engine's, and its [timing] lines."""
-    import torch
-
-    from swarm_tpu_torch import metrics
-
-    n = sum(1 for ln in open(fasta) if ln.startswith(">"))
-    argv = flags + ["-l", "log.txt", str(fasta)]
-    outputs = output_files(flags)
-    engine = env.get("SWARM_TPU_D2_ENGINE")
-    warm_s, _ = run_cli(argv, work / f"{name}_warm", env)
-    torch.cuda.synchronize()
-
-    reset_kernel_counts()
-    metrics.reset()
-    torch.cuda.reset_peak_memory_stats()
-    sec, timing = run_cli(argv, work / f"{name}_torch", env)
-    counts = kernel_counts()
-    comparisons = dict(metrics.last_run)
-    peak = torch.cuda.max_memory_allocated()
-    if flags[:2] == ["-d", "2"] and engine is None and \
-            metrics.last_run.get("qgram_screen_comparisons") != n * (n - 1) // 2:
-        raise AssertionError(f"{name}: the network engine did not run")
-    if flags[:2] == ["-d", "1"] and not any(
-            ln.startswith("[timing] d1 join (cuda)") for ln in timing):
-        raise AssertionError(f"{name}: the d=1 sort-join engine did not run")
-    if "-f" in flags and not any(ln.startswith("[timing] graft (cuda)")
-                                 for ln in timing):
-        raise AssertionError(f"{name}: the device graft did not run")
-    for kernel in kernels:
-        if counts[kernel] < 1:
-            raise AssertionError(f"{name}: kernel {kernel} never launched")
-    native_s, _ = run_cli(argv, work / f"{name}_native", native_env)
-    runs = [f"{name}_torch"]
-    host_graft = ""
-    if "-f" in flags:
-        # the same run with the graft on the host join (the port's -f
-        # path before the device graft), the d=1 engine on the card
-        host_graft_s, _ = run_cli(argv, work / f"{name}_host_graft", {
-            **env, "SWARM_TPU_GRAFT_PROBE_MAX": str(1 << 40)})
-        runs.append(f"{name}_host_graft")
-        host_graft = f"host_graft_s={host_graft_s:.3f} "
-
-    say(f"main path {name}: n={n} engine={engine or 'auto'} "
-        f"flags={' '.join(flags)} warmup_s={warm_s:.3f} warm_s={sec:.3f} "
-        f"native_engine_s={native_s:.3f} {host_graft}launches={counts} "
-        f"comparisons={comparisons} device_peak_bytes={peak}")
-    if engine == "device":
-        say(f"main path {name}: target lists that took the device="
-            f"{comparisons.get('d2_device_batches')} stayed under "
-            f"MIN_DEVICE_BATCH={comparisons.get('d2_host_batches')}")
-    for ln in timing:
-        say(f"  {name} {ln}")
-    for run in runs:
-        for out in outputs:
-            a = (work / run / out).read_bytes()
-            b = (work / f"{name}_native" / out).read_bytes()
-            if a != b or not a:
-                raise AssertionError(f"{run}: {out} differs from the native "
-                                     f"engine's ({len(a)} vs {len(b)} bytes)")
-    say(f"main path {name}: {len(outputs)} output files byte-identical "
-        f"to the native engine's ({', '.join(runs)})")
-    return {"launches": {k: counts[k] for k in kernels}, "warm_s": sec,
-            "native_s": native_s, "device_peak_bytes": peak,
-            "timing": timing}
-
-
-#: a cold CLI run with its parts timed: the interpreter, `import
-#: torch`, the CUDA context, the kernel and native libraries, then the
-#: launcher's run (which would do the same three lazily); writes a JSON
-#: object of host-clock stamps to the file named by its first argument
-COLD_PROBE = """import json, sys, time
-t0 = time.time()
-import torch
-t1 = time.time()
-torch.zeros(1, device="cuda")
-torch.cuda.synchronize()
-t2 = time.time()
-from swarm_tpu_torch import _build, _native
-_build.load()
-t3 = time.time()
-import runpy
-out, sys.argv = sys.argv[1], [{launcher!r}] + sys.argv[2:]
-try:
-    runpy.run_path({launcher!r}, run_name="__main__")
-except SystemExit as e:
-    assert not e.code, e.code
-t4 = time.time()
-with open(out, "w") as fh:
-    json.dump({{"start": t0, "torch": t1, "context": t2, "libraries": t3,
-               "run": t4}}, fh)
-"""
-#: the server phase's paths and the [timing] line that shows the card's
-#: engine ran in the server
-SERVER_PATHS = {"d2_long": "[timing] d2 network (cuda)",
-                "d1_1m": "[timing] d1 join (cuda)",
-                "d1_fastidious_200k": "[timing] graft (cuda)"}
-
-
-def _launch(args, cwd, env):
-    """Seconds (host clock) of one process of the port; raises on rc."""
-    cwd.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, *args], cwd=cwd, env=env,
-                       capture_output=True, timeout=600)
-    sec = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise AssertionError(f"{args[:3]} in {cwd.name} returned "
-                             f"{r.returncode}:\n{r.stderr.decode()[-2000:]}")
-    return sec, r
-
-
-def output_files(flags):
-    """The files a main path's flags (and its `-l log.txt`) write."""
-    return [flags[i + 1] for i in range(len(flags) - 1)
-            if flags[i] in ("-o", "-s", "-u", "-i", "-w")] + ["log.txt"]
-
-
-def _same_outputs(name, flags, work, run):
-    outputs = output_files(flags)
-    for out in outputs:
-        a = (work / run / out).read_bytes()
-        if a != (work / f"{name}_torch" / out).read_bytes() or not a:
-            raise AssertionError(f"{run}: {out} differs from the in-process "
-                                 f"run's")
-    return len(outputs)
-
-
-#: the main paths run again over SHARDS in-process shards on the card
-SHARDED_PATHS = ("d1_1m", "d1_fastidious_200k", "d2_long")
-SHARDS = 4
-#: the main path run again as a one-rank NCCL group in a new process
-NCCL_PATH = "d1_full_100k"
-#: the start of the line in which a run reports its kernels' launches
-LAUNCHES = "[timing] launches "
-
-
-def shard_summary(name):
-    """The exchange (its bytes, time and bound: 2 x bytes over the
-    card's memory rate, read once and written once) and each shard's
-    phases of the last sharded run of engine `name` (mesh.last_run)."""
-    from swarm_tpu_torch.parallel import mesh
-
-    run = mesh.last_run[name]
-    nbytes = run["exchange_bytes"]
-    return {"shards": run["shards"], "exchanges": run["exchanges"],
-            "exchange_bytes": nbytes, "exchange_ms": run["exchange_s"] * 1e3,
-            "exchange_bound_ms": 2 * nbytes / PEAK_BYTES_PER_S * 1e3,
-            "phases_ms": {key: {p: round(sec * 1e3, 4)
-                                for p, sec in spent.items()}
-                          for key, spent in run["phases"].items()}}
-
-
-def phase_sharded(dev, corpus, work):
-    """The sharded engines (swarm_tpu_torch/parallel) on the card: each
-    of SHARDED_PATHS again under SWARM_TORCH_SHARDS=SHARDS (every shard
-    on this card), its kernels' launches counted from 0 and its files
-    equal to the single-device run's of phase 7 (which equal the native
-    engine's); the d2_100k candidate pairs over SHARDS shards equal to
-    one device's in order (no writers); and NCCL_PATH as a one-rank NCCL
-    group (bin/swarm-torch in a new process under the rank variables),
-    its files equal to the in-process run's. Prints each exchange's
-    bytes and time against its bound, each shard's phases and each
-    path's peak device memory; returns them."""
-    import numpy as np
-    import torch
-
-    from swarm_tpu_torch.corpora import read_db
-    from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
-    from swarm_tpu_torch.parallel import mesh
-    from swarm_tpu_torch.parallel.dryrun import free_port
-    from swarm_tpu_torch.parallel.mesh import LocalShards
-
-    t_phase = time.perf_counter()
-    result = {}
-    for name in SHARDED_PATHS:
-        flags, _, kernels, _ = MAIN_PATHS[name][2:]
-        engines = ["d2"] if flags[1] == "2" else \
-            ["d1", "graft"] if "-f" in flags else ["d1"]
-        mesh.last_run.clear()
-        reset_kernel_counts()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        sec, _ = run_cli(flags + ["-l", "log.txt", str(corpus[name])],
-                         work / f"{name}_shards",
-                         {"SWARM_TORCH_SHARDS": str(SHARDS)})
-        counts = kernel_counts()
-        peak = torch.cuda.max_memory_allocated()
-        for kernel in kernels:
-            if counts[kernel] < 1:
-                raise AssertionError(f"{name} over shards: kernel {kernel} "
-                                     "never launched")
-        if sorted(mesh.last_run) != sorted(engines):
-            raise AssertionError(f"{name}: the sharded engines did not run "
-                                 f"({sorted(mesh.last_run)})")
-        n_out = _same_outputs(name, flags, work, f"{name}_shards")
-        row = {"s": sec, "device_peak_bytes": peak,
-               "launches": {k: counts[k] for k in kernels},
-               **{e: shard_summary(e) for e in engines}}
-        say(f"sharded {name}: {SHARDS} shards on {dev} s={sec:.3f} "
-            f"device_peak_bytes={peak} launches={row['launches']}; {n_out} "
-            f"output files byte-identical to the single-device run's and "
-            f"the native engine's")
-        for e in engines:
-            x = row[e]
-            say(f"  {name} {e}: {x['exchanges']} exchanges "
-                f"{x['exchange_bytes']} bytes {x['exchange_ms']:.4f} ms "
-                f"(bound {x['exchange_bound_ms']:.4f} ms) "
-                f"phases_ms={x['phases_ms']}")
-        result[name] = row
-
-    db = read_db(corpus["d2_100k"])
-    eng = D2NetworkEngine(db, 2, dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = eng.candidate_pairs()
-    t1 = time.perf_counter()
-    reset_kernel_counts()
-    got = eng.candidate_pairs_sharded(LocalShards(SHARDS, dev))
-    t2 = time.perf_counter()
-    if got[2] != want[2] or not (np.array_equal(got[0], want[0])
-                                 and np.array_equal(got[1], want[1])):
-        raise AssertionError("d2_100k: the sharded pairs differ from one "
-                             "device's")
-    result["d2_100k_pairs"] = {"pairs": int(want[2]), "one_device_s": t1 - t0,
-                               "sharded_s": t2 - t1,
-                               "launches": {k: kernel_counts()[k] for k in
-                                            ("d2_screen", "d2_extract")},
-                               "d2": shard_summary("d2")}
-    say(f"sharded d2_100k pairs: {want[2]} pairs over {SHARDS} shards equal "
-        f"one device's in order; one device {t1 - t0:.3f} s, sharded "
-        f"{t2 - t1:.3f} s, phases_ms="
-        f"{result['d2_100k_pairs']['d2']['phases_ms']}")
-    del eng, db
-
-    name = NCCL_PATH
-    flags, _, kernels, _ = MAIN_PATHS[name][2:]
-    sec, r = _launch(
-        [str(REPO / "bin" / "swarm-torch"), *flags, "-l", "log.txt",
-         str(corpus[name])], work / f"{name}_nccl",
-        {**os.environ, "PYTHONPATH": str(REPO),
-         "SWARM_TPU_COORDINATOR": f"127.0.0.1:{free_port()}",
-         "SWARM_TPU_NUM_PROCESSES": "1", "SWARM_TPU_PROCESS_ID": "0"})
-    err = r.stderr.decode().splitlines()
-    lines = [ln for ln in err if ln.startswith("[timing] d1 shards (cuda)")]
-    if not any("exchange" in ln for ln in lines):
-        raise AssertionError(f"{name}: the one-rank NCCL run did not take "
-                             "the sharded engine")
-    # the new process counts its launches from 0 and reports them at the
-    # end of its run (main.py, under SWARM_TPU_TIMING)
-    counted = [json.loads(ln[len(LAUNCHES):]) for ln in err
-               if ln.startswith(LAUNCHES)]
-    if len(counted) != 1:
-        raise AssertionError(f"{name}: the one-rank NCCL run reported its "
-                             f"launches {len(counted)} times")
-    launches = {k: counted[0].get(k, 0) for k in kernels}
-    for kernel, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"{name} as one NCCL rank: kernel {kernel} "
-                                 "never launched")
-    n_out = _same_outputs(name, flags, work, f"{name}_nccl")
-    result[name + "_nccl"] = {"s": sec, "launches": launches,
-                              "timing": lines}
-    say(f"one-rank NCCL {name}: a new process, {sec:.3f} s, "
-        f"launches={launches}; {n_out} output files byte-identical to the "
-        f"in-process run's")
-    for ln in lines:
-        say(f"  {name} nccl {ln}")
-    result["phase_s"] = time.perf_counter() - t_phase
-    say(f"sharded phase: {result['phase_s']:.1f} s")
-    return result
-
-
-def phase_server(corpus, work, warm):
-    """The resident server on the card (python -m swarm_tpu_torch.server
-    under SWARM_TPU_DB_CACHE=1 and SWARM_TPU_TIMING=1): for each of
-    SERVER_PATHS a cold CLI run (a new process, no server; the kernel
-    library built on disk), the same run with its parts timed, the first
-    forwarded run and a second one of the same file (DB cache warm),
-    beside the main path's in-process warm time `warm`; every forwarded
-    run's files equal the in-process run's byte for byte, and the
-    server's stderr shows the card's engine. Then the digest that
-    swarm_tpu's device-array cache keys its entry by (blake2b of the raw
-    arena) at d1_1m, beside the H2D that a hit would save. Returns the
-    phase's numbers."""
-    import hashlib
-
-    import numpy as np
-
-    from swarm_tpu_torch.corpora import read_db
-
-    launcher = str(REPO / "bin" / "swarm-torch")
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
-    sock = work / "server.sock"
-    log_path = work / "server_stderr.txt"
-    result = {}
-    with open(log_path, "wb") as log:
-        t0 = time.perf_counter()
-        server = subprocess.Popen(
-            [sys.executable, "-m", "swarm_tpu_torch.server", str(sock)],
-            cwd=REPO, stdout=subprocess.DEVNULL, stderr=log,
-            env={**env, "SWARM_TPU_DB_CACHE": "1", "SWARM_TPU_TIMING": "1"})
-        try:
-            while not sock.exists():
-                if server.poll() is not None or \
-                        time.perf_counter() - t0 > 300:
-                    raise AssertionError("the server did not start:\n"
-                                         + log_path.read_text()[-2000:])
-                time.sleep(0.01)
-            ready_s = time.perf_counter() - t0
-            say(f"server: ready in {ready_s:.3f}s (torch import, CUDA "
-                f"context, kernel and native libraries)")
-            fwd_env = {**env, "SWARM_TORCH_SERVER": str(sock)}
-            for name, marker in SERVER_PATHS.items():
-                flags = MAIN_PATHS[name][2]
-                argv = flags + ["-l", "log.txt", str(corpus[name])]
-                cold_s, r = _launch([launcher, *argv], work / f"{name}_cold",
-                                    env)
-                # the split run holds the card before the launcher runs,
-                # where the dispatch rules would read it warm: it takes
-                # the network engine the cold run took
-                net_marker, card_env, host_env = SERVER_NETWORK[name]
-                on_card = net_marker in r.stderr.decode()
-                stamps = work / f"{name}_cold_split.json"
-                split_s, r = _launch(
-                    ["-c", COLD_PROBE.format(launcher=launcher),
-                     str(stamps), *argv], work / f"{name}_cold_split",
-                    {**env, **(card_env if on_card else host_env)})
-                if (net_marker in r.stderr.decode()) != on_card:
-                    raise AssertionError(f"{name}: the split run took another "
-                                         f"network engine than the cold run")
-                engine = "card" if on_card else "host"
-                t = json.loads(stamps.read_text())
-                split = {
-                    "interpreter_s": split_s - (t["run"] - t["start"]),
-                    "import_torch_s": t["torch"] - t["start"],
-                    "cuda_context_s": t["context"] - t["torch"],
-                    "libraries_s": t["libraries"] - t["context"],
-                    "run_s": t["run"] - t["libraries"]}
-                seen = log_path.read_text().count(marker)
-                fwd = []
-                for k in (1, 2):
-                    sec, r = _launch([launcher, *argv],
-                                     work / f"{name}_fwd{k}", fwd_env)
-                    if b"[timing]" in r.stderr:
-                        raise AssertionError(f"{name}: [timing] lines on the "
-                                             f"forwarded run's stderr")
-                    fwd.append(sec)
-                    n_files = _same_outputs(name, flags, work, f"{name}_fwd{k}")
-                now = log_path.read_text()
-                if now.count(marker) < seen + 2:
-                    raise AssertionError(f"{name}: no '{marker}' line in the "
-                                         f"server's stderr for each run")
-                result[name] = {"cold_s": cold_s, "cold_split": split,
-                                "cold_split_total_s": split_s,
-                                "cold_network_engine": engine,
-                                "first_forwarded_s": fwd[0],
-                                "second_forwarded_s": fwd[1],
-                                "warm_in_process_s": warm[name]}
-                say(f"server {name}: cold_s={cold_s:.3f} (network on the "
-                    f"{engine}; split run {split_s:.3f}s: " + " ".join(
-                        f"{k}={v:.3f}" for k, v in split.items())
-                    + f") first_forwarded_s={fwd[0]:.3f} second_forwarded_s="
-                    f"{fwd[1]:.3f} warm_in_process_s={warm[name]:.3f}; "
-                    f"{n_files} files of each forwarded run byte-identical "
-                    f"to the in-process run's; '{marker}' in the server's "
-                    f"stderr")
-            r = subprocess.run(
-                [sys.executable, "-m", "swarm_tpu_torch.server", str(sock),
-                 "--shutdown"], env=env, cwd=REPO, capture_output=True,
-                timeout=60)
-            rc = server.wait(timeout=60)
-            if r.returncode != 0 or rc != 0:
-                raise AssertionError(f"server shutdown: rc {r.returncode}, "
-                                     f"server exit {rc}")
-        finally:
-            if server.poll() is None:
-                server.kill()
-                server.wait()
-    lines = [ln for ln in log_path.read_text().splitlines()
-             if ln.startswith("[timing] d1 join (cuda) start")]
-    say("server: exited 0 after --shutdown; its d1_1m start lines "
-        "(H2D, count and pack): " + "; ".join(ln.split()[-1] for ln in lines))
-    db = read_db(corpus["d1_1m"])
-    t0 = time.perf_counter()
-    h = hashlib.blake2b(db.codes, digest_size=16)
-    h.update(np.ascontiguousarray(db.lengths))
-    h.hexdigest()
-    digest_s = time.perf_counter() - t0
-    say(f"server: blake2b of d1_1m's raw arena ({db.codes.nbytes} bytes "
-        f"and {db.lengths.nbytes} of lengths), swarm_tpu's device-array "
-        f"cache key: {digest_s:.4f}s")
-    result["d1_1m_arena_digest_s"] = digest_s
-    result["d1_1m_server_h2d"] = [ln.split()[-1] for ln in lines]
-    result["ready_s"] = ready_s
-    return result
-
-
-def _first_records(src, k, dst):
-    """The first k records of FASTA file `src` (two lines a record, as
-    corpora.py writes them) into `dst`: k distinct amplicons."""
-    lines = src.read_bytes().split(b"\n")
-    if len(lines) < 2 * k:
-        raise AssertionError(f"{src.name} holds fewer than {k} records")
-    dst.write_bytes(b"\n".join(lines[:2 * k]) + b"\n")
-
-
-def dispatch_cli(name, thresholds, source, work):
-    """The auto run of rule `name` (DISPATCH_CLI) at each of its
-    `thresholds` (the warm one, then the cold one) - 1 and at it, on the
-    first records of `source`: at the warm one in this process (which
-    holds the card), at the cold one in a fresh process each
-    (bin/swarm-torch, all started together). The host engine below the
-    threshold, the card's (its [timing] line) from it up; the files
-    byte-identical to the native engine's run."""
-    flags, marker, native_env = DISPATCH_CLI[name]
-    warm_at, cold_at = thresholds
-    runs, procs = {}, {}
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
-    env.pop("SWARM_TORCH_SERVER", None)
-    try:
-        for state, at in (("cold", cold_at), ("warm", warm_at)):
-            for k in (at - 1, at):
-                run = f"dispatch_{name}_{state}_{k}"
-                fasta = work / f"{run}.fasta"
-                _first_records(source, k, fasta)
-                argv = flags + ["-l", "log.txt", str(fasta)]
-                runs[run] = (state, at, k, argv)
-                if state == "cold":
-                    (work / run).mkdir()
-                    procs[run] = subprocess.Popen(
-                        [sys.executable, str(REPO / "bin" / "swarm-torch"),
-                         *argv], cwd=work / run, env=env,
-                        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-                        text=True)
-                else:
-                    _, timing = run_cli(argv, work / run)
-                    runs[run] += (timing,)
-        for run, proc in procs.items():
-            _, err = proc.communicate(timeout=600)
-            if proc.returncode != 0:
-                raise AssertionError(f"{run} returned {proc.returncode}:\n"
-                                     f"{err[-2000:]}")
-            runs[run] += (err.splitlines(),)
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    got = {}
-    for run, (state, at, k, argv, timing) in runs.items():
-        card = any(ln.startswith(marker) for ln in timing)
-        if card != (k >= at):
-            raise AssertionError(f"dispatch {name} ({state}): n={k} took "
-                                 f"the {'card' if card else 'host'} engine")
-        native_s, _ = run_cli(argv, work / f"{run}_native", native_env)
-        for out in output_files(flags):
-            a = (work / run / out).read_bytes()
-            b = (work / f"{run}_native" / out).read_bytes()
-            if a != b or not a:
-                raise AssertionError(f"{run}: {out} differs from the native "
-                                     f"engine's")
-        got.setdefault(state, {"threshold": at, "points": {}})["points"][
-            k] = "card" if card else "host"
-    return got
-
-
-#: the device-diffs rule before the d2_diffs kernel's first launch: a
-#: fresh process that prints dispatch_diffs' record for one -t
-DIFFS_COLD = """import json, sys
-sys.path.insert(0, {repo!r})
-import torch
-import chip_smoke
-print(json.dumps(chip_smoke.dispatch_diffs(
-    torch.device("cuda", 0), {source!r}, "cold", {threads})))
-"""
-
-
-def dispatch_diffs(dev, source, state, threads):
-    """D2NetworkEngine.build_adjacency under the auto rule on the card,
-    on one below and at its threshold of a corpus' own candidate pairs
-    (filled with other distinct pairs to the count: pairs_to_count), with `threads` host threads: 1 reads
-    DEVICE_DIFFS_MIN, more DEVICE_DIFFS_MIN_THREADED, "cold" (the
-    d2_diffs kernel not yet launched in this process) their _COLD forms.
-    The native diffs below, the d2_diffs kernel from the threshold up;
-    the adjacency equal to the native diffs'."""
-    import numpy as np
-    import torch
-
-    from swarm_tpu_torch.corpora import pairs_to_count, read_db
-    from swarm_tpu_torch.ops import d2_diffs
-    from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
-
-    if d2_diffs.warm != (state == "warm"):
-        raise AssertionError(f"dispatch diffs ({state}): the kernel has "
-                             f"{'not ' if state == 'warm' else ''}run")
-    eng = D2NetworkEngine(read_db(Path(source)), 2, dev, threads=threads)
-    pa, pb, _ = eng.candidate_pairs()
-    at = getattr(eng, "DEVICE_DIFFS_MIN"
-                 + ("_THREADED" if threads > 1 else "")
-                 + ("_COLD" if state == "cold" else ""))
-    rec = {"threshold": at, "points": {}}
-    for k in (at - 1, at):
-        qa, qb = (torch.from_numpy(x.astype(np.int32)).to(dev)
-                  for x in pairs_to_count(pa, pb, eng.n, k))
-        eng.candidate_pairs_device = lambda shards=None: (qa, qb, k)
-        adj = {}
-        for mode in ("auto", "native"):
-            os.environ["SWARM_TPU_D2_DIFFS"] = mode
-            eng.__dict__.pop("_diff_engine", None)
-            d2_diffs.launches = 0
-            adj[mode] = eng.build_adjacency(18, 24, 13, False)
-            if mode == "auto":
-                card = d2_diffs.launches > 0
-        os.environ.pop("SWARM_TPU_D2_DIFFS")
-        if card != (k >= at):
-            raise AssertionError(
-                f"dispatch diffs ({state}): -t {threads}, {k} pairs took "
-                f"the {'card' if card else 'host'} diffs")
-        if not all(np.array_equal(x, y)
-                   for x, y in zip(adj["auto"], adj["native"])):
-            raise AssertionError(f"dispatch diffs ({state}): -t {threads}, "
-                                 f"{k} pairs: the adjacency differs from "
-                                 f"the native diffs'")
-        rec["points"][k] = "card" if card else "host"
-    return rec
-
-
-def phase_dispatch(dev, corpus, work):
-    """The dispatch rules whose thresholds scripts/dispatch_sweep.py
-    set, each at its threshold - 1 and at it: the d=1 network
-    (NATIVE_MAX, NATIVE_MAX_COLD) on the first records of the d1_1m
-    corpus, and under -f (NATIVE_MAX, NATIVE_MAX_GRAFT) on those of
-    d1_fastidious_200k's, the d>=2 engine (NETWORK_MIN,
-    NETWORK_MIN_COLD) and the device diffs (DEVICE_DIFFS_MIN and
-    DEVICE_DIFFS_MIN_THREADED, warm in this process, cold in a fresh
-    one each) on those of the d2_100k corpus; the engine the rule
-    names, and files (or arrays) equal to the native engine's. Returns
-    the phase's record."""
-    from swarm_tpu_torch.device import card_ready
-    from swarm_tpu_torch.models import general
-    from swarm_tpu_torch.ops.neighbors import NeighborIndex
-
-    if not card_ready():
-        raise AssertionError("the dispatch phase needs the card held")
-    t0 = time.perf_counter()
-    diffs_src = work / "dispatch_diffs.fasta"
-    _first_records(corpus["d2_100k"], 2_000, diffs_src)
-    threads = (1, max(2, len(os.sched_getaffinity(0))))
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
-    env.pop("SWARM_TORCH_SERVER", None)
-    cold = {t: subprocess.Popen(
-        [sys.executable, "-c", DIFFS_COLD.format(
-            repo=str(REPO), source=str(diffs_src), threads=t)],
-        cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for t in threads}
-    try:
-        result = {
-            "d1": dispatch_cli("d1", (NeighborIndex.NATIVE_MAX,
-                                      NeighborIndex.NATIVE_MAX_COLD),
-                               corpus["d1_1m"], work),
-            "d1f": dispatch_cli("d1f", (NeighborIndex.NATIVE_MAX,
-                                        NeighborIndex.NATIVE_MAX_GRAFT),
-                                corpus["d1_fastidious_200k"], work),
-            "d2": dispatch_cli("d2", (general.NETWORK_MIN,
-                                      general.NETWORK_MIN_COLD),
-                               corpus["d2_100k"], work),
-            "diffs": {f"warm -t {t}": dispatch_diffs(dev, diffs_src, "warm", t)
-                      for t in threads},
-        }
-        for t, proc in cold.items():
-            out, err = proc.communicate(timeout=600)
-            if proc.returncode != 0:
-                raise AssertionError(f"dispatch diffs (cold): -t {t} "
-                                     f"returned {proc.returncode}:\n"
-                                     f"{err[-2000:]}")
-            rec = json.loads(out.strip().splitlines()[-1])
-            rec["points"] = {int(k): v for k, v in rec["points"].items()}
-            result["diffs"][f"cold -t {t}"] = rec
-    finally:
-        for proc in cold.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    result["phase_s"] = time.perf_counter() - t0
-    for rule in ("d1", "d1f", "d2", "diffs"):
-        for case, rec in result[rule].items():
-            say(f"dispatch {rule} ({case}): threshold {rec['threshold']}: "
-                + "; ".join(f"{k} -> {v}" for k, v in rec["points"].items())
-                + ", equal to the native engine's")
-    say(f"dispatch phase: {result['phase_s']:.1f} s")
-    return result
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", type=Path, default=REPO,
-                    help="checkout whose swarm_tpu_torch runs (with --quick)")
-    ap.add_argument("--quick", action="store_true",
-                    help="timed kernel phases and the quick main paths only")
+                    help="checkout whose swarm_tpu_torch is timed")
     args = ap.parse_args()
     tree = args.tree.resolve()
     if not (tree / "swarm_tpu_torch").is_dir():
         say(f"FAIL swarm_tpu_torch not found in {tree}")
-        return 1
-    if tree != REPO and not args.quick:
-        say("FAIL --tree needs --quick")
         return 1
     sys.path.insert(0, str(tree))
     import torch
@@ -2761,37 +1650,21 @@ def main():
             say(f"  {ln.strip()}")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        if args.quick:
-            say(json.dumps({"quick": {
-                "card": card, "tree": str(tree),
-                **run_quick(dev, Path(tmp))}}))
-            return 0
         kernels = run_phases(dev, Path(tmp))
-    say(json.dumps({"kernels": kernels}))
-    say(card)
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": device_name(),
-        "count": torch.cuda.device_count(),
-    }}))
+    say(json.dumps({"kernels": kernels, "card": card, "tree": str(tree),
+                    "device": {"kind": device_name(),
+                               "count": torch.cuda.device_count()}}))
     return 0
 
 
 D2_NATIVE = {"SWARM_TPU_D2_ENGINE": "native"}
 D1_NATIVE = {"SWARM_TPU_D1_NATIVE_MAX": str(1 << 40)}
-#: insertion_run(length=LONG_RUN): 4,504 rows sharing one key, a bucket
-#: beyond the join kernel's shared-memory tile (its oversized variant)
-LONG_RUN = 1500
 D2_KERNELS = ("d2_screen", "d2_extract", "d2_diffs", "d2_csr",
               "d2_tasks")
 D1_KERNELS = ("d1_keygen", "d1_partition", "d1_join", "d1_verify")
 GRAFT_KERNELS = ("graft_keygen", "graft_join", "graft_verify")
 #: the native engines of -d 1 -f: the d=1 network and the host graft join
 GRAFT_NATIVE = {**D1_NATIVE, "SWARM_TPU_GRAFT_PROBE_MAX": str(1 << 40)}
-#: insertion_run(length=LONG_GRAFT_RUN): 4,204 rows that share a variant,
-#: all but every 500th light: a light bucket beyond the graft join's
-#: 1,024-element table (taken in tiles, its chain linked across them)
-LONG_GRAFT_RUN = 1400
 #: graft_join's skewed buckets: random keys from `distinct` values in
 #: 2^bits buckets, each small bucket ~6,000 keys (~6 tables of 1,024),
 #: each big one ~50,000 (~49 chunks of 1,024): a big-side bucket of
@@ -2803,36 +1676,16 @@ SKEWED_JOIN = {"seed": 20261017, "distinct": 6_000, "small": 24_000,
 #: those drawn from the big side, in its 2^18 buckets
 RANDOM_JOIN = {"seed": 20261018, "big": 199_146_219,
                "small": (1, 4_148_705), "bits": 18}
-#: random pairs of keys of the two sides that the graft verify takes
-#: beside the join's pairs in every graft check
-RANDOM_PAIRS = {"seed": 20261019, "pairs": 4096}
 #: bench.py's config 4 (d1_fastidious) and the writers
 FASTIDIOUS_FLAGS = ["-d", "1", "-f", "-y", "12", "-o", "out.txt", "-s",
                     "stats.txt", "-i", "structure.txt"]
 
-#: the dispatch phase's CLI rules: name -> (flags, the [timing] line of
-#: the card's engine, the native engine's variables)
-DISPATCH_CLI = {
-    "d1": (["-d", "1", "-o", "out.txt", "-s", "stats.txt"],
-           "[timing] d1 join (cuda)", D1_NATIVE),
-    "d1f": (["-d", "1", "-f", "-o", "out.txt", "-s", "stats.txt"],
-            "[timing] d1 join (cuda)", GRAFT_NATIVE),
-    "d2": (["-d", "2", "-o", "out.txt", "-s", "stats.txt"],
-           "[timing] d2 network (cuda)", D2_NATIVE),
-}
-#: the server phase's paths: the [timing] line of the card's network
-#: engine, and the variables that force the card's and the host's
-SERVER_NETWORK = {
-    "d2_long": ("[timing] d2 network (cuda)",
-                {"SWARM_TPU_D2_ENGINE": "network"}, D2_NATIVE),
-    "d1_1m": ("[timing] d1 join (cuda)", {"SWARM_TPU_D1_NATIVE_MAX": "0"},
-              D1_NATIVE),
-    "d1_fastidious_200k": ("[timing] d1 join (cuda)",
-                           {"SWARM_TPU_D1_NATIVE_MAX": "0"}, D1_NATIVE),
-}
-
-#: name -> (corpus maker, its arguments, CLI flags, environment, kernels,
-#: environment of the native engine)
+#: the main paths: name -> (corpus maker of swarm_tpu_torch.corpora, its
+#: arguments, CLI flags, environment, the kernels the run launches, the
+#: environment of the native engine). The timed phases read their corpora
+#: and the -f paths' flags; the main-path pass runs each path once
+#: (main_path), and tests/test_torch_cuda.py holds that run against the
+#: native engine's
 MAIN_PATHS = {
     "d2_100k": ("gen_corpus", {"n": 100_000, "length": 150},
                 ["-d", "2", "-o", "out.txt", "-s", "stats.txt", "-u",
@@ -2890,59 +1743,480 @@ def make_corpora(work, names):
     return corpus
 
 
-def run_main_path(name, corpus, work):
-    flags, env, kernels, native_env = MAIN_PATHS[name][2:]
-    return phase_main_path(name, corpus[name], flags, work, env, kernels,
-                           native_env)
+# ---- the main paths: each run once on the card, its kernels counted ----
+#
+# The runs below are the main-path pass of this script and the runs that
+# tests/test_torch_cuda.py compares byte for byte with the native engine
+# or the single-device run: this script records what they launch and
+# how long they take, the tests what they write.
+
+#: the main paths run again over SHARDS in-process shards on the card
+SHARDED_PATHS = ("d1_1m", "d1_fastidious_200k", "d2_long")
+SHARDS = 4
+#: the main path run again as a one-rank NCCL group in a new process
+NCCL_PATH = "d1_full_100k"
+#: the main paths forwarded to the resident server, and the start of the
+#: [timing] line that the server's stderr shows for the card's engine
+SERVER_PATHS = {"d2_long": "[timing] d2 network (cuda)",
+                "d1_1m": "[timing] d1 join (cuda)",
+                "d1_fastidious_200k": "[timing] graft (cuda)"}
+#: the CLI's dispatch rules: name -> (the main path on whose corpus' first
+#: records the rule runs, its flags, the kernel whose launches show the
+#: card's engine, the native engine's variables)
+DISPATCH_PATHS = {
+    "d1": ("d1_1m", ["-d", "1", "-o", "out.txt", "-s", "stats.txt"],
+           "d1_keygen", D1_NATIVE),
+    "d1f": ("d1_fastidious_200k",
+            ["-d", "1", "-f", "-o", "out.txt", "-s", "stats.txt"],
+            "d1_keygen", GRAFT_NATIVE),
+    "d2": ("d2_100k", ["-d", "2", "-o", "out.txt", "-s", "stats.txt"],
+           "d2_screen", D2_NATIVE),
+}
+#: the device diffs' rule runs on the candidate pairs of the first
+#: DIFFS_RECORDS records of the d2_100k corpus
+DIFFS_RECORDS = 2_000
+#: the start of the line in which a run reports its kernels' launches
+LAUNCHES = "[timing] launches "
 
 
-QUICK_PATHS = ("d2_100k", "d2_device", "d2_wide", "d1_1m", "d1_mixed_1m",
-               "d1_fastidious_200k")
+def tree():
+    """The checkout whose swarm_tpu_torch this process imported."""
+    import swarm_tpu_torch
+
+    return Path(swarm_tpu_torch.__file__).resolve().parent.parent
 
 
-def run_quick(dev, work):
-    """The timed kernel phases and the QUICK_PATHS main paths."""
-    corpus = make_corpora(work, QUICK_PATHS)
-    rows = {"d2_diffs": phase_d2_diffs_at_scale(dev, corpus["d2_100k"])}
-    rows.update(phase_nw_scores(dev, corpus["d2_device"]))
-    rows.update(phase_d2_screen(dev, corpus, work, edges=False))
-    rows.update(phase_d2_csr(dev, edges=False))
-    rows.update(phase_d2_tasks(dev, edges=False))
-    rows.update(phase_d1_kernels(dev, corpus, edges=False))
-    rows.update(phase_graft_kernels(dev, corpus, work, edges=False))
-    paths = {name: run_main_path(name, corpus, work) for name in QUICK_PATHS}
-    return {"kernels": rows, "main_paths": paths}
+def launcher_env(**extra):
+    """The environment of a new process of the port (bin/swarm-torch or
+    the server): this one's, less a server to forward to and shards, with
+    the imported checkout on PYTHONPATH."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SWARM_TORCH_SERVER", "SWARM_TORCH_SHARDS")}
+    return {**env, "PYTHONPATH": str(tree()), **extra}
+
+
+def output_files(flags):
+    """The files a run of `flags` writes (with its `-l log.txt`)."""
+    return [flags[i + 1] for i in range(len(flags) - 1)
+            if flags[i] in ("-o", "-s", "-u", "-i", "-w")] + ["log.txt"]
+
+
+def reset_kernel_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    from swarm_tpu_torch.ops import (
+        d2_diffs, d2_network, fastidious_torch, neighbors_sortjoin,
+        nw_scores)
+
+    d2_diffs.launches = 0
+    for counts in (d2_network.launches, nw_scores.launches,
+                   neighbors_sortjoin.launches, fastidious_torch.launches):
+        for name in counts:
+            counts[name] = 0
+
+
+@contextlib.contextmanager
+def _inside(workdir, env):
+    """In `workdir` (made here) with the variables of `env` set; both
+    restored after."""
+    workdir.mkdir(parents=True)
+    back, saved = os.getcwd(), {k: os.environ.get(k) for k in env}
+    os.chdir(workdir)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        os.chdir(back)
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def run_path(flags, fasta, workdir, env=None, device=None):
+    """One CLI run of `flags` on `fasta` through swarm_tpu_torch.main.run
+    in this process, in `workdir`, under the variables of `env` and
+    SWARM_TPU_DB_CACHE=0 (each run reads its file, as a CLI process
+    does), every kernel's launch count set to 0 just before it. Returns
+    {"s": its seconds (host clock), "files": {name: path}, "launches":
+    {kernel: its launches}, "counters": the run's counters, "spans":
+    {name: seconds} of the run's closed spans}."""
+    from swarm_tpu_torch import metrics
+    from swarm_tpu_torch.main import launch_counts, run
+
+    argv = flags + ["-l", "log.txt", str(fasta)]
+    with _inside(workdir, {"SWARM_TPU_DB_CACHE": "0", **(env or {})}):
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        rc = run(argv, "swarm", device=device)
+        sec = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"run {argv} returned {rc}")
+    closed = {s.name for s in metrics.spans if s.end is not None}
+    return {"s": sec, "files": {f: workdir / f for f in output_files(flags)},
+            "launches": launch_counts(), "counters": dict(metrics.last_run),
+            "spans": {name: metrics.seconds(name) for name in closed}}
+
+
+def launch_path(flags, fasta, workdir, env=None):
+    """One run of `flags` on `fasta` by bin/swarm-torch in a new process,
+    in `workdir`, under SWARM_TPU_TIMING=1 and the variables of `env`:
+    {"s", "files", "launches" (its `[timing] launches` line; a new
+    process counts from 0), "stderr" (its lines)}."""
+    workdir.mkdir(parents=True)
+    argv = flags + ["-l", "log.txt", str(fasta)]
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, str(tree() / "bin" / "swarm-torch"), *argv],
+        cwd=workdir, env=launcher_env(SWARM_TPU_TIMING="1", **(env or {})),
+        capture_output=True, timeout=600)
+    sec = time.perf_counter() - t0
+    err = r.stderr.decode().splitlines()
+    if r.returncode != 0:
+        raise AssertionError(f"{argv} in a new process returned "
+                             f"{r.returncode}:\n" + "\n".join(err[-30:]))
+    counted = [json.loads(ln[len(LAUNCHES):]) for ln in err
+               if ln.startswith(LAUNCHES)]
+    if len(counted) != 1:
+        raise AssertionError(f"{argv} in a new process reported its "
+                             f"launches {len(counted)} times")
+    return {"s": sec, "files": {f: workdir / f for f in output_files(flags)},
+            "launches": counted[0], "stderr": err}
+
+
+def main_path(name, corpus, work, device):
+    """MAIN_PATHS[name] once through the CLI on the card (run_path)."""
+    flags, env = MAIN_PATHS[name][2:4]
+    return run_path(flags, corpus[name], work / f"{name}_card", env, device)
+
+
+def sharded_path(name, corpus, work, device):
+    """The same run over SHARDS in-process shards on the card."""
+    flags, env = MAIN_PATHS[name][2:4]
+    return run_path(flags, corpus[name], work / f"{name}_shards",
+                    {**env, "SWARM_TORCH_SHARDS": str(SHARDS)}, device)
+
+
+def sharded_pairs(corpus, device):
+    """d2_100k's candidate pairs on one device, then over SHARDS
+    in-process shards on it: both, the seconds of each and the screen's
+    launches over the shards."""
+    from swarm_tpu_torch.corpora import read_db
+    from swarm_tpu_torch.ops import d2_network as d2n
+    from swarm_tpu_torch.parallel.mesh import LocalShards
+
+    eng = d2n.D2NetworkEngine(read_db(corpus["d2_100k"]), 2, device)
+    t0 = time.perf_counter()
+    want = eng.candidate_pairs()
+    t1 = time.perf_counter()
+    reset_kernel_counts()
+    got = eng.candidate_pairs_sharded(LocalShards(SHARDS, device))
+    return {"one_device": want, "sharded": got, "one_device_s": t1 - t0,
+            "sharded_s": time.perf_counter() - t1,
+            "screens": d2n.launches["d2_screen"]}
+
+
+def nccl_path(corpus, work):
+    """NCCL_PATH by bin/swarm-torch as a one-rank NCCL group (a new
+    process under the rank variables): launch_path's record."""
+    from swarm_tpu_torch.parallel.dryrun import free_port
+
+    return launch_path(MAIN_PATHS[NCCL_PATH][2], corpus[NCCL_PATH],
+                       work / f"{NCCL_PATH}_nccl", {
+                           "SWARM_TPU_COORDINATOR": f"127.0.0.1:{free_port()}",
+                           "SWARM_TPU_NUM_PROCESSES": "1",
+                           "SWARM_TPU_PROCESS_ID": "0"})
+
+
+def forwarded_paths(corpus, work):
+    """The resident server on the card (python -m swarm_tpu_torch.server
+    under SWARM_TPU_DB_CACHE=1 and SWARM_TPU_TIMING=1): each of
+    SERVER_PATHS forwarded to it by bin/swarm-torch twice (the second
+    from its DB cache), then --shutdown. Returns {"ready_s", "exit":
+    [--shutdown's exit code, the server's], NAME: {"runs": a record
+    {"s", "files", "stderr"} a run, "marked": the lines of the card's
+    engine (SERVER_PATHS) in the server's stderr during them}}."""
+    sock, log_path = work / "server.sock", work / "server_stderr.txt"
+    launcher = str(tree() / "bin" / "swarm-torch")
+    env = launcher_env()
+    result = {}
+    with open(log_path, "wb") as log:
+        t0 = time.perf_counter()
+        server = subprocess.Popen(
+            [sys.executable, "-m", "swarm_tpu_torch.server", str(sock)],
+            cwd=tree(), stdout=subprocess.DEVNULL, stderr=log,
+            env={**env, "SWARM_TPU_DB_CACHE": "1", "SWARM_TPU_TIMING": "1"})
+        try:
+            while not sock.exists():
+                if server.poll() is not None or \
+                        time.perf_counter() - t0 > 300:
+                    raise AssertionError("the server did not start:\n"
+                                         + log_path.read_text()[-2000:])
+                time.sleep(0.01)
+            result["ready_s"] = time.perf_counter() - t0
+            for name, marker in SERVER_PATHS.items():
+                flags = MAIN_PATHS[name][2]
+                seen = log_path.read_text().count(marker)
+                runs = []
+                for k in (1, 2):
+                    cwd = work / f"{name}_fwd{k}"
+                    cwd.mkdir()
+                    t1 = time.perf_counter()
+                    r = subprocess.run(
+                        [sys.executable, launcher, *flags, "-l", "log.txt",
+                         str(corpus[name])], cwd=cwd,
+                        env={**env, "SWARM_TORCH_SERVER": str(sock)},
+                        capture_output=True, timeout=600)
+                    if r.returncode != 0:
+                        raise AssertionError(
+                            f"{name} forwarded returned {r.returncode}:\n"
+                            + r.stderr.decode()[-2000:])
+                    runs.append({"s": time.perf_counter() - t1,
+                                 "files": {f: cwd / f
+                                           for f in output_files(flags)},
+                                 "stderr": r.stderr.decode().splitlines()})
+                result[name] = {"runs": runs, "marked":
+                                log_path.read_text().count(marker) - seen}
+            r = subprocess.run(
+                [sys.executable, "-m", "swarm_tpu_torch.server", str(sock),
+                 "--shutdown"], cwd=tree(), env=env, capture_output=True,
+                timeout=60)
+            result["exit"] = [r.returncode, server.wait(timeout=60)]
+        finally:
+            if server.poll() is None:
+                server.kill()
+                server.wait()
+    return result
+
+
+def first_records(src, k, dst):
+    """The first k records of FASTA file `src` (two lines a record, as
+    corpora.py writes them) into `dst`: k distinct amplicons."""
+    lines = src.read_bytes().split(b"\n")
+    if len(lines) < 2 * k:
+        raise AssertionError(f"{src.name} holds fewer than {k} records")
+    dst.write_bytes(b"\n".join(lines[:2 * k]) + b"\n")
+
+
+def dispatch_thresholds(rule):
+    """(warm, cold): the size from which CLI rule `rule` takes the card's
+    engine in a process that holds the card and in one that does not."""
+    from swarm_tpu_torch.models import general
+    from swarm_tpu_torch.ops.neighbors import NeighborIndex
+
+    return {"d1": (NeighborIndex.NATIVE_MAX, NeighborIndex.NATIVE_MAX_COLD),
+            "d1f": (NeighborIndex.NATIVE_MAX, NeighborIndex.NATIVE_MAX_GRAFT),
+            "d2": (general.NETWORK_MIN, general.NETWORK_MIN_COLD)}[rule]
+
+
+def dispatch_path(rule, state, corpus, work, device):
+    """The auto run of CLI rule `rule` (DISPATCH_PATHS) at its `state`
+    threshold - 1 and at it, on the first records of its main path's
+    corpus: "warm" in this process, which must hold the card
+    (device.card_ready), "cold" each in a new process, which does not.
+    Returns {"threshold": it, k: the run's record, with its "fasta" and
+    "card": whether the card's engine ran (its kernel launched)}."""
+    from swarm_tpu_torch.device import card_ready
+
+    path, flags, kernel, _ = DISPATCH_PATHS[rule]
+    at = dispatch_thresholds(rule)[state == "cold"]
+    if state == "warm" and not card_ready():
+        raise AssertionError("the warm dispatch rules need the card held")
+    result = {"threshold": at}
+    for k in (at - 1, at):
+        run = work / f"dispatch_{rule}_{state}_{k}"
+        fasta = run.with_suffix(".fasta")
+        first_records(corpus[path], k, fasta)
+        ran = run_path(flags, fasta, run, None, device) if state == "warm" \
+            else launch_path(flags, fasta, run)
+        result[k] = {**ran, "fasta": fasta,
+                     "card": ran["launches"].get(kernel, 0) > 0}
+    return result
+
+
+#: dispatch_diffs before the d2_diffs kernel's first launch: a fresh
+#: process that prints its record for one -t
+DIFFS_COLD = """import json, sys
+sys.path[:0] = [{tree!r}, {repo!r}]
+import torch
+import chip_smoke
+print(json.dumps(chip_smoke.dispatch_diffs(
+    torch.device("cuda", 0), {source!r}, "cold", {threads})))
+"""
+
+
+def _digest(arrays):
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.blake2b(digest_size=16)
+    for x in arrays:
+        x = np.ascontiguousarray(x)
+        h.update(f"{x.dtype} {x.shape}".encode())
+        h.update(x.tobytes())
+    return h.hexdigest()
+
+
+def dispatch_diffs(dev, source, state, threads):
+    """D2NetworkEngine.build_adjacency under the auto rule on the card, at
+    one below and at its threshold of a corpus' own candidate pairs
+    (filled with other distinct pairs to the count: pairs_to_count), with
+    `threads` host threads: 1 reads DEVICE_DIFFS_MIN, more
+    DEVICE_DIFFS_MIN_THREADED, "cold" (the d2_diffs kernel not yet
+    launched in this process) their _COLD forms; each point also under
+    the native diffs. Returns {"threshold": it, "points": {k: {"card":
+    whether the d2_diffs kernel ran, "auto": the adjacency's digest,
+    "native": the native diffs'}}}."""
+    import numpy as np
+    import torch
+
+    from swarm_tpu_torch.corpora import pairs_to_count, read_db
+    from swarm_tpu_torch.ops import d2_diffs
+    from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
+
+    if d2_diffs.warm != (state == "warm"):
+        raise AssertionError(f"dispatch diffs ({state}): the kernel has "
+                             f"{'not ' if state == 'warm' else ''}run")
+    eng = D2NetworkEngine(read_db(Path(source)), 2, dev, threads=threads)
+    pa, pb, _ = eng.candidate_pairs()
+    at = getattr(eng, "DEVICE_DIFFS_MIN"
+                 + ("_THREADED" if threads > 1 else "")
+                 + ("_COLD" if state == "cold" else ""))
+    result = {"threshold": at, "points": {}}
+    for k in (at - 1, at):
+        qa, qb = (torch.from_numpy(x.astype(np.int32)).to(dev)
+                  for x in pairs_to_count(pa, pb, eng.n, k))
+        eng.candidate_pairs_device = lambda shards=None: (qa, qb, k)
+        point = {}
+        for mode in ("auto", "native"):
+            os.environ["SWARM_TPU_D2_DIFFS"] = mode
+            eng.__dict__.pop("_diff_engine", None)
+            d2_diffs.launches = 0
+            point[mode] = _digest(eng.build_adjacency(18, 24, 13, False))
+            if mode == "auto":
+                point["card"] = d2_diffs.launches > 0
+        os.environ.pop("SWARM_TPU_D2_DIFFS")
+        result["points"][k] = point
+    return result
+
+
+def dispatch_diffs_cold(source, threads):
+    """dispatch_diffs(..., "cold", threads) in a fresh process."""
+    r = subprocess.run(
+        [sys.executable, "-c", DIFFS_COLD.format(
+            tree=str(tree()), repo=str(REPO), source=str(source),
+            threads=threads)],
+        cwd=source.parent, env=launcher_env(), capture_output=True,
+        text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"dispatch diffs (cold): -t {threads} returned "
+                             f"{r.returncode}:\n{r.stderr[-2000:]}")
+    result = json.loads(r.stdout.strip().splitlines()[-1])
+    result["points"] = {int(k): v for k, v in result["points"].items()}
+    return result
+
+
+def diffs_threads():
+    """The dispatch of the device diffs at -t 1 and at -t of every core."""
+    return 1, max(2, len(os.sched_getaffinity(0)))
+
+
+def _launched(ran):
+    """{kernel: launches} of a run's kernels that launched."""
+    return {k: n for k, n in ran["launches"].items() if n}
+
+
+def shard_summary(engine, ran):
+    """The exchanges of sharded engine `engine` in run `ran` (their
+    bytes, time and bound: the bytes read once and written once at the
+    card's memory rate) and its phases (the spans ENGINE_shards.*)."""
+    nbytes = ran["counters"].get(f"{engine}_shards.exchange_bytes", 0)
+    phases = {name.split(".", 1)[1]: round(sec * 1e3, 4)
+              for name, sec in ran["spans"].items()
+              if name.startswith(f"{engine}_shards.")}
+    return {"exchanges": ran["counters"].get(f"{engine}_shards.exchanges",
+                                             0),
+            "exchange_bytes": nbytes,
+            "exchange_ms": phases.get("exchange", 0.0),
+            "exchange_bound_ms": 2 * nbytes / PEAK_BYTES_PER_S * 1e3,
+            "phases_ms": phases}
+
+
+def phase_main_paths(dev, corpus, work):
+    """The main-path pass: each of MAIN_PATHS once through the CLI on the
+    card, every kernel's launches counted from 0 before it; SHARDED_PATHS
+    over SHARDS in-process shards, each exchange's bytes and time beside
+    its bound (read once and written once at the card's memory rate);
+    d2_100k's candidate pairs over the shards; NCCL_PATH as a one-rank
+    NCCL group; SERVER_PATHS forwarded to the resident server; each
+    dispatch rule at its thresholds. Prints what each run launched and
+    how long it took; compares no output (tests/test_torch_cuda.py does,
+    on these functions' runs). Returns {path: {kernel: launches}} of the
+    MAIN_PATHS runs."""
+    t_phase = time.perf_counter()
+    launches = {}
+    for name in MAIN_PATHS:
+        ran = main_path(name, corpus, work, dev)
+        launches[name] = _launched(ran)
+        say(f"main path {name}: {ran['s']:.3f} s, launches="
+            f"{launches[name]}")
+    for name in SHARDED_PATHS:
+        ran = sharded_path(name, corpus, work, dev)
+        say(f"sharded {name}: {SHARDS} shards on {dev}, {ran['s']:.3f} s, "
+            f"launches={_launched(ran)}")
+        for engine in ("d1", "graft", "d2"):
+            if f"{engine}_shards.count" in ran["counters"]:
+                say(f"  {engine}: {shard_summary(engine, ran)}")
+    pairs = sharded_pairs(corpus, dev)
+    say(f"sharded d2_100k pairs: {pairs['one_device'][2]} pairs, one device "
+        f"{pairs['one_device_s']:.3f} s, {SHARDS} shards "
+        f"{pairs['sharded_s']:.3f} s ({pairs['screens']} screen launches)")
+    ran = nccl_path(corpus, work)
+    say(f"one-rank NCCL {NCCL_PATH}: a new process, {ran['s']:.3f} s, "
+        f"launches={_launched(ran)}")
+    served = forwarded_paths(corpus, work)
+    say(f"server: ready in {served['ready_s']:.3f} s, exit codes "
+        f"{served['exit']}")
+    for name in SERVER_PATHS:
+        say(f"server {name}: forwarded "
+            + ", ".join(f"{r['s']:.3f}" for r in served[name]["runs"])
+            + f" s; the card's engine in the server's stderr "
+            f"{served[name]['marked']} times")
+    for rule in DISPATCH_PATHS:
+        for state in ("warm", "cold"):
+            ran = dispatch_path(rule, state, corpus, work, dev)
+            say(f"dispatch {rule} ({state}): threshold {ran['threshold']}: "
+                + "; ".join(f"{k} -> {'card' if ran[k]['card'] else 'host'}"
+                            for k in ran if k != "threshold"))
+    source = work / "dispatch_diffs.fasta"
+    first_records(corpus["d2_100k"], DIFFS_RECORDS, source)
+    for threads in diffs_threads():
+        for state in ("warm", "cold"):
+            ran = dispatch_diffs(dev, source, state, threads) \
+                if state == "warm" else dispatch_diffs_cold(source, threads)
+            say(f"dispatch diffs ({state} -t {threads}): threshold "
+                f"{ran['threshold']}: " + "; ".join(
+                    f"{k} -> {'card' if p['card'] else 'host'}"
+                    for k, p in ran["points"].items()))
+    say(f"main-path pass: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def run_phases(dev, work):
-    """Kernel and main-path phases; returns the kernel table."""
+    """The probe, the timed kernel phases and the main-path pass; returns
+    the kernel table."""
     corpus = make_corpora(work, MAIN_PATHS)
 
     phase_probe(dev)
     rows = {"d2_diffs": phase_d2_diffs_at_scale(dev, corpus["d2_100k"])}
-    rows["d2_diffs"]["max_abs_err"] = max(
-        rows["d2_diffs"]["max_abs_err"], phase_d2_diffs_ties(dev, work),
-        phase_d2_diffs_bands(dev))
     rows.update(phase_nw_scores(dev, corpus["d2_device"]))
-    rows["full_scores"]["max_abs_err"] = max(
-        rows["full_scores"]["max_abs_err"], phase_full_scores_edges(dev))
-    rows["banded_scores"]["max_abs_err"] = max(
-        rows["banded_scores"]["max_abs_err"], phase_banded_scores_edges(dev))
-    rows.update(phase_d2_screen(dev, corpus, work, edges=True))
-    rows.update(phase_d2_csr(dev, edges=True))
-    rows.update(phase_d2_tasks(dev, edges=True))
-    rows.update(phase_d1_kernels(dev, corpus, edges=True))
-    rows.update(phase_graft_kernels(dev, corpus, work, edges=True))
-
-    launches, warm = {}, {}
-    for name in MAIN_PATHS:
-        ran = run_main_path(name, corpus, work)
-        warm[name] = ran["warm_s"]
-        for kernel, count in ran["launches"].items():
-            launches.setdefault(kernel, count)  # the first path's count
-    say(json.dumps({"sharded": phase_sharded(dev, corpus, work)}))
-    say(json.dumps({"server": phase_server(corpus, work, warm)}))
-    say(json.dumps({"dispatch": phase_dispatch(dev, corpus, work)}))
+    rows.update(phase_d2_screen(dev, corpus))
+    rows.update(phase_d2_csr(dev))
+    rows.update(phase_d2_tasks(dev))
+    rows.update(phase_d1_kernels(dev, corpus))
+    rows.update(phase_graft_kernels(dev, corpus, work))
+    ran = phase_main_paths(dev, corpus, work)
 
     d1 = "swarm_tpu_torch/csrc/d1_join.cu"
     graft = "swarm_tpu_torch/csrc/graft.cu"
@@ -2975,8 +2249,11 @@ def run_phases(dev, work):
         "graft_join": (graft, "swarm_tpu/ops/fastidious_jax.py:626"),
         "graft_verify": (graft, "swarm_tpu/ops/fastidious_jax.py:79"),
     }
+    # each kernel's launches in each main path's run that launched it
     return [{"name": name, "route": "cuda", "source": source,
-             "replaces": replaces, "launches": launches[name], **rows[name]}
+             "replaces": replaces, **rows[name],
+             "launches": {path: counts[name] for path, counts in ran.items()
+                          if name in counts}}
             for name, (source, replaces) in static.items()]
 
 

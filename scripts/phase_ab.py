@@ -3,42 +3,35 @@
 two checkouts' kernels can be compared in one call:
 
     python3 scripts/phase_ab.py --phase graft|screen|csr --work DIR
-        [--tree CHECKOUT] [--edges] [--paths]
+        [--tree CHECKOUT]
 
 imports the chip_smoke.py and swarm_tpu_torch of CHECKOUT (default: this
 one), makes the phase's corpora in DIR/corpora once (later runs, of any
 checkout, reuse them) and runs that script's timed phase on them: every
 time is chip_smoke.py's own, read by the checkout's own code.
 
-- graft: phase_graft_kernels without the edge cases on the two
-  fastidious corpora, then graft_join_skewed; with --edges first
-  graft_edges (the edge sides checked, the verify timed alone on each).
-- screen: phase_d2_screen without the edge cases (with --edges, with
-  them) on the d2_100k, d2_long and d1_1m corpora; with --paths also
-  the d2_100k and d2_long main paths (warm-up, timed and native-engine
-  runs) and the d2_100k graph replay alone: its candidates built once
-  by the checkout's network engine (their digest printed, so that two
-  checkouts' inputs can be seen to agree), then algo_cluster_graph
-  timed REPLAYS times on them.
+- graft: phase_graft_kernels on the two fastidious corpora, skewed
+  buckets and random sides.
+- screen: phase_d2_screen on the d2_100k, d2_long and d1_1m corpora.
 - csr: phase_d2_csr (the network engine's CSR partition at the
-  benchmark cells' edge counts; with --edges first on CSR_CASES); no
-  corpora. Then readbacks: the CSR at d2_150nt_500k's edge count read
-  back into int64 host arrays three ways, each from an empty pinned
-  cache: the engine's (d2_network.csr_to_host: pageable, 5 bytes an
-  edge, widened on the host), the same through pinned buffers from
-  torch's cache, and widened on the card into pinned int64 buffers that
-  the arrays stay views of; the first call's time (what a fresh process
-  pays), the median of three more, and the pinned bytes torch's cache
-  holds while the arrays live and after they are dropped.
+  benchmark cells' edge counts); no corpora. Then readbacks: the CSR at
+  d2_150nt_500k's edge count read back into int64 host arrays three
+  ways, each from an empty pinned cache: the engine's
+  (d2_network.csr_to_host: pageable, 5 bytes an edge, widened on the
+  host), the same through pinned buffers from torch's cache, and
+  widened on the card into pinned int64 buffers that the arrays stay
+  views of; the first call's time (what a fresh process pays), the
+  median of three more, and the pinned bytes torch's cache holds while
+  the arrays live and after they are dropped.
 
 Prints the phase's lines and one JSON line {"ab": {card, tree, phase,
 kernels, ...}}. Run two checkouts in turns inside one call (A, B, B,
 A): a `git archive` of the other commit unpacked into a git-ignored
-directory, such as _dev/.
+directory, such as _dev/. It runs checkouts whose chip_smoke.py
+phases take no `edges` argument.
 """
 
 import argparse
-import hashlib
 import json
 import subprocess
 import sys
@@ -49,8 +42,6 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 CELLS = {"graft": ("d1_fastidious_200k", "d1_fastidious_asym_200k"),
          "screen": ("d2_100k", "d2_long", "d1_1m"), "csr": ()}
-PATHS = ("d2_100k", "d2_long")
-REPLAYS = 2
 
 
 def shared_corpora(cs, shared, names):
@@ -70,43 +61,14 @@ def shared_corpora(cs, shared, names):
     return out
 
 
-def graft(cs, dev, corpus, work, edges):
-    edge_sides = cs.graft_edges(dev)[1] if edges else {}
-    rows = cs.phase_graft_kernels(dev, corpus, work, edges=False)
-    rows["graft_join"]["skewed_buckets"] = cs.graft_join_skewed(dev)
+def graft(cs, dev, corpus, work):
+    rows = cs.phase_graft_kernels(dev, corpus, work)
     cells = CELLS["graft"]
     verify = {cell: {k: row[k] for k in ("ms", "wrapper_ms",
                                          "launch_floor_ms", "pairs")}
               for cell, row in ((cells[0], rows["graft_verify"]),
                                 (cells[1], rows["graft_verify"][cells[1]]))}
-    verify["edge_sides_ms"] = edge_sides
     return {"kernels": rows, "verify": verify}
-
-
-def graph_replay(dev, fasta):
-    """algo_cluster_graph alone on the d2_100k candidates of this
-    checkout's network engine: their digest and REPLAYS host-clock
-    seconds."""
-    from swarm_tpu_torch import _native
-    from swarm_tpu_torch.corpora import read_db
-    from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
-    from swarm_tpu_torch.params import Parameters
-
-    db = read_db(fasta)
-    p = Parameters()
-    adj = D2NetworkEngine(db, 2, dev).build_adjacency(
-        p.penalty_mismatch, p.penalty_gapopen, p.penalty_gapextend, False)
-    h = hashlib.blake2b(digest_size=16)
-    for a in adj[:4]:
-        h.update(a.tobytes())
-    seconds = []
-    for _ in range(REPLAYS):
-        t0 = time.perf_counter()
-        _native.algo_cluster_graph(*adj[:4], db.abundances, True)
-        seconds.append(time.perf_counter() - t0)
-    print(f"graph replay d2_100k: candidates {h.hexdigest()} "
-          f"algo_cluster_graph_s={seconds}", flush=True)
-    return {"candidates_digest": h.hexdigest(), "seconds": seconds}
 
 
 def readbacks(cs, dev, reps=3):
@@ -171,25 +133,11 @@ def readbacks(cs, dev, reps=3):
     return out
 
 
-def screen(cs, dev, corpus, work, edges, paths):
-    out = {"kernels": cs.phase_d2_screen(dev, corpus, work, edges=edges)}
-    if paths:
-        out["main_paths"] = {name: cs.run_main_path(name, corpus, work)
-                             for name in PATHS}
-        out["graph_replay"] = graph_replay(dev, corpus["d2_100k"])
-    return out
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=sorted(CELLS), required=True)
     ap.add_argument("--work", type=Path, required=True)
     ap.add_argument("--tree", type=Path, default=REPO)
-    ap.add_argument("--edges", action="store_true",
-                    help="also the phase's edge cases")
-    ap.add_argument("--paths", action="store_true",
-                    help="screen: also the d2_100k and d2_long main paths "
-                         "and the graph replay alone")
     args = ap.parse_args()
     tree = args.tree.resolve()
     sys.path.insert(0, str(tree))
@@ -220,12 +168,12 @@ def main():
     work = Path(tempfile.mkdtemp(prefix=f"{tree.name}_",
                                  dir=args.work.resolve()))
     if args.phase == "graft":
-        result = graft(cs, dev, corpus, work, args.edges)
+        result = graft(cs, dev, corpus, work)
     elif args.phase == "csr":
-        result = {"kernels": cs.phase_d2_csr(dev, args.edges),
+        result = {"kernels": cs.phase_d2_csr(dev),
                   "readbacks": readbacks(cs, dev)}
     else:
-        result = screen(cs, dev, corpus, work, args.edges, args.paths)
+        result = {"kernels": cs.phase_d2_screen(dev, corpus)}
     print(json.dumps({"ab": {"card": card, "tree": str(tree),
                              "phase": args.phase, **result}}), flush=True)
     return 0

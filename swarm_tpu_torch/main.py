@@ -149,19 +149,22 @@ def _run(p: Parameters, device) -> int:
     return 0
 
 
-def _report_launches() -> None:
-    """`[timing] launches {...}`: each kernel wrapper's launches in
-    this process so far (a run in a new process, such as a rank's,
-    counts from 0)."""
-    import json
-
+def launch_counts() -> dict:
+    """Each kernel wrapper's launches in this process so far (a run in a
+    new process, such as a rank's, counts from 0)."""
     from .ops import (d2_diffs, d2_network, fastidious_torch,
                       neighbors_sortjoin, nw_scores)
 
-    counts = {"d2_diffs": d2_diffs.launches, **d2_network.launches,
-              **nw_scores.launches, **neighbors_sortjoin.launches,
-              **fastidious_torch.launches}
-    sys.__stderr__.write(f"[timing] launches {json.dumps(counts)}\n")
+    return {"d2_diffs": d2_diffs.launches, **d2_network.launches,
+            **nw_scores.launches, **neighbors_sortjoin.launches,
+            **fastidious_torch.launches}
+
+
+def _report_launches() -> None:
+    """`[timing] launches {...}`: launch_counts() as JSON."""
+    import json
+
+    sys.__stderr__.write(f"[timing] launches {json.dumps(launch_counts())}\n")
 
 
 def main() -> int:

@@ -26,7 +26,11 @@ Counters, summed over the run:
    engine's device, d2_network.d2_tasks; 0 where the native host diffs
    ran), ``d2_network.edges`` (directed edges accepted) and
    ``d2_network.csr_device_edges`` (those partitioned into the CSR on
-   the engine's device; 0 where the native host diffs ran).
+   the engine's device; 0 where the native host diffs ran);
+ - the sharded engines' (parallel/mesh.py) ``ENGINE_shards.exchanges``
+   and ``.exchange_bytes`` (what this process received), ENGINE one of
+   d1, graft, d2; and ``ENGINE_shards.count``, the shards of the
+   engine's last run, which is set, not summed.
 
 dump() writes the record to the file $SWARM_TPU_TRACE names (read when
 it writes), in the chrome trace-event format (chrome://tracing,

@@ -43,15 +43,17 @@ window): sizes come from count passes and one readback an exchange.
 Shards (the base of LocalShards here and distributed.RankShards) is
 what an engine needs of its shards: their devices and three
 collectives, each entered by every shard, also with nothing to move.
-With SWARM_TPU_TIMING set an engine synchronises each shard's device
-after each of its phases and writes a `[timing] <engine> shards` line a
-shard and phase, and one for the exchanges; last_run keeps the same
-numbers.
+Each engine's phases are spans of the run's record (metrics.py), named
+ENGINE_shards.PHASE (ENGINE: d1, graft, d2), each over this process'
+shards, the exchanges among them (ENGINE_shards.exchange); its counters
+ENGINE_shards.count (the shards of its last run in the record: set, not
+summed), .exchanges and .exchange_bytes (what this process received,
+summed). No span synchronises a device. With
+SWARM_TPU_TIMING set an engine writes a `[timing] ENGINE shards K
+(DEVICE)` line a phase from its spans when it ends.
 """
 
 import os
-import sys
-import time
 
 import numpy as np
 import torch
@@ -63,10 +65,13 @@ from ..ops import neighbors_sortjoin as sj
 
 _INT32_MAX = (1 << 31) - 1
 
-#: engine name ("d1", "graft", "d2") -> what its last sharded run
-#: measured: shards, exchanges, exchange_bytes (this process received),
-#: exchange_s, and phases {"shard j/k" or "all": {phase: seconds}}
-last_run = {}
+#: each engine's phases, in the order it runs them: its spans
+#: ENGINE_shards.PHASE and its [timing] lines
+PHASES = {"d1": ("start", "split", "emit", "route", "exchange", "partition",
+                 "join", "verify", "gather", "finish"),
+          "graft": ("count", "split", "emit", "route", "exchange",
+                    "partition", "join", "verify", "gather"),
+          "d2": ("screen", "extract", "gather")}
 
 
 class Shards:
@@ -107,12 +112,6 @@ class Shards:
     def first_on(self, device) -> int:
         """The owned index of the first shard on `device`."""
         return self.devices.index(device)
-
-    def sync(self, device=None):
-        """Wait for `device` (None: every owned shard's device)."""
-        for dev in [device] if device is not None else self.replicas():
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
 
     def agree(self, values):
         """Raise unless every shard holds the same integers `values`
@@ -204,67 +203,33 @@ def key_split(ends, k: int):
     return [0, *r, n], [0, *base, total]
 
 
-class _Clock:
-    """Host seconds of each shard's phases and the exchanges' bytes and
-    seconds, of one sharded run. With SWARM_TPU_TIMING set, each mark
-    first synchronises the shard's device (all of them for a phase of
-    every shard, and around each exchange), and report() writes the
-    [timing] lines."""
+def _phase(engine, phase):
+    """The span of one phase of `engine` (PHASES) on this process'
+    shards."""
+    return metrics.span(f"{engine}_shards.{phase}")
 
-    def __init__(self, name, shards):
-        self.name, self.shards = name, shards
-        self.on = bool(os.environ.get("SWARM_TPU_TIMING"))
-        self.phases = {}
-        self.bytes = 0
-        self.seconds = 0.0
-        self.exchanges = 0
-        self.t = time.perf_counter()
 
-    def _key(self, i):
-        if i is None:
-            return "all"
-        return f"shard {self.shards.owned[i]}/{self.shards.count}"
+def _exchange(engine, shards, sends):
+    """shards.exchange(sends)'s received tensors, in the span
+    ENGINE_shards.exchange, counted with the bytes they hold."""
+    with _phase(engine, "exchange"):
+        received, got = shards.exchange(sends)
+    metrics.record(**{
+        f"{engine}_shards.exchanges": 1,
+        f"{engine}_shards.exchange_bytes": sum(
+            sum(sizes) * sum(t.element_size() for t in tensors)
+            for tensors, sizes in zip(received, got))})
+    return received
 
-    def mark(self, i, phase):
-        """Close `phase` of owned shard i (None: of every shard)."""
-        if self.on:
-            self.shards.sync(None if i is None else self.shards.devices[i])
-        now = time.perf_counter()
-        spent = self.phases.setdefault(self._key(i), {})
-        spent[phase] = spent.get(phase, 0.0) + now - self.t
-        self.t = now
 
-    def exchange(self, sends):
-        """shards.exchange(sends)'s received tensors, counted."""
-        if self.on:
-            self.shards.sync()
-        t0 = time.perf_counter()
-        received, got = self.shards.exchange(sends)
-        for tensors, sizes in zip(received, got):
-            self.bytes += sum(sizes) * sum(t.element_size() for t in tensors)
-        if self.on:
-            self.shards.sync()
-        self.t = time.perf_counter()
-        self.seconds += self.t - t0
-        self.exchanges += 1
-        return received
-
-    def report(self):
-        last_run[self.name] = {
-            "shards": self.shards.count, "exchanges": self.exchanges,
-            "exchange_bytes": self.bytes,
-            "exchange_s": self.seconds if self.on else None,
-            "phases": self.phases}
-        if not self.on:
-            return
-        label = f"{self.name} shards ({self.shards.devices[0].type})"
-        out = sys.__stderr__
-        for key, spent in self.phases.items():
-            for phase, sec in spent.items():
-                out.write(f"[timing] {label} {key} {phase:<14} "
-                          f"{sec:8.3f}s\n")
-        out.write(f"[timing] {label} exchange {self.exchanges}x "
-                  f"{self.bytes} bytes {self.seconds:8.3f}s\n")
+def _report(engine, shards):
+    """Set the shard count of `engine`'s run (an engine that runs twice
+    in one run still reads `shards.count`) and write its [timing] lines
+    (metrics.timing) from its spans."""
+    metrics.last_run[f"{engine}_shards.count"] = shards.count
+    metrics.timing(
+        f"{engine} shards {shards.count} ({shards.devices[0].type})",
+        metrics.step_seconds(f"{engine}_shards", PHASES[engine]))
 
 
 def _empty(dtype, dev):
@@ -291,7 +256,6 @@ class SortJoinShardedEngine:
         self.n = len(db)
         self.shards = shards
         self._replicas = None  # device -> (words, row_word, lengths, ends)
-        self._start_phases = {}  # start()'s part of the [timing] lines
         #: device -> (words, row_word, lengths) once build_network ran
         self.packed_rows = None
 
@@ -301,18 +265,16 @@ class SortJoinShardedEngine:
         for duplicates."""
         if self.n == 0 or self._replicas is not None:
             return
-        clock = _Clock("d1", self.shards)
         reps = {}
-        for dev in self.shards.replicas():
-            codes, offsets, lengths, row_word, n_words = \
-                sj.SortJoinNeighborEngine(self.db, dev).arena()
-            counts, words = sj.keygen_count(codes, offsets, lengths,
-                                            row_word, n_words)
-            reps[dev] = (words, row_word, lengths,
-                         torch.cumsum(counts, 0, dtype=torch.int64))
-            clock.mark(self.shards.first_on(dev), "H2D+count")
+        with _phase("d1", "start"):
+            for dev in self.shards.replicas():
+                codes, offsets, lengths, row_word, n_words = \
+                    sj.SortJoinNeighborEngine(self.db, dev).arena()
+                counts, words = sj.keygen_count(codes, offsets, lengths,
+                                                row_word, n_words)
+                reps[dev] = (words, row_word, lengths,
+                             torch.cumsum(counts, 0, dtype=torch.int64))
         self._replicas = reps
-        self._start_phases = clock.phases
 
     def build_network(self, no_break: bool, abundances: np.ndarray):
         """(edges_from, edges_to) as SortJoinNeighborEngine gives them."""
@@ -323,31 +285,29 @@ class SortJoinShardedEngine:
         self.packed_rows = {dev: r[:3] for dev, r in reps.items()}
         sh = self.shards
         k = sh.count
-        clock = _Clock("d1", sh)
-        clock.phases = self._start_phases
-        rows, keys = key_split(reps[sh.devices[0]][3], k)
-        bits = sj.bucket_bits(keys[-1])
-        sh.agree([self.n, keys[-1], bits])
-        row_word, n_words = sj.ragged_layout(self.db.lengths)
-        word_at = np.append(row_word, n_words)  # row a's first word
-        clock.mark(None, "split")
+        with _phase("d1", "split"):
+            rows, keys = key_split(reps[sh.devices[0]][3], k)
+            bits = sj.bucket_bits(keys[-1])
+            sh.agree([self.n, keys[-1], bits])
+            row_word, n_words = sj.ragged_layout(self.db.lengths)
+            word_at = np.append(row_word, n_words)  # row a's first word
 
         sends = []
         for i, j in enumerate(sh.owned):
             words, rw, lengths, ends = reps[sh.devices[i]]
             a, b, k0 = rows[j], rows[j + 1], keys[j]
             w0 = int(word_at[a])
-            kk, ow = sj.keygen_emit(words[w0:int(word_at[b])],
-                                    rw[a:b] - w0, lengths[a:b],
-                                    ends[a:b] - k0, keys[j + 1] - k0)
-            if a:
-                ow += a
-            clock.mark(i, "keygen emit")
-            kk, ow, be = sj.partition(kk, ow, bits)
-            sends.append(((kk, ow), route_sizes(be, k, bits)))
+            with _phase("d1", "emit"):
+                kk, ow = sj.keygen_emit(words[w0:int(word_at[b])],
+                                        rw[a:b] - w0, lengths[a:b],
+                                        ends[a:b] - k0, keys[j + 1] - k0)
+                if a:
+                    ow += a
+            with _phase("d1", "route"):
+                kk, ow, be = sj.partition(kk, ow, bits)
+                sends.append(((kk, ow), route_sizes(be, k, bits)))
             del kk, ow, be
-            clock.mark(i, "route")
-        received = clock.exchange(sends)
+        received = _exchange("d1", sh, sends)
         del sends
 
         good, n_cand = [], []
@@ -358,30 +318,30 @@ class SortJoinShardedEngine:
             received[i] = None
             cand = _empty(torch.int64, dev)
             if kk.numel():
-                kk, ow, be = sj.partition(kk, ow, bits)
-                clock.mark(i, "partition")
-                cand = sj.join_pairs(kk, ow, be)
+                with _phase("d1", "partition"):
+                    kk, ow, be = sj.partition(kk, ow, bits)
+                with _phase("d1", "join"):
+                    cand = sj.join_pairs(kk, ow, be)
             del kk, ow
-            clock.mark(i, "join")
-            uniq = torch.unique_consecutive(torch.sort(cand).values)
-            good.append(uniq[sj.verify_pairs(words, rw, lengths, uniq)])
-            n_cand.append(torch.tensor([cand.numel()], device=dev))
+            with _phase("d1", "verify"):
+                uniq = torch.unique_consecutive(torch.sort(cand).values)
+                good.append(uniq[sj.verify_pairs(words, rw, lengths, uniq)])
+                n_cand.append(torch.tensor([cand.numel()], device=dev))
             del cand, uniq
-            clock.mark(i, "verify+dedup")
-        # deduplicated on the device: numpy's unique of d1_1m's 484,016
-        # pairs takes 0.22-0.44 s on an H100's host, torch.unique and the
-        # copy 1 ms (scripts/dedup_probe.py)
-        pairs = torch.unique(sh.gather(good)).cpu().numpy()
-        comparisons = int(sh.reduce(n_cand, "sum")[0])
-        clock.mark(None, "gather")
+        with _phase("d1", "gather"):
+            # deduplicated on the device: numpy's unique of d1_1m's
+            # 484,016 pairs takes 0.22-0.44 s on an H100's host,
+            # torch.unique and the copy 1 ms (scripts/dedup_probe.py)
+            pairs = torch.unique(sh.gather(good)).cpu().numpy()
+            comparisons = int(sh.reduce(n_cand, "sum")[0])
         metrics.record(d1_join_comparisons=comparisons)
-        # unique verified pairs a < b: both directions, the abundance
-        # rule, sorted by (from, to)
-        ef, et = _native.d1_finish_edges(
-            pairs >> 32, pairs & sj.MASK32, np.asarray(abundances, np.int64),
-            no_break)
-        clock.mark(None, "host finish")
-        clock.report()
+        with _phase("d1", "finish"):
+            # unique verified pairs a < b: both directions, the
+            # abundance rule, sorted by (from, to)
+            ef, et = _native.d1_finish_edges(
+                pairs >> 32, pairs & sj.MASK32,
+                np.asarray(abundances, np.int64), no_break)
+        _report("d1", sh)
         return ef, et
 
 
@@ -450,7 +410,7 @@ class ShardedGraftEngine:
             pp += k0
         return kk, pp
 
-    def _route(self, clock, bits, sides, parts):
+    def _route(self, bits, sides, parts):
         """Emit, partition and exchange the shares: parts[i] = (ids,
         ends, rows, keys) of owned shard i; returns each shard's keys and
         payloads, partitioned, with their bucket ends."""
@@ -458,21 +418,22 @@ class ShardedGraftEngine:
         sends = []
         for i, j in enumerate(sh.owned):
             ids, ends, rows, keys = parts[i]
-            kk, pp = self._emit(sides[sh.devices[i]], ids, ends,
-                                (rows[j], rows[j + 1], keys[j], keys[j + 1]))
-            clock.mark(i, "keygen emit")
-            kk, pp, be = sj.partition(kk, pp, bits)
-            sends.append(((kk, pp), route_sizes(be, sh.count, bits)))
+            with _phase("graft", "emit"):
+                kk, pp = self._emit(sides[sh.devices[i]], ids, ends,
+                                    (rows[j], rows[j + 1], keys[j],
+                                     keys[j + 1]))
+            with _phase("graft", "route"):
+                kk, pp, be = sj.partition(kk, pp, bits)
+                sends.append(((kk, pp), route_sizes(be, sh.count, bits)))
             del kk, pp, be
-            clock.mark(i, "route")
-        received = clock.exchange(sends)
+        received = _exchange("graft", sh, sends)
         del sends
         out = []
         for i in range(len(sh.owned)):
             kk, pp = received[i]
             received[i] = None
-            out.append(sj.partition(kk, pp, bits))
-            clock.mark(i, "partition")
+            with _phase("graft", "partition"):
+                out.append(sj.partition(kk, pp, bits))
         return out
 
     def graft_candidates(self, heavy_amps: np.ndarray,
@@ -482,7 +443,6 @@ class ShardedGraftEngine:
         if len(heavy_amps) == 0 or len(light_amps) == 0:
             return 0, graft_cand
         sh = self.shards
-        clock = _Clock("graft", sh)
         lens = np.asarray(self.db.lengths, dtype=np.int64)
         zob = ft.make_zobrist_pair(max(int(lens.max()), 1))
         heavy = np.asarray(heavy_amps, dtype=np.int64)
@@ -492,31 +452,32 @@ class ShardedGraftEngine:
         small, big = (heavy, light) if small_is_heavy else (light, heavy)
 
         sides, ids = {}, {}
-        for dev in sh.replicas():
-            words, row_word, lengths = self.packed_rows(dev)
-            sides[dev] = (words, row_word, lengths,
-                          ft.zobrist_tensor(zob, dev))
-            s_ids = torch.from_numpy(small).to(dev)
-            b_ids = torch.from_numpy(big).to(dev)
-            s_ends, b_ends = (torch.cumsum(
-                ft.keygen_count(words, row_word, lengths, x), 0,
-                dtype=torch.int64) for x in (s_ids, b_ids))
-            ids[dev] = (s_ids, s_ends, b_ids, b_ends)
-            clock.mark(sh.first_on(dev), "keygen count")
-        dev0 = sh.devices[0]
-        b_cum = np.concatenate([[0], ids[dev0][3].cpu().numpy()])
-        b_counts = np.diff(b_cum)
-        s_rows, s_keys = key_split(ids[dev0][1], sh.count)
-        s_total = s_keys[-1]
-        if s_total > _INT32_MAX:
-            raise ValueError("the smaller side has 2^31 keys or more")
-        strips = ft._strips(b_counts, self._strip_keys(s_total))
-        bits = sj.bucket_bits(s_total + max(
-            int(b_cum[b] - b_cum[a]) for a, b in strips))
-        sh.agree([self.n, len(small), len(big), s_total, int(b_cum[-1]),
-                  len(strips), bits])
+        with _phase("graft", "count"):
+            for dev in sh.replicas():
+                words, row_word, lengths = self.packed_rows(dev)
+                sides[dev] = (words, row_word, lengths,
+                              ft.zobrist_tensor(zob, dev))
+                s_ids = torch.from_numpy(small).to(dev)
+                b_ids = torch.from_numpy(big).to(dev)
+                s_ends, b_ends = (torch.cumsum(
+                    ft.keygen_count(words, row_word, lengths, x), 0,
+                    dtype=torch.int64) for x in (s_ids, b_ids))
+                ids[dev] = (s_ids, s_ends, b_ids, b_ends)
+        with _phase("graft", "split"):
+            dev0 = sh.devices[0]
+            b_cum = np.concatenate([[0], ids[dev0][3].cpu().numpy()])
+            b_counts = np.diff(b_cum)
+            s_rows, s_keys = key_split(ids[dev0][1], sh.count)
+            s_total = s_keys[-1]
+            if s_total > _INT32_MAX:
+                raise ValueError("the smaller side has 2^31 keys or more")
+            strips = ft._strips(b_counts, self._strip_keys(s_total))
+            bits = sj.bucket_bits(s_total + max(
+                int(b_cum[b] - b_cum[a]) for a, b in strips))
+            sh.agree([self.n, len(small), len(big), s_total, int(b_cum[-1]),
+                      len(strips), bits])
 
-        mine = self._route(clock, bits, sides, [
+        mine = self._route(bits, sides, [
             (ids[dev][0], ids[dev][1], s_rows, s_keys) for dev in sh.devices])
         best = [torch.full((self.n,), _INT32_MAX, dtype=torch.int32,
                            device=dev) for dev in sh.devices]
@@ -524,11 +485,12 @@ class ShardedGraftEngine:
                  for dev in sh.devices]
         for a, b in strips:
             base = int(b_cum[a])
-            rows, keys = key_split(torch.from_numpy(b_cum[a + 1:b + 1] - base),
-                                   sh.count)
-            strip = {dev: (ids[dev][2][a:b], ids[dev][3][a:b] - base)
-                     for dev in sh.replicas()}
-            theirs = self._route(clock, bits, sides, [
+            with _phase("graft", "split"):
+                rows, keys = key_split(
+                    torch.from_numpy(b_cum[a + 1:b + 1] - base), sh.count)
+                strip = {dev: (ids[dev][2][a:b], ids[dev][3][a:b] - base)
+                         for dev in sh.replicas()}
+            theirs = self._route(bits, sides, [
                 (*strip[dev], rows, keys) for dev in sh.devices])
             for i in range(len(sh.owned)):
                 dev = sh.devices[i]
@@ -536,22 +498,22 @@ class ShardedGraftEngine:
                 bkeys, bpays, b_be = theirs[i]
                 theirs[i] = None
                 if skeys.numel() and bkeys.numel():
-                    pairs = ft.join_pairs(skeys, spays, s_be, bkeys, bpays,
-                                          b_be)
+                    with _phase("graft", "join"):
+                        pairs = ft.join_pairs(skeys, spays, s_be, bkeys,
+                                              bpays, b_be)
                     del bkeys, bpays, b_be
-                    clock.mark(i, "join")
                     words, row_word, lengths, _ = sides[dev]
-                    ok = ft.verify(words, row_word, lengths, ids[dev][0],
-                                   ids[dev][1], *strip[dev], pairs,
-                                   small_is_heavy, best[i])
-                    count[i] += ok.sum()
+                    with _phase("graft", "verify"):
+                        ok = ft.verify(words, row_word, lengths, ids[dev][0],
+                                       ids[dev][1], *strip[dev], pairs,
+                                       small_is_heavy, best[i])
+                        count[i] += ok.sum()
                     del pairs, ok
-                    clock.mark(i, "verify")
-        best = sh.reduce(best, "min").numpy()
-        total = int(sh.reduce(count, "sum")[0])
-        clock.mark(None, "gather")
+        with _phase("graft", "gather"):
+            best = sh.reduce(best, "min").numpy()
+            total = int(sh.reduce(count, "sum")[0])
         graft_cand = np.where(best == _INT32_MAX, -1, best.astype(np.int64))
-        clock.report()
+        _report("graft", sh)
         return total, graft_cand
 
 
@@ -562,12 +524,12 @@ def sharded_candidate_pairs(engine, shards):
     of SWARM_TPU_D2_CHUNK, with the profiles replicated (one copy a
     device); the pairs, gathered in shard order onto the engine's
     device, come in the steps' order. The run's spans d2_network.screen
-    and .to_host (the gather) hold the two parts."""
+    and .to_host (the gather) hold the two parts, d2_shards.screen,
+    .extract and .gather the shards' steps."""
     T = engine.TILE
     all_ti, all_tj = d2n.tile_steps(engine.n_pad // T)
     K = len(all_ti)
     C = max(1, int(os.environ.get("SWARM_TPU_D2_CHUNK", "512")))
-    clock = _Clock("d2", shards)
     ga_parts, gb_parts = [], []
     with metrics.span("d2_network.screen"):
         profiles = {dev: (engine.prof.to(dev), engine.lengths.to(dev))
@@ -581,19 +543,18 @@ def sharded_candidate_pairs(engine, shards):
             for c0 in range(j * K // shards.count, s1, C):
                 tis = torch.from_numpy(all_ti[c0:min(c0 + C, s1)]).to(dev)
                 tjs = torch.from_numpy(all_tj[c0:min(c0 + C, s1)]).to(dev)
-                words, counts = d2n.screen_words(prof, lengths, tis, tjs, T,
-                                                 engine.n, engine.d)
-                clock.mark(i, "screen")
-                ga, gb = d2n.extract_pairs(words, counts, tis, tjs, T)
+                with _phase("d2", "screen"):
+                    words, counts = d2n.screen_words(
+                        prof, lengths, tis, tjs, T, engine.n, engine.d)
+                with _phase("d2", "extract"):
+                    ga, gb = d2n.extract_pairs(words, counts, tis, tjs, T)
                 del words, counts
                 ga_j.append(ga)
                 gb_j.append(gb)
-                clock.mark(i, "extract")
             ga_parts.append(torch.cat(ga_j))
             gb_parts.append(torch.cat(gb_j))
-    with metrics.span("d2_network.to_host"):
+    with metrics.span("d2_network.to_host"), _phase("d2", "gather"):
         ga = shards.gather(ga_parts).to(engine.device)
         gb = shards.gather(gb_parts).to(engine.device)
-        clock.mark(None, "gather")
-    clock.report()
+    _report("d2", shards)
     return ga, gb

@@ -1,10 +1,22 @@
-"""swarm_tpu_torch on a CUDA card: the hand-written kernels against their
-plain PyTorch versions, on the same card. Every test is marked `cuda`
-and skips without a CUDA device. This file imports no JAX, so it runs
-on a machine without it:
+"""swarm_tpu_torch on a CUDA card, the one check of the port there: the
+hand-written kernels against their plain PyTorch versions on the same
+card (on their edge cases and on corpora), the engines against the
+native host engines, and the runs of chip_smoke.py's main-path pass
+(each of its MAIN_PATHS through the CLI, also over four in-process
+shards, as a one-rank NCCL group, forwarded to the resident server, and
+at the dispatch rules' thresholds), made by its own functions, against
+the native engine or the single-device run byte for byte. Every test
+is marked `cuda` and skips without a CUDA device. This file imports no
+JAX, so it runs on a machine without it:
 
-    python -m pytest tests/test_torch_cuda.py -m cuda
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+(chip_smoke.py times the kernels and counts the main paths' launches;
+it checks only the outputs it times.)
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -49,6 +61,11 @@ from swarm_tpu_torch.ops.d2_diffs import (
 from swarm_tpu_torch.ops.d2_network import D2NetworkEngine
 from swarm_tpu_torch.ops.neighbors import pad_codes
 from swarm_tpu_torch.ops.search_torch import DeviceAligner
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke  # noqa: E402
+from chip_smoke import MAIN_PATHS  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -202,11 +219,13 @@ def test_d2_screen_steps_of_identical_profiles(cuda_device):
 
 
 @pytest.mark.parametrize("chunk", ["1", "2", "512"])
+@pytest.mark.parametrize("n,d", [(383, 3), (384, 2), (385, 5)])
 def test_d2_screen_chunks_on_card_match_cpu(tmp_path, cuda_device,
-                                            monkeypatch, chunk):
+                                            monkeypatch, n, d, chunk):
+    """T = 128, n one below, at and one above a multiple of it."""
     monkeypatch.setenv("SWARM_TPU_D2_CHUNK", chunk)
-    eng, _, _ = _screen_steps(tmp_path, monkeypatch, cuda_device, 128, 383, 3)
-    cpu = D2NetworkEngine(eng.db, 3, torch.device("cpu"))
+    eng, _, _ = _screen_steps(tmp_path, monkeypatch, cuda_device, 128, n, d)
+    cpu = D2NetworkEngine(eng.db, d, torch.device("cpu"))
     got, want = eng.candidate_pairs(), cpu.candidate_pairs()
     assert got[2] == want[2] > 0
     np.testing.assert_array_equal(got[0], want[0])
@@ -622,12 +641,14 @@ def test_device_aligner_on_card_matches_cpu(cloud_aligner):
 # ---- the d=1 sort-join kernels (csrc/d1_join.cu) -------------------------
 
 D1_CASES = ["edge_rows", "insertion_run", "ragged_edge_rows", "one_row",
-            "gen_corpus", "mixed_corpus", "long_insertion_run"]
+            "gen_corpus", "mixed_corpus", "long_insertion_run",
+            "longer_insertion_run"]
 
 #: an insertion run whose 2,105 equal keys outgrow the join's
 #: shared-memory tile (kJoinCap = 2,048): its bucket takes the kernel's
-#: oversized variant
+#: oversized variant; LONGER_RUN's 4,505 more than twice the tile
 LONG_RUN = 700
+LONGER_RUN = 1500
 
 
 def _d1_db(tmp_path, case):
@@ -640,6 +661,7 @@ def _d1_db(tmp_path, case):
     rows = {"edge_rows": d1_edge_rows, "insertion_run": insertion_run,
             "ragged_edge_rows": ragged_edge_rows,
             "long_insertion_run": lambda: insertion_run(length=LONG_RUN),
+            "longer_insertion_run": lambda: insertion_run(length=LONGER_RUN),
             "one_row": lambda: [np.array([1, 1, 0, 3], np.uint8)]}[case]()
     return make_db(tmp_path, rows_records(rows))
 
@@ -691,6 +713,9 @@ def test_d1_kernels_match_reference(tmp_path, cuda_device, case):
     assert torch.equal(pkeys, want_keys) and torch.equal(powners, want_owners)
     assert torch.equal(ends, want_ends)
     assert torch.equal(pairs, sj.join_buckets_reference(pkeys, powners, ends))
+    skeys, order = torch.sort(keys)
+    assert torch.equal(torch.sort(pairs).values, torch.sort(
+        sj.join_pairs_reference(skeys, owners[order])).values)
     assert torch.equal(sj.join_count(pkeys, powners, ends)[0], torch.bincount(
         torch.searchsorted(ends, sj._join_links(pkeys, powners)[0],
                            right=True), minlength=ends.numel()))
@@ -1146,12 +1171,17 @@ def test_graft_join_constants_are_the_kernels(cuda_device):
     assert ft.PLACE_BITS == 10 and ft.COUNT_MAX == (1 << 22) - 1
 
 
-@pytest.mark.parametrize("strip_keys", [None, 5_000])
-@pytest.mark.parametrize("case", GRAFT_CASES[:4])
+@pytest.mark.parametrize("case,strip_keys", [
+    (case, strip_keys) for case in GRAFT_CASES[:4]
+    for strip_keys in (None, 5_000)] + [
+    ("long_insertion_run", None), ("graft_edge_rows", None)])
 def test_graft_engine_on_card_matches_native(tmp_path, cuda_device, case,
                                              strip_keys):
     """GraftEngine on the card against the native host join: count and
-    candidates, in one pass and in strips of the bigger side."""
+    candidates, in one pass and in strips of the bigger side. The native
+    joins emit no deletion of a 1-nt row, so they do not count the empty
+    midpoint of a heavy and a light 1-nt row; the engine counts it, as
+    swarm_tpu's GraftEngine does."""
     db, heavy, light = _graft_case(tmp_path, case)
     eng = ft.GraftEngine(db, cuda_device)
     eng.MAX_STRIP_KEYS = strip_keys
@@ -1160,7 +1190,8 @@ def test_graft_engine_on_card_matches_native(tmp_path, cuda_device, case,
                               heavy, light)
     want_count, want_cand = want if want is not None else (0, np.full(
         len(db), -1))
-    assert count == want_count
+    one = db.lengths == 1
+    assert count == want_count + int(one[heavy].sum()) * int(one[light].sum())
     np.testing.assert_array_equal(cand, want_cand)
     assert (count > 0) == (case != "empty_side")
 
@@ -1389,3 +1420,194 @@ def test_one_rank_nccl_group_matches_one_device(cuda_device, monkeypatch):
         distributed.finalize()
     assert got == dryrun.run_engines(db, cuda_device, None)
     assert len(got["edges"][0]) > 0 and got["graft"][0] > 0
+
+
+# ---- the main-path pass of chip_smoke.py, byte for byte ------------------
+
+def _differ(got, want):
+    """The names of `want`'s output files that are empty or whose bytes
+    `got`'s differ from."""
+    return [name for name, path in want["files"].items()
+            if not path.stat().st_size
+            or got["files"][name].read_bytes() != path.read_bytes()]
+
+
+class MainPaths:
+    """The main paths' corpora (chip_smoke.make_corpora) and each path's
+    run through the CLI on the card (chip_smoke.main_path), once, with
+    the card held, as a second run in one process finds it
+    (device.card_ready)."""
+
+    def __init__(self, work, device):
+        self.work, self.device = work, device
+        self.corpus = chip_smoke.make_corpora(work, MAIN_PATHS)
+        self.runs = {}
+
+    def card(self, name):
+        if name not in self.runs:
+            self.runs[name] = chip_smoke.main_path(name, self.corpus,
+                                                   self.work, self.device)
+        return self.runs[name]
+
+
+@pytest.fixture(scope="module")
+def main_paths(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from swarm_tpu_torch import _build, device
+
+    dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)
+    _build.load()
+    assert device.card_ready()
+    return MainPaths(tmp_path_factory.mktemp("main_paths"), dev)
+
+
+@pytest.mark.parametrize("name", list(MAIN_PATHS))
+def test_main_path_on_card_equals_native(main_paths, name):
+    """Each of chip_smoke.MAIN_PATHS (its corpus, flags and variables)
+    through the CLI on the card, as the script's main-path pass runs it:
+    every kernel the path names launches, and every output file equals
+    the port's native engine's (SWARM_TPU_D2_ENGINE=native at d >= 2; at
+    d = 1 SWARM_TPU_D1_NATIVE_MAX above n, and under -f the host graft
+    join) byte for byte; a -f path's files also with the graft on the
+    host join and the d=1 network on the card."""
+    flags, env, kernels, native_env = MAIN_PATHS[name][2:]
+    card = main_paths.card(name)
+    assert [k for k in kernels if card["launches"][k] < 1] == []
+    fasta, work = main_paths.corpus[name], main_paths.work
+    native = chip_smoke.run_path(flags, fasta, work / f"{name}_native",
+                                 native_env, main_paths.device)
+    assert _differ(card, native) == []
+    if "-f" in flags:
+        host_graft = chip_smoke.run_path(
+            flags, fasta, work / f"{name}_host_graft",
+            {**env, "SWARM_TPU_GRAFT_PROBE_MAX": str(1 << 40)},
+            main_paths.device)
+        assert host_graft["launches"]["d1_keygen"] > 0
+        assert host_graft["launches"]["graft_keygen"] == 0
+        assert _differ(host_graft, native) == []
+
+
+@pytest.mark.parametrize("name", chip_smoke.SHARDED_PATHS)
+def test_main_path_over_shards_equals_one_device(main_paths, name):
+    """The same run over four in-process shards on the card
+    (chip_smoke.sharded_path): the shards take the d=1 network, the graft
+    or the d>=2 screen (their counters in the run's record), the path's
+    kernels launch, and every output file equals the single-device
+    run's byte for byte."""
+    flags, _, kernels, _ = MAIN_PATHS[name][2:]
+    want = main_paths.card(name)
+    got = chip_smoke.sharded_path(name, main_paths.corpus, main_paths.work,
+                                  main_paths.device)
+    engines = ["d2"] if flags[1] == "2" else \
+        ["d1", "graft"] if "-f" in flags else ["d1"]
+    assert {k: v for k, v in got["counters"].items()
+            if k.endswith("_shards.count")} == {
+        f"{e}_shards.count": chip_smoke.SHARDS for e in engines}
+    assert all(got["counters"][f"{e}_shards.exchanges"] > 0
+               for e in engines if e != "d2")
+    assert [k for k in kernels if got["launches"][k] < 1] == []
+    assert _differ(got, want) == []
+
+
+def test_d2_sharded_pairs_at_scale_equal_one_device(main_paths):
+    """d2_100k's candidate pairs over four in-process shards on the card
+    (chip_smoke.sharded_pairs) equal one device's, in order."""
+    ran = chip_smoke.sharded_pairs(main_paths.corpus, main_paths.device)
+    want, got = ran["one_device"], ran["sharded"]
+    assert ran["screens"] >= chip_smoke.SHARDS
+    assert got[2] == want[2] > 0
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_one_rank_nccl_run_equals_in_process(main_paths):
+    """d1_full_100k through bin/swarm-torch as a one-rank NCCL group
+    (chip_smoke.nccl_path): the run takes the sharded d=1 engine (the
+    [timing] line of its exchange), launches the path's kernels (its
+    launches line) and writes the in-process run's files byte for
+    byte."""
+    name = chip_smoke.NCCL_PATH
+    kernels = MAIN_PATHS[name][4]
+    want = main_paths.card(name)
+    got = chip_smoke.nccl_path(main_paths.corpus, main_paths.work)
+    assert any(ln.startswith("[timing] d1 shards 1 (cuda) exchange")
+               for ln in got["stderr"])
+    assert [k for k in kernels if got["launches"].get(k, 0) < 1] == []
+    assert _differ(got, want) == []
+
+
+def test_forwarded_runs_on_card_equal_in_process(main_paths):
+    """The resident server on the card (chip_smoke.forwarded_paths):
+    each of SERVER_PATHS forwarded to it twice (the second from the
+    server's DB cache) writes the in-process run's files byte for byte,
+    with no [timing] line on the forwarded run's stderr; the server's
+    stderr shows the card's engine for each run, and the server exits 0
+    after --shutdown."""
+    served = chip_smoke.forwarded_paths(main_paths.corpus, main_paths.work)
+    assert served["exit"] == [0, 0]
+    for name in chip_smoke.SERVER_PATHS:
+        want = main_paths.card(name)
+        for k, got in enumerate(served[name]["runs"]):
+            assert not any(ln.startswith("[timing]")
+                           for ln in got["stderr"]), (name, k)
+            assert _differ(got, want) == [], (name, k)
+        assert served[name]["marked"] >= 2, name
+
+
+@pytest.mark.parametrize("state", ["warm", "cold"])
+@pytest.mark.parametrize("rule", list(chip_smoke.DISPATCH_PATHS))
+def test_network_engine_from_its_threshold_on_card(main_paths, rule, state):
+    """The CLI's dispatch rules on the card (chip_smoke.dispatch_path),
+    at the threshold - 1 and at it, on the first records of the rule's
+    corpus: the d=1 network's NATIVE_MAX and NATIVE_MAX_COLD (under -f
+    NATIVE_MAX_GRAFT), the d>=2 engine's NETWORK_MIN and
+    NETWORK_MIN_COLD; warm in this process, which holds the card, cold in
+    a new process (bin/swarm-torch) each, which does not. The host
+    engine below the threshold, the card's (its kernel's launches) from
+    it up, and the files equal to the native engine's byte for byte."""
+    if state == "warm":
+        from swarm_tpu_torch import device
+
+        assert device.card_ready()
+    _, flags, _, native_env = chip_smoke.DISPATCH_PATHS[rule]
+    ran = chip_smoke.dispatch_path(rule, state, main_paths.corpus,
+                                   main_paths.work, main_paths.device)
+    at = ran["threshold"]
+    assert at == chip_smoke.dispatch_thresholds(rule)[state == "cold"]
+    for k in (at - 1, at):
+        got = ran[k]
+        assert got["fasta"].read_bytes().count(b">") == k
+        assert got["card"] == (k >= at), (k, got["launches"])
+        native = chip_smoke.run_path(
+            flags, got["fasta"], got["fasta"].with_name(
+                f"{got['fasta'].stem}_native"), native_env,
+            main_paths.device)
+        assert _differ(got, native) == []
+
+
+@pytest.mark.parametrize("threads", ["one", "every_core"])
+@pytest.mark.parametrize("state", ["warm", "cold"])
+def test_device_diffs_from_their_threshold_on_card(main_paths, state,
+                                                   threads):
+    """D2NetworkEngine.build_adjacency under the auto rule on the card
+    (chip_smoke.dispatch_diffs), at the threshold - 1 and at it of
+    d2_100k's first records' candidate pairs filled to the count, at -t 1
+    (DEVICE_DIFFS_MIN) and -t of every core (DEVICE_DIFFS_MIN_THREADED),
+    warm in this process after the d2_diffs kernel has run (d2_long's
+    main path launches it), cold (their _COLD forms) in a fresh process:
+    the native diffs below the threshold, the kernel from it up, and the
+    adjacency equal to the native diffs'."""
+    main_paths.card("d2_long")
+    t = chip_smoke.diffs_threads()[threads == "every_core"]
+    source = main_paths.work / f"dispatch_diffs_{state}_{threads}.fasta"
+    chip_smoke.first_records(main_paths.corpus["d2_100k"],
+                             chip_smoke.DIFFS_RECORDS, source)
+    ran = chip_smoke.dispatch_diffs(main_paths.device, source, state, t) \
+        if state == "warm" else chip_smoke.dispatch_diffs_cold(source, t)
+    at = ran["threshold"]
+    assert sorted(ran["points"]) == [at - 1, at]
+    for k, point in ran["points"].items():
+        assert point["card"] == (k >= at), k
+        assert point["auto"] == point["native"], k

@@ -36,8 +36,8 @@ swarm_tpu's, on the CPU, exactly:
   call), the device engine above it, with the same outputs.
 
 tests/test_torch_cuda.py holds the kernels against the plain versions
-on the card; tests/test_torch_cli.py holds the CLI's -f outputs against
-bin/swarm with the device graft forced on both sides.
+on the card; tests/test_torch_cli_shards.py holds the CLI's -f outputs
+against bin/swarm with the device graft forced on both sides.
 """
 
 import numpy as np

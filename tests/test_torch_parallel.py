@@ -30,7 +30,7 @@ import jax
 from jax.sharding import Mesh
 
 from genfasta import amplicon_cloud
-from swarm_tpu_torch import parallel
+from swarm_tpu_torch import metrics, parallel
 from swarm_tpu_torch.corpora import make_db, rows_records
 from swarm_tpu_torch.ops import fastidious_torch as ft
 from swarm_tpu_torch.ops import neighbors_sortjoin as sj
@@ -42,7 +42,7 @@ from swarm_tpu_torch.parallel.mesh import (
     SortJoinShardedEngine,
 )
 from test_jax_neighbors import _random_db
-from test_torch_cli import mixed_lengths_fasta
+from cli_parity import mixed_lengths_fasta
 
 CPU = torch.device("cpu")
 RANK_VARS = ("SWARM_TPU_COORDINATOR", "SWARM_TPU_NUM_PROCESSES",
@@ -94,13 +94,14 @@ def test_d1_sharded_equals_jax_and_one_device(case, k):
         want = jax_d1_edges(case, no_break)
         one = sj.SortJoinNeighborEngine(db, CPU).build_network(
             no_break, db.abundances)
+        metrics.reset()
         got = SortJoinShardedEngine(db, LocalShards(k, CPU)).build_network(
             no_break, db.abundances)
         assert len(want[0]) > 0
         for g, o, w in zip(got, one, want):
             np.testing.assert_array_equal(g, w)
             np.testing.assert_array_equal(o, w)
-    assert mesh.last_run["d1"]["shards"] == k
+    assert metrics.last_run["d1_shards.count"] == k
 
 
 def test_d1_sharded_rows_stay_for_the_graft():
@@ -165,10 +166,12 @@ def test_graft_sharded_strips_equal_one_pass():
     want = ft.GraftEngine(db, CPU).graft_candidates(heavy, light)
     eng = ShardedGraftEngine(db, LocalShards(3, CPU))
     eng.MAX_STRIP_KEYS = 20_000
+    metrics.reset()
     got = eng.graft_candidates(heavy, light)
     assert got[0] == want[0] > 0
     np.testing.assert_array_equal(got[1], want[1])
-    assert mesh.last_run["graft"]["exchanges"] > 2  # the small side, strips
+    # the small side, then the strips
+    assert metrics.last_run["graft_shards.exchanges"] > 2
 
 
 @pytest.mark.parametrize("k", [1, 4])
@@ -210,11 +213,22 @@ def d2_engines(d):
 def test_d2_sharded_pairs_equal_jax_in_order(k):
     db, jeng, eng = d2_engines(2)
     ja, jb, jtot = jeng.candidate_pairs_sharded(jeng.mesh)
+    metrics.reset()
     pa, pb, tot = eng.candidate_pairs_sharded(LocalShards(k, CPU))
     assert tot == jtot == len(pa) > 0
     np.testing.assert_array_equal(pa, ja)
     np.testing.assert_array_equal(pb, jb)
-    assert mesh.last_run["d2"]["shards"] == k
+    assert metrics.last_run["d2_shards.count"] == k
+
+
+def test_shard_count_holds_over_two_runs_in_one_record():
+    """ENGINE_shards.count is the shards of the engine's last run: set,
+    not summed, where an engine runs twice in one record."""
+    _, _, eng = d2_engines(2)
+    metrics.reset()
+    for k in (3, 2):
+        eng.candidate_pairs_sharded(LocalShards(k, CPU))
+    assert metrics.last_run["d2_shards.count"] == 2
 
 
 @pytest.mark.parametrize("k", [3])
@@ -382,7 +396,7 @@ def _run(tmp_path, argv, name):
     (["-d", "2"], {"SWARM_TPU_D2_ENGINE": "network",
                    "SWARM_TPU_D2_TILE": "128"})], ids=["d1f", "d2"])
 def test_run_takes_the_sharded_engines(tmp_path, monkeypatch, flags, env):
-    from test_torch_cli import graft_fasta
+    from cli_parity import graft_fasta
 
     (tmp_path / "in.fasta").write_text(graft_fasta())
     argv = flags + ["-o", "out.txt", "-s", "stats.txt", "-i", "struct.txt"]
@@ -390,11 +404,12 @@ def test_run_takes_the_sharded_engines(tmp_path, monkeypatch, flags, env):
         monkeypatch.setenv(key, value)
     want = _run(tmp_path, argv, "one")
     monkeypatch.setenv("SWARM_TORCH_SHARDS", "2")
-    mesh.last_run.clear()
     got = _run(tmp_path, argv, "shards")
     assert got == want and len(want) == 4
-    assert sorted(mesh.last_run) == (["d1", "graft"] if "-f" in flags
-                                     else ["d2"])
+    ran = {k: v for k, v in metrics.last_run.items()
+           if k.endswith("_shards.count")}
+    assert ran == ({"d1_shards.count": 2, "graft_shards.count": 2}
+                   if "-f" in flags else {"d2_shards.count": 2})
 
 
 def test_a_failing_shard_raises(tmp_path, monkeypatch):

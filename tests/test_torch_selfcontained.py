@@ -12,7 +12,7 @@ not drifted from swarm_tpu's.
     in-process shards (SWARM_TORCH_SHARDS=3);
 (c) the copies against the originals on seeded corpora: db_read and the
     native wrappers give the same arrays, the corpus generators the same
-    records (the CLI cases of tests/test_torch_cli.py hold the outputs
+    records (the CLI cases of tests/test_torch_cli*.py hold the outputs
     byte for byte);
 (b') the resident server (swarm_tpu_torch/server.py) serves d = 1, 2
     and -f on the CPU and ends with neither jax nor swarm_tpu in
@@ -145,7 +145,7 @@ def test_launcher_d1_engine_on_mixed_lengths_holds_no_jax(tmp_path):
     forced: the engine packs its ragged rows (its [timing] lines show
     its start: the arena's copy and the count and pack pass) and imports
     nothing of the JAX side."""
-    from test_torch_cli import mixed_lengths_fasta
+    from cli_parity import mixed_lengths_fasta
 
     (tmp_path / "in.fasta").write_text(mixed_lengths_fasta())
     probe = LAUNCHER_PROBE.format(
@@ -169,7 +169,7 @@ def test_launcher_fastidious_device_graft_holds_no_jax(tmp_path):
     """-d 1 -f with the device graft forced (SWARM_TPU_GRAFT_PROBE_MAX=0):
     the graft engine runs (its [timing] lines show it) and imports
     nothing of the JAX side."""
-    from test_torch_cli import graft_fasta
+    from cli_parity import graft_fasta
 
     (tmp_path / "in.fasta").write_text(graft_fasta())
     probe = LAUNCHER_PROBE.format(
@@ -187,14 +187,15 @@ def test_launcher_fastidious_device_graft_holds_no_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flags,engines", [
-    (["-d", "1", "-f"], (b"d1 shards (cpu)", b"graft shards (cpu)")),
-    (["-d", "2"], (b"d2 shards (cpu)",))], ids=["d1f", "d2"])
+    (["-d", "1", "-f"], (b"d1 shards 3 (cpu)", b"graft shards 3 (cpu)")),
+    (["-d", "2"], (b"d2 shards 3 (cpu)",))], ids=["d1f", "d2"])
 def test_launcher_sharded_engines_hold_no_jax(tmp_path, flags, engines):
     """-d 1 -f and -d 2 (network engine) over 3 in-process shards: the
-    sharded engines run (their [timing] lines show them) and import
-    nothing of the JAX side; the run's last [timing] line counts every
-    kernel's launches, none on the CPU."""
-    from test_torch_cli import graft_fasta
+    sharded engines run (the [timing] lines of their spans show them,
+    their gather among them) and import nothing of the JAX side; the
+    run's last [timing] line counts every kernel's launches, none on the
+    CPU."""
+    from cli_parity import graft_fasta
 
     (tmp_path / "in.fasta").write_text(graft_fasta())
     probe = LAUNCHER_PROBE.format(
@@ -209,7 +210,7 @@ def test_launcher_sharded_engines_hold_no_jax(tmp_path, flags, engines):
              "PYTHONPATH": str(REPO_ROOT)})
     assert r.returncode == 0, r.stderr.decode()
     for engine in engines:
-        assert b"[timing] " + engine + b" shard 2/3" in r.stderr
+        assert b"[timing] " + engine + b" gather" in r.stderr
     launches = [ln for ln in r.stderr.decode().splitlines()
                 if ln.startswith("[timing] launches ")]
     assert len(launches) == 1
